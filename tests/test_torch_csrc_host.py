@@ -1,0 +1,190 @@
+"""The CUDA kernels' device code, compiled for the host, against the plain
+PyTorch versions.
+
+``csrc/field.cuh`` and ``csrc/g1.cuh`` also compile as plain C++.
+``csrc/host_check.cpp`` loops the kernels' lane bodies (the very functions the
+CUDA kernels call per thread) over the lanes on the CPU, so the 32-bit-word
+Montgomery arithmetic and the group-law formulas of the kernels are held
+against the plain versions here, without a GPU.  What only a GPU can show (the
+launch, the build for sm_90a) is left to ``chip_smoke.py``.  One test holds
+the host-compiled product and addition against the JAX package itself, so
+that the kernels' arithmetic does not rest on the port's plain versions alone.
+"""
+
+import ctypes
+import os
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_bls12_381_torch import oracle
+from tpu_bls12_381_torch.curves import cuda_g1, g1, projective as pj
+from tpu_bls12_381_torch.curves.field_adapters import FQ_PLAIN
+from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
+from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "tpu_bls12_381_torch", "csrc")
+N = 96
+SZ = ctypes.c_size_t
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++ / c++) on this machine")
+    out = tmp_path_factory.mktemp("host_check") / "libhost_check.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
+                    "-o", str(out), os.path.join(CSRC, "host_check.cpp")],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(out))
+
+
+def _ptr(t):
+    assert t.is_contiguous() or t.stride(-1) == 1
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _elements(spec, seed):
+    rng = random.Random(seed)
+    p = spec.modulus
+    vals = [0, 1, p - 1, p - 2, spec.r % p, (1 << 32) - 1, 1 << 32,
+            (1 << (16 * spec.num_limbs - 3)) % p]
+    vals += [rng.randrange(p) for _ in range(N - len(vals))]
+    return torch.from_numpy(
+        ints_to_limbs(vals, spec.num_limbs).astype(np.int32)).contiguous()
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mont_mul_and_sqr(lib, name):
+    spec = {"fr": FR, "fq": FQ}[name]
+    a = _elements(spec, 1)
+    b = _elements(spec, 2).flip(1).contiguous()
+    out = torch.empty_like(a)
+    getattr(lib, f"{name}_mont_mul")(_ptr(a), _ptr(b), _ptr(out), SZ(N))
+    assert torch.equal(out, cuda_ops.mont_mul_plain(spec, a, b))
+    getattr(lib, f"{name}_mont_mul")(_ptr(a), _ptr(a), _ptr(out), SZ(N))
+    assert torch.equal(out, cuda_ops.mont_mul_plain(spec, a, a))
+    getattr(lib, f"{name}_mont_sqr")(_ptr(a), _ptr(out), SZ(N))
+    assert torch.equal(out, cuda_ops.mont_sqr_plain(spec, a))
+
+
+def test_fq_add_sub(lib):
+    a = _elements(FQ, 3)
+    b = _elements(FQ, 4).flip(1).contiguous()
+    s, d = torch.empty_like(a), torch.empty_like(a)
+    lib.fq_add_sub(_ptr(a), _ptr(b), _ptr(s), _ptr(d), SZ(N))
+    assert torch.equal(s, ops.add(FQ, a, b))
+    assert torch.equal(d, ops.sub(FQ, a, b))
+    lib.fq_add_sub(_ptr(a), _ptr(a), _ptr(s), _ptr(d), SZ(N))
+    assert torch.equal(s, ops.double(FQ, a))
+    assert not d.any()
+
+
+@pytest.fixture(scope="module")
+def points():
+    rng = random.Random(7)
+    G = oracle.g1_generator()
+    pts = [oracle.jac_to_affine(
+        oracle.scalar_mul(rng.randrange(1, 1 << 40), G, oracle.FQ_OPS),
+        oracle.FQ_OPS) for _ in range(N)]
+    A = g1.affine_from_ints(pts, device="cpu")
+    B = g1.affine_from_ints(pts[5:] + pts[:5], device="cpu")
+    P = [c.clone() for c in pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, B))]
+    Q = [c.clone() for c in pj.proj_add(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, A),
+                                        tuple(P))]
+    ident = pj.proj_identity(FQ_PLAIN, (N,), "cpu")
+    negP = pj.proj_neg(FQ_PLAIN, tuple(P))
+    for c in range(3):
+        P[c][:, 0] = ident[c][:, 0]            # identity + Q
+        Q[c][:, 1] = ident[c][:, 1]            # P + identity
+        Q[c][:, 2] = P[c][:, 2]                # P + P
+        Q[c][:, 3] = negP[c][:, 3]             # P + (-P)
+        P[c][:, 4] = ident[c][:, 4]            # identity + identity
+        Q[c][:, 4] = ident[c][:, 4]
+    return {"A": A, "P": tuple(c.contiguous() for c in P),
+            "Q": tuple(c.contiguous() for c in Q)}
+
+
+def test_padd_and_pdbl(lib, points):
+    P, Q = points["P"], points["Q"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_padd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N))
+    want = cuda_g1.padd_plain(P, Q)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not out[2][:, 3:5].any()            # identity: Z = 0
+    lib.g1_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    want = cuda_g1.pdbl_plain(P)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+def test_pmadd_signed_elementwise(lib, points):
+    A = points["A"]
+    P = [c.clone() for c in points["P"]]
+    PA = pj.affine_to_proj(FQ_PLAIN, A)
+    sign = torch.tensor([i % 3 == 0 for i in range(N)])
+    inf2 = torch.tensor([i % 7 == 5 for i in range(N)])
+    for lane, s in ((8, False), (9, True)):    # P + P, P + (-P)
+        for c in range(3):
+            P[c][:, lane] = PA[c][:, lane]
+        sign[lane], inf2[lane] = s, False
+    P = tuple(P)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_pmadd_signed(*[_ptr(t) for t in P], _ptr(A[0]), _ptr(A[1]),
+                        SZ(24 * N), _ptr(inf2), _ptr(sign),
+                        *[_ptr(t) for t in out], SZ(N), ctypes.c_int(1))
+    want = cuda_g1.pmadd_signed_plain(P, (A[0], A[1], inf2), sign)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not out[2][:, 9].any()
+    assert all(torch.equal(o[:, 5], p[:, 5]) for o, p in zip(out, P))  # inf2
+
+
+def test_pmadd_signed_rows(lib, points):
+    """The looped form on the two halves of one (R, 48, L) tile, from the
+    identity, as the MSM's scan calls it."""
+    R, L = 6, 16
+    A = points["A"]
+    tile = torch.cat([A[0], A[1]]).reshape(48, R, L).permute(1, 0, 2).contiguous()
+    xr, yr = tile[:, :24], tile[:, 24:]
+    sign = torch.tensor([[(r + l) % 2 == 0 for l in range(L)] for r in range(R)])
+    inf = torch.tensor([[(r * l) % 5 == 4 for l in range(L)] for r in range(R)])
+    inf[:, 3] = True                           # a column that stays the identity
+    out = [torch.empty((R, 24, L), dtype=torch.int32) for _ in range(3)]
+    lib.g1_pmadd_signed(None, None, None, _ptr(xr), _ptr(yr), SZ(xr.stride(0)),
+                        _ptr(inf), _ptr(sign), *[_ptr(t) for t in out],
+                        SZ(L), ctypes.c_int(R))
+    want = cuda_g1.pmadd_signed_rows_plain(xr, yr, sign, inf)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not out[2][:, :, 3].any()
+
+
+def test_host_compiled_kernels_match_the_jax_package(lib, points):
+    """``mont_mul`` (Fr and Fq) and ``padd`` as the kernels compute them,
+    against ``fields/ops.py`` and ``curves/projective.py`` of the JAX package
+    on the same limbs."""
+    import jax.numpy as jnp
+
+    from tpu_bls12_381.curves import projective as jpj
+    from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER as JF
+    from tpu_bls12_381.fields import FQ as JFQ, FR as JFR, ops as jops
+
+    j = lambda t: jnp.asarray(t.numpy().astype(np.uint32))
+    for name, spec, jspec in (("fr", FR, JFR), ("fq", FQ, JFQ)):
+        a = _elements(spec, 5)
+        b = _elements(spec, 6).flip(1).contiguous()
+        out = torch.empty_like(a)
+        getattr(lib, f"{name}_mont_mul")(_ptr(a), _ptr(b), _ptr(out), SZ(N))
+        np.testing.assert_array_equal(
+            out.numpy().astype(np.uint32),
+            np.asarray(jops.mont_mul(jspec, j(a), j(b))))
+    P, Q = points["P"], points["Q"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_padd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N))
+    want = jpj.proj_add(JF, tuple(map(j, P)), tuple(map(j, Q)))
+    for o, w in zip(out, want):
+        np.testing.assert_array_equal(o.numpy().astype(np.uint32), np.asarray(w))

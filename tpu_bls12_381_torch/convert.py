@@ -1,0 +1,56 @@
+"""State carried across: numpy arrays of the JAX package <-> the port's tensors.
+
+The JAX package holds limbs as ``uint32`` arrays ``(16, N)`` / ``(24, N)`` and
+masks as bool arrays; ``np.asarray`` of those is what these functions take.
+The port stores limbs as ``int32`` (a 16-bit limb is the same bits in both).
+The makers follow the device rule: ``device=None`` means the CUDA card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .fields import FQ, FR
+from .fields.ops import LIMB_DTYPE
+
+
+def _limbs_from_numpy(arr, k: int, name: str, device):
+    a = np.asarray(arr)
+    if a.ndim < 1 or a.shape[0] != k:
+        raise ValueError(f"{name}: expected shape ({k}, ...), got {a.shape}")
+    if a.size and int(a.max()) > 0xFFFF:
+        raise ValueError(f"{name}: limbs must be below 2^16")
+    t = torch.from_numpy(np.ascontiguousarray(a.astype(np.int32)))
+    return t.to(resolve_device(device))
+
+
+def scalars_from_numpy(arr, device=None):
+    """(16, N) limb array of Fr scalars -> int32 tensor on ``device``."""
+    return _limbs_from_numpy(arr, FR.num_limbs, "scalars", device)
+
+
+def field_from_numpy(arr, spec, device=None):
+    """(K, *batch) limb array of ``spec`` elements -> int32 tensor."""
+    return _limbs_from_numpy(arr, spec.num_limbs, spec.name, device)
+
+
+def affine_from_numpy(x, y, inf, device=None):
+    """Affine batch as numpy arrays -> (x, y, inf) tensors on ``device``."""
+    dev = resolve_device(device)
+    inf_t = torch.from_numpy(np.array(inf, dtype=bool))
+    return (_limbs_from_numpy(x, FQ.num_limbs, "x", dev),
+            _limbs_from_numpy(y, FQ.num_limbs, "y", dev),
+            inf_t.to(dev))
+
+
+def to_numpy(t):
+    """A limb or mask tensor -> numpy (limbs as uint32, as the JAX package)."""
+    a = t.detach().cpu().numpy()
+    return a.astype(np.uint32) if t.dtype == LIMB_DTYPE else a
+
+
+def point_to_numpy(P):
+    """A point tuple (projective, Jacobian or affine) -> tuple of numpy arrays."""
+    return tuple(to_numpy(c) for c in P)

@@ -1,0 +1,158 @@
+// Complete homogeneous-projective group law for G1 (y^2 = x^3 + 4 over Fq),
+// Renes-Costello-Batina 2016, a = 0, 3b = 12.  One point operation per thread.
+//
+// The formulas and their operation order are those of the JAX package's
+// curves/pallas_g1.py (_k_mul12, _k_proj_add, _k_proj_madd, _k_proj_dbl),
+// so that with canonical field results the coordinates written back equal
+// the plain PyTorch versions in curves/projective.py limb for limb.
+
+#pragma once
+
+#include "field.cuh"
+
+typedef El<Fq> fq;
+
+struct G1Proj {
+    fq X, Y, Z;
+};
+
+DEV fq fq_mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
+DEV fq fq_sqr(const fq& a) { return fp_sqr<Fq>(a); }
+DEV fq fq_add(const fq& a, const fq& b) { return fp_add<Fq>(a, b); }
+DEV fq fq_sub(const fq& a, const fq& b) { return fp_sub<Fq>(a, b); }
+DEV fq fq_neg(const fq& a) { return fp_neg<Fq>(a); }
+
+// 12a = 4 * 3a by additions (3b for b = 4); stays reduced.
+DEV fq fq_mul12(const fq& a) {
+    fq t = fq_add(fq_add(a, a), a);
+    t = fq_add(t, t);
+    return fq_add(t, t);
+}
+
+DEV G1Proj g1_identity() {
+    G1Proj P;
+    P.X = fp_zero<Fq>();
+    P.Y = fp_one<Fq>();
+    P.Z = fp_zero<Fq>();
+    return P;
+}
+
+// Algorithm 7: complete addition, 12M + 2 mul12.
+DEV G1Proj g1_proj_add(const G1Proj& P, const G1Proj& Q) {
+    fq t0 = fq_mul(P.X, Q.X);
+    fq t1 = fq_mul(P.Y, Q.Y);
+    fq t2 = fq_mul(P.Z, Q.Z);
+    fq t3 = fq_sub(fq_mul(fq_add(P.X, P.Y), fq_add(Q.X, Q.Y)), fq_add(t0, t1));
+    fq t4 = fq_sub(fq_mul(fq_add(P.Y, P.Z), fq_add(Q.Y, Q.Z)), fq_add(t1, t2));
+    fq ty = fq_sub(fq_mul(fq_add(P.X, P.Z), fq_add(Q.X, Q.Z)), fq_add(t0, t2));
+    fq t0_3 = fq_add(fq_add(t0, t0), t0);
+    t2 = fq_mul12(t2);
+    fq Z3 = fq_add(t1, t2);
+    t1 = fq_sub(t1, t2);
+    fq Y3 = fq_mul12(ty);
+    G1Proj R;
+    R.X = fq_sub(fq_mul(t3, t1), fq_mul(t4, Y3));
+    R.Y = fq_add(fq_mul(t1, Z3), fq_mul(Y3, t0_3));
+    R.Z = fq_add(fq_mul(Z3, t4), fq_mul(t0_3, t3));
+    return R;
+}
+
+// Algorithm 8: complete mixed addition (Z2 = 1), 11M + 2 mul12.  The affine
+// encoding cannot hold the identity, so `inf2` passes P through.
+DEV G1Proj g1_proj_madd(const G1Proj& P, const fq& x2, const fq& y2, bool inf2) {
+    fq t0 = fq_mul(P.X, x2);
+    fq t1 = fq_mul(P.Y, y2);
+    fq t3 = fq_sub(fq_mul(fq_add(P.X, P.Y), fq_add(x2, y2)), fq_add(t0, t1));
+    fq t4 = fq_add(fq_mul(x2, P.Z), P.X);
+    fq t5 = fq_add(fq_mul(y2, P.Z), P.Y);
+    fq t0_3 = fq_add(fq_add(t0, t0), t0);
+    fq t2 = fq_mul12(P.Z);
+    fq Z3 = fq_add(t1, t2);
+    t1 = fq_sub(t1, t2);
+    fq Y3 = fq_mul12(t4);
+    G1Proj R;
+    R.X = fp_cmov<Fq>(inf2, P.X, fq_sub(fq_mul(t3, t1), fq_mul(t5, Y3)));
+    R.Y = fp_cmov<Fq>(inf2, P.Y, fq_add(fq_mul(t1, Z3), fq_mul(Y3, t0_3)));
+    R.Z = fp_cmov<Fq>(inf2, P.Z, fq_add(fq_mul(Z3, t5), fq_mul(t0_3, t3)));
+    return R;
+}
+
+// Algorithm 9: complete doubling, 6M + 2S + mul12.
+DEV G1Proj g1_proj_dbl(const G1Proj& P) {
+    fq t0 = fq_sqr(P.Y);
+    fq Z3 = fq_add(t0, t0);
+    Z3 = fq_add(Z3, Z3);
+    Z3 = fq_add(Z3, Z3);                       // 8 Y^2
+    fq t1 = fq_mul(P.Y, P.Z);
+    fq t2 = fq_mul12(fq_sqr(P.Z));             // 3b Z^2
+    fq X3 = fq_mul(t2, Z3);
+    fq Y3 = fq_add(t0, t2);
+    G1Proj R;
+    R.Z = fq_mul(t1, Z3);
+    t2 = fq_add(fq_add(t2, t2), t2);           // 9b Z^2
+    t0 = fq_sub(t0, t2);
+    R.Y = fq_add(fq_mul(t0, Y3), X3);
+    fq t = fq_mul(t0, fq_mul(P.X, P.Y));
+    R.X = fq_add(t, t);
+    return R;
+}
+
+DEV G1Proj g1_load(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                   size_t n, size_t idx) {
+    G1Proj P;
+    P.X = fp_load<Fq>(X, n, idx);
+    P.Y = fp_load<Fq>(Y, n, idx);
+    P.Z = fp_load<Fq>(Z, n, idx);
+    return P;
+}
+
+DEV void g1_store(uint32_t* X, uint32_t* Y, uint32_t* Z, size_t n, size_t idx,
+                  const G1Proj& P) {
+    fp_store<Fq>(X, n, idx, P.X);
+    fp_store<Fq>(Y, n, idx, P.Y);
+    fp_store<Fq>(Z, n, idx, P.Z);
+}
+
+// ---------------------------------------------------------------------------
+// Lane bodies: what one thread does.  The kernels in g1_kernels.cu call them
+// with the thread's index; host_check.cpp calls them in a loop on a CPU.
+// ---------------------------------------------------------------------------
+
+// acc_* may be null: the accumulator then starts at the identity (0 : 1 : 0).
+// x2/y2 rows are `row_stride` slots apart (they may be two halves of one
+// (R, 48, L) tile); the limb planes inside a row are L slots apart.  The
+// outputs are contiguous (R, 24, L).
+DEV void g1_pmadd_signed_lane(const uint32_t* accX, const uint32_t* accY,
+                              const uint32_t* accZ, const uint32_t* x2,
+                              const uint32_t* y2, size_t row_stride,
+                              const uint8_t* inf2, const uint8_t* sign,
+                              uint32_t* X3, uint32_t* Y3, uint32_t* Z3,
+                              size_t L, int R, size_t idx) {
+    G1Proj acc = accX ? g1_load(accX, accY, accZ, L, idx) : g1_identity();
+    const size_t out_stride = (size_t)Fq::K * L;
+    for (int r = 0; r < R; ++r) {
+        fq x = fp_load<Fq>(x2 + (size_t)r * row_stride, L, idx);
+        fq y = fp_load<Fq>(y2 + (size_t)r * row_stride, L, idx);
+        bool is_inf = inf2[(size_t)r * L + idx] != 0;
+        bool is_neg = sign[(size_t)r * L + idx] != 0;
+        y = fp_cmov<Fq>(is_neg, fq_neg(y), y);
+        acc = g1_proj_madd(acc, x, y, is_inf);
+        g1_store(X3 + (size_t)r * out_stride, Y3 + (size_t)r * out_stride,
+                 Z3 + (size_t)r * out_stride, L, idx, acc);
+    }
+}
+
+DEV void g1_padd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+                      const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
+                      uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                      size_t idx) {
+    G1Proj P = g1_load(X1, Y1, Z1, n, idx);
+    G1Proj Q = g1_load(X2, Y2, Z2, n, idx);
+    g1_store(X3, Y3, Z3, n, idx, g1_proj_add(P, Q));
+}
+
+DEV void g1_pdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+                      uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                      size_t idx) {
+    g1_store(X3, Y3, Z3, n, idx, g1_proj_dbl(g1_load(X1, Y1, Z1, n, idx)));
+}

@@ -1,0 +1,238 @@
+"""Fused G1 group-law CUDA kernels, with their plain versions beside them.
+
+Counterpart of the JAX package's ``curves/pallas_g1.py``:
+
+* ``pmadd_signed`` / ``pmadd_signed_rows`` take the place of
+  ``_pmadd_signed_kernel`` / ``pmadd_signed`` (``curves/pallas_g1.py:430``,
+  ``:456``): RCB16 algorithm 8, y2 negated per lane where ``sign``, P passed
+  through where ``inf2``;
+* ``padd`` takes the place of ``_padd_kernel`` / ``padd`` (``:465``, ``:507``):
+  RCB16 algorithm 7;
+* ``pdbl`` takes the place of ``_pdbl_kernel`` / ``pdbl`` (``:478``, ``:519``):
+  RCB16 algorithm 9.
+
+The kernels are CUDA C++ in ``csrc/g1_kernels.cu`` (formulas in
+``csrc/g1.cuh``, field arithmetic in ``csrc/field.cuh``): one thread per lane,
+all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
+launch walks the R rows of a scan tile inside each thread and writes every
+prefix row, where the JAX package launches R times.  On an H100 the integer
+pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
+864 bytes); the many launches on few lanes are bound by launch latency
+(PERF.md has the numbers).
+
+Each wrapper takes its plain version (``*_plain``: the formulas of
+``curves/projective.py`` over plain PyTorch field ops) only for tensors on the
+CPU.  For CUDA tensors it launches the kernel or raises; there is no
+fallback.  The wrappers copy nothing: coordinates must be contiguous and of
+one shape, masks contiguous, and anything else raises (the ``*_fast`` routers
+of ``curves/projective.py`` broadcast and lay out for them).  ``LAUNCHES``
+counts kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..fields import FQ
+from ..fields.cuda_ops import check_launch, check_limbs, stream_ptr
+from . import projective as pj
+from .field_adapters import FQ_PLAIN
+
+K = FQ.num_limbs
+
+LAUNCHES = {"pmadd_signed": 0, "padd": 0, "pdbl": 0}
+
+_PTR = ctypes.c_void_p
+_CONFIGURED = False
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    global _CONFIGURED
+    lib = _build.library("g1_kernels")
+    if not _CONFIGURED:
+        lib.g1_pmadd_signed.argtypes = (
+            [_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 5
+            + [ctypes.c_longlong, ctypes.c_int, _PTR])
+        lib.g1_padd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
+        lib.g1_pdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, _PTR]
+        for fn in (lib.g1_pmadd_signed, lib.g1_padd, lib.g1_pdbl):
+            fn.restype = ctypes.c_int
+        _CONFIGURED = True
+    return lib
+
+
+# -----------------------------------------------------------------------------
+# Plain versions
+# -----------------------------------------------------------------------------
+
+
+def pmadd_signed_plain(P, A, sign):
+    return pj.proj_add_mixed_signed(FQ_PLAIN, P, A, sign)
+
+
+def pmadd_signed_rows_plain(x_rows, y_rows, sign_rows, inf_rows):
+    """Row scan by R plain signed mixed adds from the identity."""
+    R = x_rows.shape[0]
+    acc = pj.proj_identity(FQ_PLAIN, tuple(inf_rows.shape[1:]), x_rows.device)
+    rows = []
+    for r in range(R):
+        acc = pmadd_signed_plain(
+            acc, (x_rows[r], y_rows[r], inf_rows[r]), sign_rows[r])
+        rows.append(acc)
+    return tuple(torch.stack([row[c] for row in rows]) for c in range(3))
+
+
+def padd_plain(P, Q):
+    return pj.proj_add(FQ_PLAIN, P, Q)
+
+
+def pdbl_plain(P):
+    return pj.proj_double(FQ_PLAIN, P)
+
+
+# -----------------------------------------------------------------------------
+# Checks and shapes
+# -----------------------------------------------------------------------------
+
+
+def _check_coords(ts, name: str):
+    """Raise unless the coordinates are contiguous int32 (24, *batch) limbs
+    of one shape on one device; returns the batch shape."""
+    for i, t in enumerate(ts):
+        check_limbs(t, K, f"{name}: coordinate {i}")
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: coordinates on different devices")
+        if t.shape != ts[0].shape:
+            raise ValueError(
+                f"{name}: coordinate {i} has shape {tuple(t.shape)}, "
+                f"coordinate 0 has {tuple(ts[0].shape)}")
+    return tuple(ts[0].shape[1:])
+
+
+def _check_mask(m, shape, device, name: str):
+    if not isinstance(m, torch.Tensor) or m.dtype != torch.bool:
+        raise TypeError(f"{name}: expected a bool tensor")
+    if tuple(m.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected shape {tuple(shape)}, got {tuple(m.shape)}")
+    if m.device != device:
+        raise ValueError(f"{name}: mask on a different device")
+    if not m.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous mask")
+
+
+# -----------------------------------------------------------------------------
+# Wrappers
+# -----------------------------------------------------------------------------
+
+
+def pmadd_signed(P, A, sign):
+    """Projective + (+-affine) addition, elementwise: adds A where ``sign`` is
+    False, -A where True; lanes with ``inf2`` return P."""
+    x2, y2, inf2 = A
+    coords = [*P, x2, y2]
+    batch = _check_coords(coords, "pmadd_signed")
+    dev = P[0].device
+    _check_mask(inf2, batch, dev, "pmadd_signed: inf2")
+    _check_mask(sign, batch, dev, "pmadd_signed: sign")
+    if not P[0].is_cuda:
+        return pmadd_signed_plain(P, A, sign)
+    n = P[0].numel() // K
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _lib().g1_pmadd_signed(
+            *[t.data_ptr() for t in coords], K * n,
+            inf2.data_ptr(), sign.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            n, 1, stream_ptr(dev))
+    check_launch(code, "g1_pmadd_signed")
+    LAUNCHES["pmadd_signed"] += 1
+    return tuple(out)
+
+
+def pmadd_signed_rows(x_rows, y_rows, sign_rows, inf_rows):
+    """The scan: per lane, R dependent signed mixed adds from the identity.
+
+    ``x_rows`` / ``y_rows``: (R, 24, L) int32, each row's (24, L) block
+    contiguous; the rows may be strided, by the same stride in both (two
+    halves of one (R, 48, L) tile).
+    ``sign_rows`` / ``inf_rows``: (R, L) bool.  Returns the inclusive prefix
+    rows, three (R, 24, L) tensors; row R-1 holds the column totals.
+    """
+    for t, name in ((x_rows, "x_rows"), (y_rows, "y_rows")):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"pmadd_signed_rows: {name} must be an int32 tensor")
+        if t.dim() != 3 or t.shape[1] != K:
+            raise ValueError(
+                f"pmadd_signed_rows: {name} must be (R, {K}, L), got "
+                f"{tuple(t.shape)}")
+    if x_rows.shape != y_rows.shape or x_rows.device != y_rows.device:
+        raise ValueError("pmadd_signed_rows: x_rows and y_rows differ")
+    R, _, L = x_rows.shape
+    dev = x_rows.device
+    _check_mask(sign_rows, (R, L), dev, "pmadd_signed_rows: sign_rows")
+    _check_mask(inf_rows, (R, L), dev, "pmadd_signed_rows: inf_rows")
+    row_stride = x_rows.stride(0) if R > 1 else K * L
+    for t, name in ((x_rows, "x_rows"), (y_rows, "y_rows")):
+        if not (t.stride(2) == 1 and t.stride(1) == L and (
+                R == 1 or t.stride(0) == row_stride >= K * L)):
+            raise ValueError(
+                f"pmadd_signed_rows: {name} must hold contiguous (24, L) "
+                f"row blocks at one row stride, got strides "
+                f"{tuple(t.stride())}")
+    if not x_rows.is_cuda:
+        return pmadd_signed_rows_plain(x_rows, y_rows, sign_rows, inf_rows)
+    out = [torch.empty((R, K, L), dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _lib().g1_pmadd_signed(
+            None, None, None,
+            x_rows.data_ptr(), y_rows.data_ptr(), row_stride,
+            inf_rows.data_ptr(), sign_rows.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            L, R, stream_ptr(dev))
+    check_launch(code, "g1_pmadd_signed")
+    LAUNCHES["pmadd_signed"] += 1
+    return tuple(out)
+
+
+def padd(P, Q):
+    """Complete projective + projective addition (``proj_add`` contract)."""
+    coords = [*P, *Q]
+    _check_coords(coords, "padd")
+    if not P[0].is_cuda:
+        return padd_plain(P, Q)
+    dev = P[0].device
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _lib().g1_padd(
+            *[t.data_ptr() for t in coords], *[o.data_ptr() for o in out],
+            P[0].numel() // K, stream_ptr(dev))
+    check_launch(code, "g1_padd")
+    LAUNCHES["padd"] += 1
+    return tuple(out)
+
+
+def pdbl(P):
+    """Complete projective doubling (``proj_double`` contract)."""
+    coords = list(P)
+    _check_coords(coords, "pdbl")
+    if not P[0].is_cuda:
+        return pdbl_plain(P)
+    dev = P[0].device
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _lib().g1_pdbl(
+            *[t.data_ptr() for t in coords], *[o.data_ptr() for o in out],
+            P[0].numel() // K, stream_ptr(dev))
+    check_launch(code, "g1_pdbl")
+    LAUNCHES["pdbl"] += 1
+    return tuple(out)

@@ -1,0 +1,77 @@
+"""G1: y^2 = x^3 + 4 over Fq: curve constants and host<->device converters.
+
+Counterpart of the JAX package's ``curves/g1.py``.  The makers follow the
+device rule: ``device=None`` means the CUDA card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import constants, oracle
+from ..device import resolve_device
+from ..fields import FQ, ops
+from ..fields.limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
+from .field_adapters import FQ_ADAPTER
+
+F = FQ_ADAPTER
+
+B_MONT_LIMBS = int_to_limbs(FQ.to_mont(constants.G1_B), FQ.num_limbs)
+
+
+def b_mont(batch_shape=(), device=None):
+    return ops.broadcast_constant(FQ, B_MONT_LIMBS, batch_shape, device)
+
+
+def _limbs_tensor(arr, device):
+    return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(device)
+
+
+def affine_from_ints(pts, device=None):
+    """List of (x, y) int pairs or None -> affine batch (Montgomery form)."""
+    device = resolve_device(device)
+    xs = [FQ.to_mont(p[0]) if p is not None else 0 for p in pts]
+    ys = [FQ.to_mont(p[1]) if p is not None else 0 for p in pts]
+    inf = np.array([p is None for p in pts], dtype=bool)
+    return (
+        _limbs_tensor(ints_to_limbs(xs, FQ.num_limbs), device),
+        _limbs_tensor(ints_to_limbs(ys, FQ.num_limbs), device),
+        torch.from_numpy(inf).to(device),
+    )
+
+
+def affine_to_ints(A):
+    """Affine batch -> list of (x, y) int pairs / None (standard form)."""
+    x = limbs_to_ints(A[0].cpu().numpy())
+    y = limbs_to_ints(A[1].cpu().numpy())
+    inf = A[2].cpu().numpy().reshape(-1)
+    return [None if i else (FQ.from_mont(xv), FQ.from_mont(yv))
+            for xv, yv, i in zip(x, y, inf)]
+
+
+def jacobian_to_ints(P):
+    """Jacobian batch -> affine int pairs / None (oracle comparison).
+
+    The inversion runs on the host with Python integers (the batched device
+    inverse is not ported yet); meant for a handful of result points.
+    """
+    X, Y, Z = (limbs_to_ints(c.cpu().numpy()) for c in P)
+    out = []
+    for xv, yv, zv in zip(X, Y, Z):
+        jac = (FQ.from_mont(xv), FQ.from_mont(yv), FQ.from_mont(zv))
+        out.append(oracle.jac_to_affine(jac, oracle.FQ_OPS))
+    return out
+
+
+def generator_affine(batch_shape=(), device=None):
+    g = (constants.G1_GENERATOR_X, constants.G1_GENERATOR_Y)
+    count = int(np.prod(batch_shape)) if batch_shape else 1
+    A = affine_from_ints([g] * count, device)
+    if batch_shape:
+        return tuple(
+            c.reshape(c.shape[:1] + tuple(batch_shape)) if c.dim() > 1
+            else c.reshape(tuple(batch_shape))
+            for c in A
+        )
+    return A

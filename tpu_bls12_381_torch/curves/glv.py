@@ -1,0 +1,163 @@
+"""GLV endomorphism for G1: phi(x, y) = (beta*x, y) with phi(P) = lambda*P.
+
+Counterpart of the JAX package's ``curves/glv.py`` as far as the MSM needs it:
+the endomorphism and the scalar decomposition k = k1 + k2*lambda with both
+halves below 2^128.  ``scalar_mul_glv`` is not ported yet.
+
+Constants are derived, not transcribed: beta is the cube root of unity in Fq
+for which phi(P) = lambda*P holds (lambda = z^2 - 1 for the BLS parameter z),
+checked against the host oracle when it is first used.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import constants
+from ..fields import FQ, FR, ops
+from ..fields.limbs import LIMB_BITS, LIMB_MASK, int_to_limbs
+
+P_MOD = constants.FQ_MODULUS
+R_MOD = constants.FR_MODULUS
+
+BLS_Z = -0xD201000000010000
+GLV_LAMBDA = (BLS_Z * BLS_Z - 1) % R_MOD
+assert (GLV_LAMBDA * GLV_LAMBDA + GLV_LAMBDA + 1) % R_MOD == 0
+
+# Both halves are < 2^128 (see decompose).
+GLV_HALF_BITS = 128
+
+# Barrett reciprocal for division by lambda: floor(2^384 / lambda).
+# Because lambda ~ 2^128 ~ sqrt(r), plain integer division k = k2*lambda
+# + k1 IS the GLV split (k1 = k mod lambda < 2^128, k2 = k//lambda <
+# 2^128): exact over the integers, no mod-r lattice rounding needed.
+GLV_BARRETT_SHIFT = 384
+GLV_BARRETT_M = (1 << GLV_BARRETT_SHIFT) // GLV_LAMBDA
+
+
+def _derive_beta() -> int:
+    """The cube root of unity in Fq matching the eigenvalue lambda.
+
+    Roots of t^2 + t + 1 mod p are (-1 +- sqrt(-3))/2; the one for which
+    (beta*x_G, y_G) == lambda*G is the eigenvalue-consistent choice.
+    """
+    from .. import oracle
+
+    s = pow(P_MOD - 3, (P_MOD + 1) // 4, P_MOD)  # p = 3 mod 4
+    assert (s * s) % P_MOD == P_MOD - 3
+    inv2 = pow(2, P_MOD - 2, P_MOD)
+    candidates = [((P_MOD - 1 + s) * inv2) % P_MOD,
+                  ((P_MOD - 1 - s) * inv2) % P_MOD]
+    gx, gy = constants.G1_GENERATOR_X, constants.G1_GENERATOR_Y
+    lam_g = oracle.jac_to_affine(
+        oracle.scalar_mul(GLV_LAMBDA, (gx, gy), oracle.FQ_OPS), oracle.FQ_OPS)
+    for b in candidates:
+        assert pow(b, 3, P_MOD) == 1 and b != 1
+        if ((b * gx) % P_MOD, gy) == lam_g:
+            return b
+    raise AssertionError("no eigenvalue-consistent cube root found")
+
+
+_BETA: int | None = None
+
+
+def beta() -> int:
+    global _BETA
+    if _BETA is None:
+        _BETA = _derive_beta()
+    return _BETA
+
+
+def endomorphism(F, A):
+    """phi(x, y) = (beta*x, y) on an affine batch (Montgomery form)."""
+    x, y, inf = A
+    bm = ops.broadcast_constant(
+        FQ, int_to_limbs(FQ.to_mont(beta()), FQ.num_limbs),
+        F.batch_shape(x), x.device)
+    return (F.mul(x, bm), y, inf)
+
+
+# -----------------------------------------------------------------------------
+# Limb helpers: plain (non-Montgomery) big-int ops on (K, ...) limb tensors,
+# computed in int64.
+# -----------------------------------------------------------------------------
+
+
+def _limb_mul(a, b, Ka: int, Kb: int):
+    """Schoolbook product of 16-bit-limb tensors -> (Ka+Kb) limb tensor.
+
+    A column sums at most min(Ka, Kb) <= 24 products below 2^32, so it stays
+    below 2^37 in int64 and needs no low/high split before the carry pass.
+    """
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
+    cols = torch.zeros((Ka + Kb,) + tuple(a.shape[1:]), dtype=torch.int64,
+                       device=a.device)
+    for i in range(Ka):
+        cols[i:i + Kb] += a[i][None] * b[:Kb]
+    out = torch.empty_like(cols)
+    carry = torch.zeros_like(cols[0])
+    for i in range(Ka + Kb):
+        v = cols[i] + carry
+        out[i] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    return out
+
+
+def _limb_sub(a, b):
+    """a - b on equal-K limb tensors; returns (diff, borrow_flag)."""
+    K = a.shape[0]
+    d = a.to(torch.int64) - b.to(torch.int64)
+    out = torch.empty_like(d)
+    borrow = torch.zeros_like(d[0])
+    for i in range(K):
+        v = d[i] - borrow
+        out[i] = v & LIMB_MASK
+        borrow = (v >> LIMB_BITS) & 1
+    return out, borrow.bool()
+
+
+def _limb_inc_where(a, flag):
+    """a + 1 on lanes where flag (carry-propagated)."""
+    K = a.shape[0]
+    a = a.to(torch.int64)
+    out = torch.empty_like(a)
+    carry = flag.to(torch.int64)
+    for i in range(K):
+        v = a[i] + carry
+        out[i] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    return out
+
+
+def _const_col(value: int, k: int, like):
+    col = torch.tensor([int(x) for x in int_to_limbs(value, k)],
+                       dtype=torch.int64, device=like.device)
+    return col.reshape((k,) + (1,) * (like.dim() - 1)).expand(
+        (k,) + tuple(like.shape[1:]))
+
+
+def decompose(k_std):
+    """Standard-form scalars (16, N) -> (k1, k2) with k = k1 + k2*lambda.
+
+    Exact integer split by Barrett division (see GLV_BARRETT_M note):
+    k2 = k // lambda (< 2^128), k1 = k mod lambda (< 2^128).  Branch-free
+    limb arithmetic; the reciprocal estimate is corrected by at most two
+    conditional (subtract-lambda, increment-k2) steps.  ``k1`` has 16 limbs;
+    ``k2`` keeps only the limbs the shift leaves (9, the top one zero), as in
+    the JAX package.
+    """
+    K = FR.num_limbs
+    Km = (GLV_BARRETT_M.bit_length() + LIMB_BITS - 1) // LIMB_BITS - K
+    m = _const_col(GLV_BARRETT_M, K + Km, k_std)
+    prod = _limb_mul(k_std, m, K, K + Km)       # (2K+Km) limbs
+    k2 = prod[GLV_BARRETT_SHIFT // LIMB_BITS:][:K]  # >> 384: the live limbs
+    lam = _const_col(GLV_LAMBDA, K, k_std)
+    k2l = _limb_mul(k2, lam, k2.shape[0], K)[:K]  # exact (true value < 2^255)
+    rem, _ = _limb_sub(k_std, k2l)              # k - k2*lambda, in [0, 3*lam)
+    for _ in range(2):                          # Barrett correction
+        d, borrow = _limb_sub(rem, lam)
+        take = ~borrow
+        rem = torch.where(take[None], d, rem)
+        k2 = _limb_inc_where(k2, take)
+    return rem.to(ops.LIMB_DTYPE), k2.to(ops.LIMB_DTYPE)

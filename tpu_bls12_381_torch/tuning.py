@@ -1,0 +1,55 @@
+"""Tuning profiles of the port: one for an NVIDIA H100, one for the CPU.
+
+Counterpart of the JAX package's ``tuning.py``, with only the fields the
+ported slice reads.  The profile is chosen by the device the tensors live on;
+the GPU profile takes its facts from ``torch.cuda.get_device_properties``.
+The MSM caps shape the bucket tile (window bits, lane width); they do not
+change any result.  They are first values, not tuned ones: PERF.md says what
+a run used.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import torch
+
+
+@dataclass(frozen=True)
+class ChipProfile:
+    """Tuning knobs read by msm/pippenger.py."""
+
+    name: str
+    # MSM window ceiling below / at-or-above the large-size crossover
+    # (pippenger.window_bits_for).
+    msm_window_cap_small: int
+    msm_window_cap_large: int
+    msm_large_log_n: int
+    # log2 ceiling of the bucket-accumulation lane tile L
+    # (pippenger.lane_tile_for): one scan thread per lane.
+    msm_lane_tile_log_cap: int
+
+
+# First values, the same on both devices until a measurement on the card
+# says otherwise.
+_CAPS = dict(msm_window_cap_small=15, msm_window_cap_large=16,
+             msm_large_log_n=22, msm_lane_tile_log_cap=15)
+
+_CPU = ChipProfile("cpu", **_CAPS)
+
+
+@lru_cache(maxsize=None)
+def _cuda_profile(index: int) -> ChipProfile:
+    return ChipProfile(torch.cuda.get_device_properties(index).name, **_CAPS)
+
+
+def chip_profile(device=None) -> ChipProfile:
+    """Profile for ``device`` (a torch device or string; None = the card)."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        return _cuda_profile(index)
+    return _CPU
