@@ -1,11 +1,13 @@
 """The CUDA kernels' device code, compiled for the host, against the plain
 PyTorch versions.
 
-``csrc/field.cuh`` and ``csrc/g1.cuh`` also compile as plain C++.
-``csrc/host_check.cpp`` loops the kernels' lane bodies (the very functions the
-CUDA kernels call per thread) over the lanes on the CPU, so the 32-bit-word
-Montgomery arithmetic and the group-law formulas of the kernels are held
-against the plain versions here, without a GPU.  What only a GPU can show (the
+``csrc/field.cuh``, ``csrc/g1.cuh`` and ``csrc/ntt.cuh`` also compile as plain
+C++.  ``csrc/host_check.cpp`` loops the kernels' lane bodies (the very
+functions the CUDA kernels call per thread) over the lanes on the CPU, so the
+32-bit-word Montgomery arithmetic, the group-law formulas and the index math
+of the butterfly stage and of the NTT tile (pairs, strided twiddles, the
+periodic table rows, rows shared by a block) are held against the plain
+versions here, without a GPU.  What only a GPU can show (the
 launch, the build for sm_90a) is left to ``chip_smoke.py``.  One test holds
 the host-compiled product and addition against the JAX package itself, so
 that the kernels' arithmetic does not rest on the port's plain versions alone.
@@ -26,6 +28,7 @@ from tpu_bls12_381_torch.curves import cuda_g1, g1, projective as pj
 from tpu_bls12_381_torch.curves.field_adapters import FQ_PLAIN
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
+from tpu_bls12_381_torch.ntt import cuda_ntt, get_domain
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tpu_bls12_381_torch", "csrc")
@@ -84,6 +87,72 @@ def test_fq_add_sub(lib):
     lib.fq_add_sub(_ptr(a), _ptr(a), _ptr(s), _ptr(d), SZ(N))
     assert torch.equal(s, ops.double(FQ, a))
     assert not d.any()
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_field_add_sub_kernels(lib, name):
+    """The ``add`` and ``sub`` kernels' lane bodies; among the lanes are
+    0, 1, p - 1, sums >= p and differences of a < b."""
+    spec = {"fr": FR, "fq": FQ}[name]
+    a = _elements(spec, 11)
+    b = _elements(spec, 12).flip(1).contiguous()
+    b[:, 2] = a[:, 2]                               # (p-1) + (p-1), (p-1) - (p-1)
+    out = torch.empty_like(a)
+    for x, y in ((a, b), (b, a), (a, a)):
+        getattr(lib, f"{name}_field_add")(_ptr(x), _ptr(y), _ptr(out), SZ(N))
+        assert torch.equal(out, cuda_ops.add_plain(spec, x, y))
+        getattr(lib, f"{name}_field_sub")(_ptr(x), _ptr(y), _ptr(out), SZ(N))
+        assert torch.equal(out, cuda_ops.sub_plain(spec, x, y))
+
+
+def test_butterfly_elementwise(lib):
+    e, o, w = _elements(FR, 13), _elements(FR, 14).flip(1).contiguous(), _elements(FR, 15)
+    o[:, 5] = 0
+    w[:, 6] = 0
+    w[:, 7] = torch.from_numpy(FR.one_mont_limbs.astype(np.int32))
+    hi, lo = torch.empty_like(e), torch.empty_like(e)
+    lib.fr_butterfly(*[_ptr(t) for t in (e, o, w, hi, lo)], SZ(N))
+    want = cuda_ops.butterfly_plain(FR, e, o, w)
+    assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+    assert torch.equal(hi[:, 5], e[:, 5]) and torch.equal(lo[:, 6], e[:, 6])
+
+
+@pytest.mark.parametrize("half", [1, 2, 8, 32])
+def test_butterfly_stage(lib, half):
+    """One ladder stage on a (16, 3, 64) array where it lies: the pairs, the
+    strided twiddle and the in-place layout of the output."""
+    rows, n = 3, 64
+    x = ops.mont_mul(FR, _elements(FR, 16).repeat(1, 2),
+                     _elements(FR, 17).flip(1).repeat(1, 2).roll(5, 1))
+    x = x.reshape(16, rows, n).contiguous()
+    tw = get_domain(6, device="cpu").tw
+    out = torch.empty_like(x)
+    lib.fr_butterfly_stage(_ptr(x), _ptr(tw), _ptr(out), SZ(rows), SZ(n), SZ(half))
+    assert torch.equal(out, cuda_ops.butterfly_stage_plain(FR, x, tw, half))
+
+
+@pytest.mark.parametrize("B,log_m,Bw,scaled", [
+    (4, 6, 0, False),       # the plain tile: 8 rows to a block, half empty
+    (4, 6, 4, False),       # with a full table
+    (4, 6, 2, True),        # a table of 2 rows serving 4, and the scalar
+    (17, 5, 0, True),       # two blocks of 16 rows, the second nearly empty
+    (3, 10, 3, False),      # one long row to a block
+    (2, 1, 1, True),        # the shortest row
+])
+def test_ntt_tile(lib, B, log_m, Bw, scaled):
+    m = 1 << log_m
+    fill = lambda seed, cnt: ops.mont_mul(
+        FR, _elements(FR, seed).repeat(1, -(-cnt // N))[:, :cnt],
+        _elements(FR, seed + 1).flip(1).repeat(1, -(-cnt // N))[:, :cnt].roll(cnt // 3, 1))
+    x = fill(18, B * m).reshape(16, B, m).contiguous()
+    dom = get_domain(log_m, device="cpu")
+    w = fill(20, Bw * m).reshape(16, Bw, m).contiguous() if Bw else None
+    scale = dom.n_inv if scaled else None
+    out = torch.empty_like(x)
+    lib.fr_ntt_tile(_ptr(x), _ptr(dom.itw), _ptr(w) if Bw else None,
+                    _ptr(scale) if scaled else None, _ptr(out), SZ(B), SZ(Bw),
+                    ctypes.c_int(log_m))
+    assert torch.equal(out, cuda_ntt.ntt_tile_plain(x, dom.itw, w, scale))
 
 
 @pytest.fixture(scope="module")
@@ -164,14 +233,14 @@ def test_pmadd_signed_rows(lib, points):
 
 
 def test_host_compiled_kernels_match_the_jax_package(lib, points):
-    """``mont_mul`` (Fr and Fq) and ``padd`` as the kernels compute them,
-    against ``fields/ops.py`` and ``curves/projective.py`` of the JAX package
-    on the same limbs."""
+    """``mont_mul`` (Fr and Fq), ``padd`` and the butterfly as the kernels
+    compute them, against ``fields/ops.py``, ``curves/projective.py`` and
+    ``fields/fast.py`` of the JAX package on the same limbs."""
     import jax.numpy as jnp
 
     from tpu_bls12_381.curves import projective as jpj
     from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER as JF
-    from tpu_bls12_381.fields import FQ as JFQ, FR as JFR, ops as jops
+    from tpu_bls12_381.fields import FQ as JFQ, FR as JFR, fast as jfast, ops as jops
 
     j = lambda t: jnp.asarray(t.numpy().astype(np.uint32))
     for name, spec, jspec in (("fr", FR, JFR), ("fq", FQ, JFQ)):
@@ -188,3 +257,9 @@ def test_host_compiled_kernels_match_the_jax_package(lib, points):
     want = jpj.proj_add(JF, tuple(map(j, P)), tuple(map(j, Q)))
     for o, w in zip(out, want):
         np.testing.assert_array_equal(o.numpy().astype(np.uint32), np.asarray(w))
+    e, o, w = _elements(FR, 8), _elements(FR, 9).flip(1).contiguous(), _elements(FR, 10)
+    hi, lo = torch.empty_like(e), torch.empty_like(e)
+    lib.fr_butterfly(*[_ptr(t) for t in (e, o, w, hi, lo)], SZ(N))
+    want = jfast.butterfly(JFR, j(e), j(o), j(w))
+    for o_, w_ in zip((hi, lo), want):
+        np.testing.assert_array_equal(o_.numpy().astype(np.uint32), np.asarray(w_))

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_bls12_381.fields import FQ as JFQ, FR as JFR, ops as jops
+from tpu_bls12_381.fields import FQ as JFQ, FR as JFR, fast as jfast, ops as jops
+from tpu_bls12_381.fields import pallas_ops as jpallas
 
 import tpu_bls12_381_torch as port
 from tpu_bls12_381_torch import convert
@@ -79,6 +80,96 @@ def test_routed_ops_take_plain_version_on_cpu(name):
     want = np.asarray(jops.from_mont(jspec, convert.to_numpy(a)))
     np.testing.assert_array_equal(convert.to_numpy(fast.from_mont(spec, a)), want)
     assert cuda_ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_add_sub_butterfly_wrappers_match_jax(name):
+    """The ``add``, ``sub`` and ``butterfly`` wrappers and their ``fast``
+    routers, given CPU tensors, equal the JAX package and launch nothing."""
+    spec, jspec = SPECS[name]
+    a, b, w = _inputs(spec, 12), _inputs(spec, 13)[:, ::-1].copy(), _inputs(spec, 14)
+    ta, tb, tw = _t(a, spec), _t(b, spec), _t(w, spec)
+    before = dict(cuda_ops.LAUNCHES)
+    for op in ("add", "sub"):
+        want = np.asarray(getattr(jops, op)(jspec, a, b))
+        for mod in (cuda_ops, fast):
+            np.testing.assert_array_equal(
+                convert.to_numpy(getattr(mod, op)(spec, ta, tb)), want)
+    want = jfast.butterfly(jspec, a, b, w)
+    for mod in (cuda_ops, fast):
+        got = mod.butterfly(spec, ta, tb, tw)
+        for g, v in zip(got, want):
+            np.testing.assert_array_equal(convert.to_numpy(g), np.asarray(v))
+    # fast broadcasts and lays out; the wrappers raise on what they are given
+    got = fast.butterfly(spec, ta[:, ::2], tb[:, ::2], tw[:, :1])
+    want = cuda_ops.butterfly_plain(spec, ta[:, ::2], tb[:, ::2], tw[:, :1])
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+    assert torch.equal(fast.add(spec, ta[:, ::2], tb[:, :1]),
+                       ops.add(spec, ta[:, ::2], tb[:, :1]))
+    for fn in (cuda_ops.add, cuda_ops.sub):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(spec, ta[:, ::2], tb[:, ::2])
+        with pytest.raises(ValueError, match="shapes differ"):
+            fn(spec, ta, tb[:, :1].contiguous())
+    with pytest.raises(ValueError, match="shapes differ"):
+        cuda_ops.butterfly(spec, ta, tb, tw[:, :1].contiguous())
+    assert cuda_ops.LAUNCHES == before
+
+
+def test_butterfly_matches_pallas_kernel_in_interpret_mode():
+    """The port's butterfly against the TPU kernel itself, run as the JAX
+    package's own tests run it on the CPU."""
+    a, b, w = _inputs(FR, 15), _inputs(FR, 16)[:, ::-1].copy(), _inputs(FR, 17)
+    want = jpallas.butterfly(JFR, a, b, w)
+    got = cuda_ops.butterfly(FR, _t(a, FR), _t(b, FR), _t(w, FR))
+    for g, v in zip(got, want):
+        np.testing.assert_array_equal(convert.to_numpy(g), np.asarray(v))
+
+
+def test_butterfly_stage_is_the_jax_ladder_stage():
+    """``butterfly_stage`` on a CPU tensor is one pass of the JAX ladder's
+    loop; all stages in turn give the JAX ``_butterflies``."""
+    from tpu_bls12_381.ntt.domain import get_domain as j_get_domain
+    from tpu_bls12_381.ntt.ntt import _butterflies as j_butterflies
+
+    x = _inputs(FR, 18)[:, :128].reshape(16, 2, 64)
+    jd = j_get_domain(6)
+    tw = _t(np.asarray(jd.tw), FR)
+    t = _t(x, FR)
+    for s in range(6):
+        t = cuda_ops.butterfly_stage(FR, t, tw, 1 << s)
+    np.testing.assert_array_equal(convert.to_numpy(t),
+                                  np.asarray(j_butterflies(x, jd.tw, 6)))
+    with pytest.raises(ValueError, match="half"):
+        cuda_ops.butterfly_stage(FR, t, tw, 3)
+    with pytest.raises(ValueError, match="half"):
+        cuda_ops.butterfly_stage(FR, t, tw, 64)
+    with pytest.raises(ValueError, match="twiddles"):
+        cuda_ops.butterfly_stage(FR, t, tw[:, :16].contiguous(), 1)
+    with pytest.raises(ValueError, match="power of"):
+        cuda_ops.butterfly_stage(FR, t[:, :, :48].contiguous(), tw, 1)
+    with pytest.raises(ValueError, match="Fr only"):
+        cuda_ops.butterfly_stage(FQ, t, tw, 1)
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_pow_const_and_inv_mont_match_jax(name):
+    spec, jspec = SPECS[name]
+    a = _inputs(spec, 19)[:, :12]                   # 0, 1, p-1, ... among them
+    ta = _t(a, spec)
+    for e in (0, 1, 5, 0b1011001):
+        np.testing.assert_array_equal(
+            convert.to_numpy(ops.pow_const(spec, ta, e)),
+            np.asarray(jops.pow_const(jspec, a, e)))
+    inv = ops.inv_mont(spec, ta)
+    np.testing.assert_array_equal(convert.to_numpy(inv),
+                                  np.asarray(jops.inv_mont(jspec, a)))
+    assert torch.equal(fast.inv_mont(spec, ta), inv)
+    assert not inv[:, 0].any()                      # inv(0) = 0
+    one = ops.one_mont(spec, (11,), device="cpu")
+    assert torch.equal(ops.mont_mul(spec, inv, ta)[:, 1:], one)
+    with pytest.raises(ValueError):
+        ops.pow_const(spec, ta, -1)
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
@@ -257,6 +348,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import tpu_bls12_381_torch.msm, tpu_bls12_381_torch.convert\n"
         "import tpu_bls12_381_torch.curves.glv, tpu_bls12_381_torch.curves.cuda_g1\n"
         "import tpu_bls12_381_torch.runtime.tracing, tpu_bls12_381_torch.tuning\n"
+        "import tpu_bls12_381_torch.vecops, tpu_bls12_381_torch.ntt.cuda_ntt\n"
+        "import tpu_bls12_381_torch.runtime.ntt_context\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'tpu_bls12_381' or m.startswith('tpu_bls12_381.')"
         " or m == 'triton')\n"

@@ -54,3 +54,32 @@ def to_numpy(t):
 def point_to_numpy(P):
     """A point tuple (projective, Jacobian or affine) -> tuple of numpy arrays."""
     return tuple(to_numpy(c) for c in P)
+
+
+def domain_from_numpy(log_n: int, tw, itw, n_inv, device=None):
+    """The tables of an NTT domain of the JAX package (``np.asarray`` of its
+    ``tw``, ``itw`` and ``n_inv``) -> a ``Domain`` of the port on ``device``.
+    The root is derived here, as both packages derive it."""
+    from .ntt.domain import Domain
+    from .oracle import root_of_unity
+
+    dev = resolve_device(device)
+    half = (1 << log_n) // 2
+    for name, arr in (("tw", tw), ("itw", itw)):
+        if np.asarray(arr).shape != (FR.num_limbs, half):
+            raise ValueError(f"{name}: expected shape ({FR.num_limbs}, {half}), "
+                             f"got {np.asarray(arr).shape}")
+    if np.asarray(n_inv).shape != (FR.num_limbs,):
+        raise ValueError(f"n_inv: expected shape ({FR.num_limbs},), got "
+                         f"{np.asarray(n_inv).shape}")
+    return Domain(log_n=log_n,
+                  tw=_limbs_from_numpy(tw, FR.num_limbs, "tw", dev),
+                  itw=_limbs_from_numpy(itw, FR.num_limbs, "itw", dev),
+                  n_inv=_limbs_from_numpy(n_inv, FR.num_limbs, "n_inv", dev),
+                  omega=root_of_unity(log_n))
+
+
+def domain_to_numpy(domain):
+    """A ``Domain`` of the port -> (tw, itw, n_inv) as numpy uint32 arrays, as
+    the JAX package holds them."""
+    return to_numpy(domain.tw), to_numpy(domain.itw), to_numpy(domain.n_inv)

@@ -1,9 +1,9 @@
 // Montgomery arithmetic for the BLS12-381 fields, one field element per thread.
 //
-// Device code shared by field_kernels.cu and g1_kernels.cu.  It takes the
-// place of the limb pipeline of the JAX package's fields/pallas_ops.py
-// (_k_mont_mul, _k_mont_sqr, _k_add, _k_sub, _k_cond_sub_modulus), thought
-// through again for a GPU thread:
+// Device code shared by field_kernels.cu, g1_kernels.cu and ntt_kernels.cu.
+// It takes the place of the limb pipeline of the JAX package's
+// fields/pallas_ops.py (_k_mont_mul, _k_mont_sqr, _k_add, _k_sub,
+// _k_cond_sub_modulus), thought through again for a GPU thread:
 //
 //  * Stored layout is the JAX package's: (K, N) planes of 16-bit limbs, one
 //    32-bit slot per limb, limbs first.  Thread `idx` owns column `idx`, so
@@ -298,4 +298,58 @@ DEV void mont_mul_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
 template <class F>
 DEV void mont_sqr_lane(const uint32_t* a, uint32_t* out, size_t n, size_t idx) {
     fp_store<F>(out, n, idx, fp_sqr<F>(fp_load<F>(a, n, idx)));
+}
+
+template <class F>
+DEV void add_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                  size_t n, size_t idx) {
+    fp_store<F>(out, n, idx, fp_add<F>(fp_load<F>(a, n, idx), fp_load<F>(b, n, idx)));
+}
+
+template <class F>
+DEV void sub_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                  size_t n, size_t idx) {
+    fp_store<F>(out, n, idx, fp_sub<F>(fp_load<F>(a, n, idx), fp_load<F>(b, n, idx)));
+}
+
+// The radix-2 butterfly: (e + w*o, e - w*o).
+template <class F>
+DEV void fp_butterfly(const El<F>& e, const El<F>& o, const El<F>& w,
+                      El<F>& hi, El<F>& lo) {
+    El<F> t = fp_mul<F>(o, w);
+    hi = fp_add<F>(e, t);
+    lo = fp_sub<F>(e, t);
+}
+
+// Elementwise butterfly on five (K, n) planes.
+template <class F>
+DEV void butterfly_lane(const uint32_t* e, const uint32_t* o, const uint32_t* w,
+                        uint32_t* hi, uint32_t* lo, size_t n, size_t idx) {
+    El<F> h, l;
+    fp_butterfly<F>(fp_load<F>(e, n, idx), fp_load<F>(o, n, idx),
+                    fp_load<F>(w, n, idx), h, l);
+    fp_store<F>(hi, n, idx, h);
+    fp_store<F>(lo, n, idx, l);
+}
+
+// One pair of one stage of the radix-2 DIT ladder, on the array where it
+// lies.  x and out are (K, rows, n) planes; tw is the (K, n/2) table of
+// w_n^0 .. w_n^(n/2-1).  The stage joins groups of 2*half elements: pair
+// `pair` of a row is elements i0 = g*2*half + j and i0 + half with
+// g = pair / half, j = pair % half, and its twiddle is w_n^(j * n/(2*half)).
+// idx runs over rows * n/2.  `half` and n are powers of two.
+template <class F>
+DEV void butterfly_stage_lane(const uint32_t* x, const uint32_t* tw,
+                              uint32_t* out, size_t rows, size_t n,
+                              size_t half, size_t idx) {
+    size_t pairs = n / 2;
+    size_t row = idx / pairs, pair = idx % pairs;
+    size_t j = pair & (half - 1);
+    size_t i0 = row * n + ((pair - j) << 1) + j;
+    size_t total = rows * n;
+    El<F> h, l;
+    fp_butterfly<F>(fp_load<F>(x, total, i0), fp_load<F>(x, total, i0 + half),
+                    fp_load<F>(tw, pairs, j * (pairs / half)), h, l);
+    fp_store<F>(out, total, i0, h);
+    fp_store<F>(out, total, i0 + half, l);
 }

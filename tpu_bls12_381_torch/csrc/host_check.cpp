@@ -1,13 +1,17 @@
 // Host build of the kernels' lane bodies: the same device code as the CUDA
-// kernels (field.cuh, g1.cuh), compiled as plain C++ and run in a loop over
-// the lanes.  It lets a machine without a GPU hold the kernels' arithmetic
+// kernels (field.cuh, g1.cuh, ntt.cuh), compiled as plain C++ and run in a
+// loop over the lanes (for the NTT tile: over the blocks, and inside a block
+// over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
 // against the plain PyTorch versions (tests/test_torch_csrc_host.py):
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // It is not part of the GPU build (_build.py compiles only *.cu).
 
+#include <vector>
+
 #include "g1.cuh"
+#include "ntt.cuh"
 
 extern "C" {
 
@@ -25,6 +29,53 @@ void fr_mont_sqr(const uint32_t* a, uint32_t* out, size_t n) {
 
 void fq_mont_sqr(const uint32_t* a, uint32_t* out, size_t n) {
     for (size_t i = 0; i < n; ++i) mont_sqr_lane<Fq>(a, out, n, i);
+}
+
+void fr_field_add(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) add_lane<Fr>(a, b, out, n, i);
+}
+
+void fq_field_add(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) add_lane<Fq>(a, b, out, n, i);
+}
+
+void fr_field_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) sub_lane<Fr>(a, b, out, n, i);
+}
+
+void fq_field_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) sub_lane<Fq>(a, b, out, n, i);
+}
+
+void fr_butterfly(const uint32_t* e, const uint32_t* o, const uint32_t* w,
+                  uint32_t* hi, uint32_t* lo, size_t n) {
+    for (size_t i = 0; i < n; ++i) butterfly_lane<Fr>(e, o, w, hi, lo, n, i);
+}
+
+void fr_butterfly_stage(const uint32_t* x, const uint32_t* tw, uint32_t* out,
+                        size_t rows, size_t n, size_t half) {
+    for (size_t i = 0; i < rows * (n / 2); ++i)
+        butterfly_stage_lane<Fr>(x, tw, out, rows, n, half, i);
+}
+
+// The tile kernel's body, block by block.
+void fr_ntt_tile(const uint32_t* x, const uint32_t* tw, const uint32_t* w,
+                 const uint32_t* scale, uint32_t* out, size_t rows, size_t w_rows,
+                 int log_m) {
+    uint32_t cap = tile_rows_per_block(log_m) << log_m;
+    size_t total = rows << log_m;
+    std::vector<uint32_t> sh((size_t)cap * Fr::W);
+    fr sc;
+    if (scale != nullptr) sc = fp_load<Fr>(scale, 1, 0);
+    for (size_t base = 0; base < total; base += cap) {
+        for (uint32_t e = 0; e < cap; ++e) tile_load(x, total, base, sh.data(), cap, e);
+        for (int s = 1; s <= log_m; ++s)
+            for (uint32_t q = 0; q < cap / 2; ++q)
+                tile_butterfly(sh.data(), cap, tw, log_m, s, q);
+        for (uint32_t e = 0; e < cap; ++e)
+            tile_store(sh.data(), cap, e, base, total, log_m, w, w_rows,
+                       scale != nullptr ? &sc : nullptr, out);
+    }
 }
 
 void fq_add_sub(const uint32_t* a, const uint32_t* b, uint32_t* sum,

@@ -68,6 +68,12 @@ class PlainFqAdapter(FqAdapter):
     """The same interface with every op plain PyTorch, wherever the tensor
     lives: what the kernels' plain versions are written against."""
 
+    def add(self, a, b):
+        return ops.add(self.spec, a, b)
+
+    def sub(self, a, b):
+        return ops.sub(self.spec, a, b)
+
     def mul(self, a, b):
         return ops.mont_mul(self.spec, a, b)
 

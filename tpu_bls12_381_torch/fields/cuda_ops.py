@@ -5,7 +5,15 @@ Counterpart of the JAX package's ``fields/pallas_ops.py``:
 * ``mont_mul`` takes the place of ``_build_mul_kernel`` / ``mont_mul``
   (``fields/pallas_ops.py:381``, ``:436``);
 * ``mont_sqr`` takes the place of ``_build_sqr_kernel`` / ``mont_sqr``
-  (``fields/pallas_ops.py:391``, ``:441``).
+  (``fields/pallas_ops.py:391``, ``:441``);
+* ``add`` and ``sub`` take the place of ``_build_add_kernel`` / ``add`` and
+  ``_build_sub_kernel`` / ``sub`` (``fields/pallas_ops.py:401``, ``:411``);
+* ``butterfly`` and ``butterfly_stage`` take the place of
+  ``_build_butterfly_kernel`` / ``butterfly`` (``fields/pallas_ops.py:421``,
+  ``:453``).  ``butterfly`` is the TPU kernel's elementwise contract;
+  ``butterfly_stage`` is one whole stage of the radix-2 ladder on the array
+  where it lies, so the ladder needs no slices, broadcast twiddles or
+  concatenation around the kernel: one launch a stage and nothing else.
 
 The kernels are CUDA C++ in ``csrc/field_kernels.cu`` (device code in
 ``csrc/field.cuh``): one thread per element, 32-bit words in registers, CIOS
@@ -13,14 +21,17 @@ with 64-bit running sums.  On an H100 the memory bounds them: an Fq product
 needs 144 bytes (three elements of 24 limbs of 16 bits) for 300 wide
 multiply-adds, and at the card's peak rates the bytes take longer, narrowly.
 As stored, a 16-bit limb takes a 32-bit slot, so the kernel moves 288 bytes
-and the memory binds it twice as hard (PERF.md has the reckoning).
+and the memory binds it twice as hard.  ``add`` and ``sub`` move the same
+bytes for a few additions, and a butterfly moves five elements for one
+product, so the memory binds them outright (PERF.md has the reckoning).
 
-Each wrapper takes the plain version (``mont_mul_plain`` / ``mont_sqr_plain``,
-the int64 CIOS of ``fields/ops.py``) only for tensors on the CPU.  For CUDA
-tensors it launches the kernel or raises; there is no fallback.  The wrappers
-copy nothing: operands must be contiguous and of one shape, and anything else
-raises (``fields/fast.py`` broadcasts and lays out for them).  ``LAUNCHES``
-counts kernel launches per C entry point, and nothing else.
+Each wrapper takes its plain version (``*_plain``, over the int64 ops of
+``fields/ops.py``) only for tensors on the CPU.  For CUDA tensors it launches
+the kernel or raises; there is no fallback.  The wrappers copy nothing:
+operands must be contiguous and of one shape, and anything else raises
+(``fields/fast.py`` broadcasts and lays out for them).  ``LAUNCHES`` counts
+kernel launches, and nothing else; both butterfly entries count under
+``butterfly_fr`` / ``butterfly_fq``.
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ from . import ops
 from .field import FieldSpec
 
 LAUNCHES = {"mont_mul_fr": 0, "mont_mul_fq": 0,
-            "mont_sqr_fr": 0, "mont_sqr_fq": 0}
+            "mont_sqr_fr": 0, "mont_sqr_fq": 0,
+            "add_fr": 0, "add_fq": 0, "sub_fr": 0, "sub_fq": 0,
+            "butterfly_fr": 0, "butterfly_fq": 0}
 
 _PTR = ctypes.c_void_p
 _CONFIGURED = False
@@ -49,10 +62,18 @@ def _lib():
     global _CONFIGURED
     lib = _build.library("field_kernels")
     if not _CONFIGURED:
-        for name in ("fr_mont_mul", "fq_mont_mul"):
+        for name in ("fr_mont_mul", "fq_mont_mul", "fr_field_add",
+                     "fq_field_add", "fr_field_sub", "fq_field_sub"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR, _PTR, _PTR, ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
+        for name in ("fr_butterfly", "fq_butterfly"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_PTR] * 5 + [ctypes.c_longlong, _PTR]
+            fn.restype = ctypes.c_int
+        lib.fr_butterfly_stage.argtypes = (
+            [_PTR] * 3 + [ctypes.c_longlong] * 3 + [_PTR])
+        lib.fr_butterfly_stage.restype = ctypes.c_int
         for name in ("fr_mont_sqr", "fq_mont_sqr"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR, _PTR, ctypes.c_longlong, _PTR]
@@ -94,6 +115,37 @@ def mont_sqr_plain(spec: FieldSpec, a):
     return ops.mont_sqr(spec, a)
 
 
+def add_plain(spec: FieldSpec, a, b):
+    """Plain PyTorch version of the ``add`` kernel."""
+    return ops.add(spec, a, b)
+
+
+def sub_plain(spec: FieldSpec, a, b):
+    """Plain PyTorch version of the ``sub`` kernel."""
+    return ops.sub(spec, a, b)
+
+
+def butterfly_plain(spec: FieldSpec, even, odd, w):
+    """Plain PyTorch version of the ``butterfly`` kernel:
+    (even + w*odd, even - w*odd)."""
+    t = ops.mont_mul(spec, odd, w)
+    return ops.add(spec, even, t), ops.sub(spec, even, t)
+
+
+def butterfly_stage_plain(spec: FieldSpec, x, tw, half: int):
+    """Plain PyTorch version of ``butterfly_stage``: the stage as the JAX
+    package's ladder writes it (``ntt/ntt.py:49-61``), with a reshape, two
+    slices, the strided twiddle broadcast over them, and a concatenation."""
+    K, n = x.shape[0], x.shape[-1]
+    lead = tuple(x.shape[1:-1])
+    m = 2 * half
+    w = tw[:, ::n // m][:, :half]
+    w = w.reshape((K,) + (1,) * (len(lead) + 1) + (half,))
+    xg = x.reshape((K,) + lead + (n // m, m))
+    hi, lo = butterfly_plain(spec, xg[..., :half], xg[..., half:], w)
+    return torch.cat([hi, lo], dim=-1).reshape(x.shape)
+
+
 def _suffix(spec: FieldSpec) -> str:
     if spec.num_limbs == 16:
         return "fr"
@@ -102,27 +154,49 @@ def _suffix(spec: FieldSpec) -> str:
     raise ValueError(f"no kernel for a field of {spec.num_limbs} limbs")
 
 
-def mont_mul(spec: FieldSpec, a, b):
-    """Batched Montgomery product a*b*R^-1 mod p on (K, *batch) limbs."""
-    K = spec.num_limbs
-    check_limbs(a, K, "mont_mul: a")
-    check_limbs(b, K, "mont_mul: b")
-    if a.device != b.device:
-        raise ValueError(f"mont_mul: devices differ ({a.device}, {b.device})")
-    if a.shape != b.shape:
-        raise ValueError(f"mont_mul: shapes differ ({tuple(a.shape)}, "
-                         f"{tuple(b.shape)})")
+def _check_same(spec: FieldSpec, name: str, **operands) -> None:
+    """Raise unless the operands are kernel limbs of one shape on one device."""
+    first = None
+    for label, t in operands.items():
+        check_limbs(t, spec.num_limbs, f"{name}: {label}")
+        if first is None:
+            first = t
+        elif t.device != first.device:
+            raise ValueError(f"{name}: devices differ ({first.device}, {t.device})")
+        elif t.shape != first.shape:
+            raise ValueError(f"{name}: shapes differ ({tuple(first.shape)}, "
+                             f"{tuple(t.shape)})")
+
+
+def _binary(spec: FieldSpec, name: str, entry: str, plain, a, b):
+    """One elementwise kernel of two operands: ``{fr,fq}_<entry>``."""
+    _check_same(spec, name, a=a, b=b)
     if not a.is_cuda:
-        return mont_mul_plain(spec, a, b)
+        return plain(spec, a, b)
     sfx = _suffix(spec)
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
-        code = getattr(_lib(), f"{sfx}_mont_mul")(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // K,
-            stream_ptr(a.device))
-    check_launch(code, f"{sfx}_mont_mul")
-    LAUNCHES[f"mont_mul_{sfx}"] += 1
+        code = getattr(_lib(), f"{sfx}_{entry}")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            a.numel() // spec.num_limbs, stream_ptr(a.device))
+    check_launch(code, f"{sfx}_{entry}")
+    LAUNCHES[f"{name}_{sfx}"] += 1
     return out
+
+
+def mont_mul(spec: FieldSpec, a, b):
+    """Batched Montgomery product a*b*R^-1 mod p on (K, *batch) limbs."""
+    return _binary(spec, "mont_mul", "mont_mul", mont_mul_plain, a, b)
+
+
+def add(spec: FieldSpec, a, b):
+    """Batched (a + b) mod p on (K, *batch) limbs, canonical in and out."""
+    return _binary(spec, "add", "field_add", add_plain, a, b)
+
+
+def sub(spec: FieldSpec, a, b):
+    """Batched (a - b) mod p on (K, *batch) limbs, canonical in and out."""
+    return _binary(spec, "sub", "field_sub", sub_plain, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a):
@@ -138,4 +212,60 @@ def mont_sqr(spec: FieldSpec, a):
             a.data_ptr(), out.data_ptr(), a.numel() // K, stream_ptr(a.device))
     check_launch(code, f"{sfx}_mont_sqr")
     LAUNCHES[f"mont_sqr_{sfx}"] += 1
+    return out
+
+
+def butterfly(spec: FieldSpec, even, odd, w):
+    """Fused radix-2 butterfly (even + w*odd, even - w*odd), elementwise on
+    three (K, *batch) operands of one shape."""
+    _check_same(spec, "butterfly", even=even, odd=odd, w=w)
+    if not even.is_cuda:
+        return butterfly_plain(spec, even, odd, w)
+    sfx = _suffix(spec)
+    hi, lo = torch.empty_like(even), torch.empty_like(even)
+    with torch.cuda.device(even.device):
+        code = getattr(_lib(), f"{sfx}_butterfly")(
+            even.data_ptr(), odd.data_ptr(), w.data_ptr(), hi.data_ptr(),
+            lo.data_ptr(), even.numel() // spec.num_limbs,
+            stream_ptr(even.device))
+    check_launch(code, f"{sfx}_butterfly")
+    LAUNCHES[f"butterfly_{sfx}"] += 1
+    return hi, lo
+
+
+def butterfly_stage(spec: FieldSpec, x, tw, half: int):
+    """One stage of the radix-2 DIT ladder along the last axis of ``x``.
+
+    ``x`` is (K, ..., n); ``tw`` is the (K, n/2) table of w_n^0..w_n^(n/2-1).
+    Within every group of ``2 * half`` elements, element j of the low half
+    and element j of the high half become (e + w*o, e - w*o) with
+    w = w_n^(j * n / (2 * half)).  Returns a new tensor of ``x``'s shape.
+    Fr only: the NTT runs over no other field.
+    """
+    K = spec.num_limbs
+    if K != 16:
+        raise ValueError("butterfly_stage: the kernel is built for Fr only")
+    check_limbs(x, K, "butterfly_stage: x")
+    check_limbs(tw, K, "butterfly_stage: tw")
+    if x.device != tw.device:
+        raise ValueError(f"butterfly_stage: devices differ ({x.device}, {tw.device})")
+    n = x.shape[-1] if x.dim() > 1 else 0
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"butterfly_stage: the last axis must be a power of "
+                         f"two >= 2, got shape {tuple(x.shape)}")
+    if tuple(tw.shape) != (K, n // 2):
+        raise ValueError(f"butterfly_stage: expected twiddles of shape "
+                         f"({K}, {n // 2}), got {tuple(tw.shape)}")
+    if half < 1 or half & (half - 1) or 2 * half > n:
+        raise ValueError(f"butterfly_stage: half = {half} is no power of two "
+                         f"in [1, {n // 2}]")
+    if not x.is_cuda:
+        return butterfly_stage_plain(spec, x, tw, half)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = _lib().fr_butterfly_stage(
+            x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.numel() // (K * n),
+            n, half, stream_ptr(x.device))
+    check_launch(code, "fr_butterfly_stage")
+    LAUNCHES["butterfly_fr"] += 1
     return out

@@ -3,9 +3,7 @@ CPU tensors.
 
 Counterpart of the JAX package's ``fields/fast.py``.  The route is decided by
 where the tensor lives and by nothing else: there is no switch that sends a
-CUDA tensor to the plain version.  ``add`` and ``sub`` have no kernel of their
-own yet (inside the fused group-law kernels they are device code), so they are
-plain PyTorch on either device.
+CUDA tensor to the plain version.
 
 The kernel wrappers take contiguous operands of one shape and raise on
 anything else; the functions here broadcast and lay out for them, so a caller
@@ -30,11 +28,25 @@ def mont_sqr(spec: FieldSpec, a):
 
 
 def add(spec: FieldSpec, a, b):
-    return ops.add(spec, a, b)
+    a, b = torch.broadcast_tensors(a, b)
+    return cuda_ops.add(spec, a.contiguous(), b.contiguous())
 
 
 def sub(spec: FieldSpec, a, b):
-    return ops.sub(spec, a, b)
+    a, b = torch.broadcast_tensors(a, b)
+    return cuda_ops.sub(spec, a.contiguous(), b.contiguous())
+
+
+def butterfly(spec: FieldSpec, even, odd, w):
+    """(even + w*odd, even - w*odd), one fused kernel on the card."""
+    even, odd, w = torch.broadcast_tensors(even, odd, w)
+    return cuda_ops.butterfly(spec, even.contiguous(), odd.contiguous(),
+                              w.contiguous())
+
+
+def inv_mont(spec: FieldSpec, a):
+    """Montgomery-form inverse by Fermat, a^(p-2); inv(0) = 0."""
+    return ops.pow_const(spec, a, spec.modulus - 2, mul=mont_mul, sqr=mont_sqr)
 
 
 def from_mont(spec: FieldSpec, a):

@@ -197,3 +197,30 @@ def from_mont(spec: FieldSpec, a):
     one = torch.zeros_like(a)
     one[0] = 1
     return mont_mul(spec, a, one)
+
+
+def pow_const(spec: FieldSpec, a, exponent: int, *, mul=None, sqr=None):
+    """Montgomery-form a^exponent for a Python-int exponent >= 0.
+
+    Square-and-multiply over the exponent's bits, most significant first, as
+    the JAX package's loop does it: every step squares, and multiplies where
+    the bit is set.  ``mul`` and ``sqr`` are the product and the square to
+    use, ``mont_mul`` and ``mont_sqr`` of this module unless given
+    (``fields/fast.py`` passes the device-routed ones).
+    """
+    mont_mul_, mont_sqr_ = mul or mont_mul, sqr or mont_sqr
+    if exponent < 0:
+        raise ValueError("pow_const: the exponent must not be negative")
+    acc = one_mont(spec, a.shape[1:], a.device)
+    if exponent == 0:
+        return acc
+    for bit in bin(exponent)[2:]:
+        acc = mont_sqr_(spec, acc)
+        if bit == "1":
+            acc = mont_mul_(spec, acc, a)
+    return acc
+
+
+def inv_mont(spec: FieldSpec, a):
+    """Montgomery-form inverse by Fermat, a^(p-2); inv(0) = 0."""
+    return pow_const(spec, a, spec.modulus - 2)

@@ -3,9 +3,15 @@
 Counterpart of the JAX package's ``runtime/config.py``, with only what the
 ported slice reads:
 
-  MIDNIGHT_MSM_GLV   auto | on | off   G1 MSM via the GLV split.  ``auto``
-                     (default): on while the doubled point set still fits the
-                     device memory budget in one shot.
+  MIDNIGHT_MSM_GLV        auto | on | off   G1 MSM via the GLV split.  ``auto``
+                          (default): on while the doubled point set still fits
+                          the device memory budget in one shot.
+  MIDNIGHT_NTT_ORDERING   NN | NR | RN | RR, default NN: the ordering an
+                          ``NttContext`` call takes when it names none.
+  MIDNIGHT_NTT_ALGORITHM  auto | radix2 | fourstep, default auto
+                          (``mixedradix`` is read as ``fourstep``); the
+                          routing rule is ``ntt/ntt.py::_route_fourstep``.
+  MIDNIGHT_NTT_MAX_LOG_N  default domain size a context pre-builds, default 16.
 """
 
 from __future__ import annotations
@@ -17,17 +23,39 @@ from dataclasses import dataclass
 logger = logging.getLogger("tpu_bls12_381_torch")
 
 
+def _int_env(name: str, default: int, lo: int, hi: int) -> int:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        logger.warning("%s=%r is not an int; using %d", name, raw, default)
+        return default
+    if not lo <= v <= hi:
+        logger.warning("%s=%d out of [%d, %d]; clamping", name, v, lo, hi)
+        return min(max(v, lo), hi)
+    return v
+
+
 @dataclass(frozen=True)
 class Config:
     msm_glv: str
+    ntt_max_log_n: int
+    ntt_ordering: str
+    ntt_algorithm: str
 
     @classmethod
     def from_env(cls) -> "Config":
+        algorithm = os.environ.get("MIDNIGHT_NTT_ALGORITHM", "auto").lower()
         return cls(
             msm_glv={"1": "on", "true": "on", "on": "on", "yes": "on",
                      "0": "off", "false": "off", "off": "off", "no": "off",
                      }.get(os.environ.get("MIDNIGHT_MSM_GLV", "auto")
                            .lower(), "auto"),
+            ntt_max_log_n=_int_env("MIDNIGHT_NTT_MAX_LOG_N", 16, 0, 32),
+            ntt_ordering=os.environ.get("MIDNIGHT_NTT_ORDERING", "NN").upper(),
+            ntt_algorithm={"mixedradix": "fourstep"}.get(algorithm, algorithm),
         )
 
 

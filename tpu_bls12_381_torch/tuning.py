@@ -5,7 +5,8 @@ ported slice reads.  The profile is chosen by the device the tensors live on;
 the GPU profile takes its facts from ``torch.cuda.get_device_properties``.
 The MSM caps shape the bucket tile (window bits, lane width); they do not
 change any result.  They are first values, not tuned ones: PERF.md says what
-a run used.
+a run used.  The NTT cap is a fact of the device, not a tuning value: the
+longest row whose elements one thread block can hold in shared memory.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 @dataclass(frozen=True)
 class ChipProfile:
-    """Tuning knobs read by msm/pippenger.py."""
+    """Tuning knobs read by msm/pippenger.py and ntt/cuda_ntt.py."""
 
     name: str
     # MSM window ceiling below / at-or-above the large-size crossover
@@ -29,19 +30,31 @@ class ChipProfile:
     # log2 ceiling of the bucket-accumulation lane tile L
     # (pippenger.lane_tile_for): one scan thread per lane.
     msm_lane_tile_log_cap: int
+    # log2 of the longest row the NTT tile kernel takes in one block
+    # (ntt/cuda_ntt.py): shared memory a block may opt into, at 32 bytes an
+    # Fr element.
+    ntt_tile_log_cap: int
 
+
+# Bytes of one Fr element in the tile kernel's shared memory (csrc/ntt.cuh).
+NTT_TILE_ELEM_BYTES = 32
 
 # First values, the same on both devices until a measurement on the card
 # says otherwise.
 _CAPS = dict(msm_window_cap_small=15, msm_window_cap_large=16,
              msm_large_log_n=22, msm_lane_tile_log_cap=15)
 
-_CPU = ChipProfile("cpu", **_CAPS)
+# On the CPU nothing is held in shared memory; the cap is an H100's (227 KB:
+# rows of 2^12), so that a size splits there as it does on the card.
+_CPU = ChipProfile("cpu", **_CAPS, ntt_tile_log_cap=12)
 
 
 @lru_cache(maxsize=None)
 def _cuda_profile(index: int) -> ChipProfile:
-    return ChipProfile(torch.cuda.get_device_properties(index).name, **_CAPS)
+    props = torch.cuda.get_device_properties(index)
+    row = props.shared_memory_per_block_optin // NTT_TILE_ELEM_BYTES
+    return ChipProfile(props.name, **_CAPS,
+                       ntt_tile_log_cap=row.bit_length() - 1)
 
 
 def chip_profile(device=None) -> ChipProfile:

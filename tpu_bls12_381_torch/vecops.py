@@ -1,0 +1,174 @@
+"""Element-wise field vector operations over Fr/Fq (Montgomery domain).
+
+Counterpart of the JAX package's ``vecops.py``: add/sub/mul/scalar-mul/
+scalar-add, the modular sum, the bit-reverse permutation, and batch inversion
+by Montgomery's trick.  The field ops go through ``fields/fast.py``, so on
+CUDA tensors every add, sub and product is one of the port's kernels; what
+lies between them (slices, concatenations, gathers, selects) is plain torch.
+
+Batch inversion keeps the JAX package's three phases (inclusive prefix
+products down the rows of an (R, L) tiling, one Fermat inversion of the grand
+product with log-depth lane scans stitching the columns, the unwind back up
+the rows); its two ``lax.scan`` loops are Python loops over the R rows here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fields import fast, ops
+from .fields.field import FieldSpec
+
+
+# -- elementwise wrappers (the public vecops surface) --------------------------
+
+def vector_add(spec: FieldSpec, a, b):
+    return fast.add(spec, a, b)
+
+
+def vector_sub(spec: FieldSpec, a, b):
+    return fast.sub(spec, a, b)
+
+
+def vector_mul(spec: FieldSpec, a, b):
+    return fast.mont_mul(spec, a, b)
+
+
+def _scalar_col(spec: FieldSpec, s, v):
+    return s.reshape((spec.num_limbs,) + (1,) * (v.dim() - 1))
+
+
+def scalar_vec_mul(spec: FieldSpec, s, v):
+    """Broadcast one scalar s (K,) over the vector v (K, n)."""
+    return fast.mont_mul(spec, _scalar_col(spec, s, v), v)
+
+
+def scalar_vec_add(spec: FieldSpec, s, v):
+    return fast.add(spec, _scalar_col(spec, s, v), v)
+
+
+def vector_sum(spec: FieldSpec, v):
+    """Modular sum of a field vector (K, ..., n) -> (K, ...).
+
+    A tree of log2(n) halving rounds of modular adds; an odd element out is
+    carried to the next round.
+    """
+    n = v.shape[-1]
+    while n > 1:
+        half = n // 2
+        red = fast.add(spec, v[..., :half], v[..., half:2 * half])
+        if n % 2:
+            red = torch.cat([red, v[..., -1:]], dim=-1)
+            n = half + 1
+        else:
+            n = half
+        v = red
+    return v[..., 0]
+
+
+# -- bit reverse ---------------------------------------------------------------
+
+def bit_reverse_indices(log_n: int) -> np.ndarray:
+    n = 1 << log_n
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+# The index tensor per (log_n, device), made once: an NTT permutes at one or
+# two sizes, thousands of times.  2^22 indices are 32 MB; release_bit_reverse
+# drops them.
+_INDEX_CACHE: dict = {}
+
+
+def _bit_reverse_index(log_n: int, device) -> torch.Tensor:
+    key = (log_n, torch.device(device))
+    idx = _INDEX_CACHE.get(key)
+    if idx is None:
+        idx = torch.from_numpy(
+            bit_reverse_indices(log_n).astype(np.int64)).to(key[1])
+        _INDEX_CACHE[key] = idx
+    return idx
+
+
+def release_bit_reverse() -> None:
+    """Drop the cached index tensors."""
+    _INDEX_CACHE.clear()
+
+
+def bit_reverse(x, axis: int = -1):
+    """Permute the given power-of-two axis into bit-reversed order."""
+    n = x.shape[axis]
+    log_n = n.bit_length() - 1
+    if 1 << log_n != n:
+        raise ValueError("bit_reverse needs a power-of-two axis")
+    return torch.index_select(x, axis, _bit_reverse_index(log_n, x.device))
+
+
+# -- batch inversion (Montgomery's trick) --------------------------------------
+
+def batch_inverse(spec: FieldSpec, x):
+    """Elementwise Montgomery-form inverse of x (K, ..., n) with ONE field
+    inversion.  inv(0) = 0: zeros are masked out and restored."""
+    K = spec.num_limbs
+    mul = lambda a, b: fast.mont_mul(spec, a, b)
+    flat = x.reshape(K, -1)
+    n = flat.shape[-1]
+    dev = flat.device
+    zero_mask = ops.is_zero(spec, flat)
+    xs = ops.cmov(zero_mask, ops.one_mont(spec, (n,), dev), flat)
+
+    # tile into (R, L); pad with ones
+    L = min(4096, 1 << max(0, (n - 1).bit_length()))
+    R = -(-n // L)
+    pad = R * L - n
+    if pad:
+        xs = torch.cat([xs, ops.one_mont(spec, (pad,), dev)], dim=-1)
+    rows = xs.reshape(K, R, L).unbind(1)               # R rows of (K, L)
+
+    # Phase 1: inclusive prefix products down the rows
+    prefix = []
+    carry = ops.one_mont(spec, (L,), dev)
+    for row in rows:
+        carry = mul(carry, row)
+        prefix.append(carry)
+    colprod = carry                                     # (K, L)
+
+    # Phase 2: inclusive products along the lanes, from either end (log-depth)
+    def lane_scan(v, reverse: bool):
+        acc = v
+        d = 1
+        while d < L:
+            ones = ops.one_mont(spec, (d,), dev)
+            if reverse:
+                shifted = torch.cat([acc[:, d:], ones], dim=-1)
+            else:
+                shifted = torch.cat([ones, acc[:, :-d]], dim=-1)
+            acc = mul(acc, shifted)
+            d *= 2
+        return acc
+
+    pre_incl = lane_scan(colprod, reverse=False)
+    suf_incl = lane_scan(colprod, reverse=True)
+    ginv = fast.inv_mont(spec, pre_incl[:, -1:])        # the one inversion
+
+    # inv(colprod[l]) = ginv * pre_excl[l] * suf_excl[l]
+    one_col = ops.one_mont(spec, (1,), dev)
+    pre_excl = torch.cat([one_col, pre_incl[:, :-1]], dim=-1)
+    suf_excl = torch.cat([suf_incl[:, 1:], one_col], dim=-1)
+    iv = mul(mul(pre_excl, suf_excl), ginv)             # (K, L)
+
+    # Phase 3: unwind the rows backward.
+    # inv(x[r]) = inv(prefix[r]) * prefix[r-1]; iv walks up: iv *= x[r]
+    inv_rows = [None] * R
+    for r in range(R - 1, -1, -1):
+        pprev = prefix[r - 1] if r else ops.one_mont(spec, (L,), dev)
+        inv_rows[r] = mul(iv, pprev)
+        iv = mul(iv, rows[r])
+    invx = torch.stack(inv_rows, dim=1).reshape(K, R * L)[:, :n]
+
+    out = ops.cmov(zero_mask, torch.zeros_like(invx), invx)
+    return out.reshape(x.shape)
