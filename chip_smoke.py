@@ -6,15 +6,21 @@
 Builds the CUDA kernels from ``tpu_bls12_381_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (integer arithmetic, canonical
 results: the tolerance is zero, ``torch.equal``), runs the golden n = 4096 G1
-MSM vector with GLV off and on, and drives the two ported paths once each at
+MSM vector with GLV off and on, and drives the ported paths once each at
 full width: ``msm_g1`` on 2^20 points, checked against one host scalar
-multiplication, and the Fr NTT on 2^22 elements through ``NttContext`` (the
-four-step by default, the radix-2 ladder when asked), checked against host
-sums, round trips and each other; then the vector ops at 2^22.
+multiplication; the cached-bases path a prover calls (``g1_context()``:
+``upload_bases`` with precompute factor 2, ``msm_with_bases``, ``msm_batch``,
+an MSM forced into 4 pieces) on the same 2^20 points, and ``msm_g2`` and
+``g2_context()`` (factor 2) on 2^20 G2 points, each checked against the host; and the Fr NTT on 2^22 elements
+through ``NttContext`` (the four-step by default, the radix-2 ladder when
+asked), checked against host sums, round trips and each other; then the
+vector ops at 2^22.
 
 One JSON object per phase goes to standard output.  The last lines are the
 ``{"kernels": [...]}`` table, the card's name and power limit as ``nvidia-smi``
-gives them, and ``{"ok": true, "device": {...}}``.  In the table ``ms`` is
+gives them, and ``{"ok": true, "device": {...}}``.  The table has one row for
+each kernel at each shape a driven path gives it (``path`` names the path,
+``launches`` is that path's count).  In it ``ms`` is
 the kernel's own time on the card, read from a ``torch.profiler`` trace of
 the timed launches; ``call_ms`` beside it is what one wrapper call costs
 back to back (host checks, allocation and launch included), by CUDA events.
@@ -55,8 +61,9 @@ LIMB_BYTES_STORED = 4  # the int32 slot it is stored in
 SEED = 20
 LOG_N = 20             # the MSM path's point count, 2^20: never cut
 NTT_LOG_N = 22         # the NTT path's size, 2^22 Fr elements: never cut
-PHASES = ["build", "kernels", "msm_small", "msm_2e20", "ntt_small", "ntt_2e22",
-          "vecops"]
+PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_ctx_small",
+          "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops"]
+G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
 
 
 def emit(obj) -> None:
@@ -163,22 +170,33 @@ def main() -> int:
     import numpy as np
 
     from tpu_bls12_381_torch import _build, constants, oracle, vecops
-    from tpu_bls12_381_torch.curves import cuda_g1, g1
+    from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2
+    from tpu_bls12_381_torch.curves import glv as glv_mod
     from tpu_bls12_381_torch.curves import projective as pj
-    from tpu_bls12_381_torch.curves.field_adapters import FQ_PLAIN
+    from tpu_bls12_381_torch.curves.field_adapters import (FQ2_ADAPTER, FQ2_PLAIN,
+                                                           FQ_ADAPTER, FQ_PLAIN)
     from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, fast, ops
     from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
-    from tpu_bls12_381_torch.msm import msm_g1, msm_geometry
+    from tpu_bls12_381_torch.msm import msm_g1, msm_g2, msm_geometry
     from tpu_bls12_381_torch.ntt import (Ordering, coset_intt, coset_ntt,
                                          cuda_ntt, get_domain, intt, ntt,
                                          release_domain)
     from tpu_bls12_381_torch.ntt.ntt import _butterflies, release_coset_cache
-    from tpu_bls12_381_torch.runtime import NttContext, reset_config_cache, tracing
+    from tpu_bls12_381_torch.runtime import (NttContext, g1_context, g2_context,
+                                             reset_config_cache, tracing)
     from tpu_bls12_381_torch.tuning import chip_profile
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
+    rows = []              # the ``kernels`` line, filled phase by phase
+
+    def stop_early() -> int:
+        """The end of a partial run (``--upto``): the rows gathered so far,
+        no ok line, exit code 10."""
+        if rows:
+            emit({"kernels_so_far": rows})
+        return 10
 
     # ------------------------------------------------------------------ device
     smi = subprocess.run(
@@ -211,7 +229,7 @@ def main() -> int:
           "libraries": sorted(p.name for p in paths.values()),
           "ptxas": registers})
     if args.upto == "build":
-        return 10
+        return stop_early()
 
     # ------------------------------------------------------------ shared inputs
     rng = np.random.default_rng(SEED)
@@ -244,6 +262,42 @@ def main() -> int:
         return (Ab[0].repeat(1, reps)[:, :n].contiguous(),
                 Ab[1].repeat(1, reps)[:, :n].contiguous(),
                 Ab[2].repeat(reps)[:n].contiguous())
+
+    # The same for G2: 1024 multiples k_j * G2 on the host, as the JAX
+    # package's bench makes its G2 points.
+    t0 = time.perf_counter()
+    ks2 = rng.integers(1, 1 << 16, size=G2_HOST_POINTS, dtype=np.int64)
+    G2gen = oracle.g2_generator()
+    base_pts2 = [oracle.jac_to_affine(
+        oracle.scalar_mul(int(k), G2gen, oracle.FQ2_OPS), oracle.FQ2_OPS)
+        for k in ks2]
+    Ab2 = g2.affine_from_ints(base_pts2, device=dev)
+    host_points2_s = time.perf_counter() - t0
+
+    def tiled_affine_g2(n):
+        reps = -(-n // G2_HOST_POINTS)
+        return (Ab2[0].repeat(1, 1, reps)[..., :n].contiguous(),
+                Ab2[1].repeat(1, 1, reps)[..., :n].contiguous(),
+                Ab2[2].repeat(reps)[:n].contiguous())
+
+    modules = (cuda_ops, cuda_g1, cuda_g2, cuda_ntt)
+
+    def reset_counts():
+        for mod in modules:
+            mod.reset_launches()
+
+    def counts():
+        out = {}
+        for mod in modules:
+            out.update(mod.LAUNCHES)
+        return out
+
+    def set_budget_mb(mb):
+        """What MIDNIGHT_MSM_HBM_BUDGET_MB would say, for the calls that follow."""
+        if mb is None:
+            os.environ.pop("MIDNIGHT_MSM_HBM_BUDGET_MB", None)
+        else:
+            os.environ["MIDNIGHT_MSM_HBM_BUDGET_MB"] = str(mb)
 
     # ----------------------------------------------------------------- kernels
     N = 1 << 16
@@ -386,6 +440,12 @@ def main() -> int:
           lambda: cuda_g1.pmadd_signed_plain(Pm, A, sign),
           lambda: cuda_g1.LAUNCHES["pmadd_signed"])
 
+    # The mixed add without the sign on the same lanes (lane 6 is P + P here).
+    Ai = (A[0], A[1], inf2)
+    check("pmadd", "pmadd_kernel", N, cuda_g1.pmadd(Pm, Ai),
+          cuda_g1.pmadd_plain(Pm, Ai), lambda: cuda_g1.pmadd(Pm, Ai),
+          lambda: cuda_g1.pmadd_plain(Pm, Ai), lambda: cuda_g1.LAUNCHES["pmadd"])
+
     # Signed mixed add, looped (R > 1, from the identity), on the two halves
     # of one (R, 48, L) tile as the MSM passes them.
     Rr, Lr = 8, N // 8
@@ -400,9 +460,72 @@ def main() -> int:
           lambda: cuda_g1.pmadd_signed_rows(xr, yr, sr, ir),
           lambda: cuda_g1.pmadd_signed_rows_plain(xr, yr, sr, ir),
           lambda: cuda_g1.LAUNCHES["pmadd_signed"], reps=3)
-    del P, Q, Pm, A, Aproj, tile, xr, yr, got, want, negP, ident
+    del P, Q, Pm, A, Ai, Aproj, tile, xr, yr, got, want, negP, ident
+
+    # The same edge lanes over Fq2, coordinates (24, 2, N).  Lanes 10..12 of
+    # the first operand hold Fq2 values with c0 = c1, c0 = 0 and c1 = p - 1 in
+    # X (not curve points: the kernels are straight-line formulas, and -c0-c1
+    # and 12(c0-c1) must come out canonical there too).
+    A2 = tiled_affine_g2(N)
+    P2 = list(pj.proj_double(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, roll(A2, 1))))
+    Q2 = list(pj.proj_add(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, roll(A2, 2)),
+                          tuple(P2)))
+    ident2 = pj.proj_identity(FQ2_PLAIN, (N,), dev)
+    negP2 = pj.proj_neg(FQ2_PLAIN, tuple(P2))
+    for c in range(3):
+        P2[c][..., 0] = ident2[c][..., 0]     # identity + Q
+        Q2[c][..., 1] = ident2[c][..., 1]     # P + identity
+        Q2[c][..., 2] = P2[c][..., 2]         # P + P
+        Q2[c][..., 3] = negP2[c][..., 3]      # P + (-P)
+        Q2[c][..., 4] = ident2[c][..., 4]     # identity + identity
+        P2[c][..., 4] = ident2[c][..., 4]
+    pm1 = torch.from_numpy(ints_to_limbs([FQ.modulus - 1], 24)[:, 0].astype(np.int32)).to(dev)
+    P2[0][:, 1, 10] = P2[0][:, 0, 10]         # c0 = c1
+    P2[0][:, 0, 11] = 0                       # c0 = 0
+    P2[0][:, 1, 12] = pm1                     # c1 = p - 1
+    P2, Q2 = contig(P2), contig(Q2)
+    got = cuda_g2.padd2(P2, Q2)
+    want = cuda_g2.padd2_plain(P2, Q2)
+    if not bool(FQ2_PLAIN.is_zero(got[2][..., 3:5]).all()):
+        raise AssertionError("padd2: P + (-P) is not the identity")
+    check("padd2", "padd2_kernel", N, got, want, lambda: cuda_g2.padd2(P2, Q2),
+          lambda: cuda_g2.padd2_plain(P2, Q2), lambda: cuda_g2.LAUNCHES["padd2"])
+    check("pdbl2", "pdbl2_kernel", N, cuda_g2.pdbl2(P2), cuda_g2.pdbl2_plain(P2),
+          lambda: cuda_g2.pdbl2(P2), lambda: cuda_g2.pdbl2_plain(P2),
+          lambda: cuda_g2.LAUNCHES["pdbl2"])
+
+    Pm2 = [c.clone() for c in P2]
+    Aproj2 = pj.affine_to_proj(FQ2_PLAIN, A2)
+    for c in range(3):
+        Pm2[c][..., 5] = Aproj2[c][..., 5]    # P + P      (same affine point)
+        Pm2[c][..., 6] = Aproj2[c][..., 6]    # P + (-P)   (sign set)
+        Pm2[c][..., 8] = ident2[c][..., 8]    # identity + A
+    Pm2 = contig(Pm2)
+    A2 = (A2[0], A2[1], inf2)
+    got = cuda_g2.pmadd2(Pm2, A2, sign)
+    want = cuda_g2.pmadd2_plain(Pm2, A2, sign)
+    if not bool(FQ2_PLAIN.is_zero(got[2][..., 6])):
+        raise AssertionError("pmadd2: P + (-P) is not the identity")
+    check("pmadd2", "pmadd2_kernel", N, got, want,
+          lambda: cuda_g2.pmadd2(Pm2, A2, sign),
+          lambda: cuda_g2.pmadd2_plain(Pm2, A2, sign),
+          lambda: cuda_g2.LAUNCHES["pmadd2"])
+    if not trees_equal(cuda_g2.pmadd2(Pm2, A2), cuda_g2.pmadd2_plain(Pm2, A2)):
+        raise AssertionError("pmadd2 without a sign: kernel and plain differ")
+
+    # Looped, on the two halves of one (R, 96, L) tile as the MSM passes them.
+    tile = torch.cat([A2[0].reshape(48, N), A2[1].reshape(48, N)], dim=0
+                     ).reshape(96, Rr, Lr).permute(1, 0, 2).contiguous()
+    xr, yr = tile[:, :48].unflatten(1, (24, 2)), tile[:, 48:].unflatten(1, (24, 2))
+    got = cuda_g2.pmadd2_rows(xr, yr, sr, ir)
+    want = cuda_g2.pmadd2_rows_plain(xr, yr, sr, ir)
+    check("pmadd2_rows", "pmadd2_kernel", N, got, want,
+          lambda: cuda_g2.pmadd2_rows(xr, yr, sr, ir),
+          lambda: cuda_g2.pmadd2_rows_plain(xr, yr, sr, ir),
+          lambda: cuda_g2.LAUNCHES["pmadd2"], reps=3)
+    del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2
     if args.upto == "kernels":
-        return 10
+        return stop_early()
 
     # --------------------------------------------------------------- msm_small
     with open(ROOT / "tests" / "vectors" / "msm_g1_vectors.json") as f:
@@ -423,7 +546,7 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"msm_small glv={glv}: wrong result")
     if args.upto == "msm_small":
-        return 10
+        return stop_early()
 
     # ---------------------------------------------------------------- msm_2e20
     n = 1 << LOG_N
@@ -443,31 +566,34 @@ def main() -> int:
     if not torch.equal(fast.from_mont(FR, s_mont), s_std):
         raise AssertionError("msm_2e20: scalars do not round-trip through Montgomery form")
 
+    def host_scalar_total(mults):
+        """sum_i s_i * mults[i mod m] mod r for the scalars above.  Per
+        residue j the scalars are summed in 32-bit halves (no overflow: at
+        most 2^20 / m terms below 2^32 each, m >= 1024)."""
+        m = len(mults)
+        pad = (-n) % m
+        total = 0
+        for wi in range(4):
+            w_ = np.concatenate([words[wi], np.zeros(pad, np.uint64)]).reshape(-1, m)
+            lo = (w_ & np.uint64(0xFFFFFFFF)).sum(axis=0)
+            hi = (w_ >> np.uint64(32)).sum(axis=0)
+            for j in range(min(m, n)):
+                total += ((int(lo[j]) + (int(hi[j]) << 32)) << (64 * wi)) * int(mults[j])
+        return total % constants.FR_MODULUS
+
     # Expected: (sum_i s_i * k_{i mod 4096} mod r) * G, one host scalar mul.
-    # Per residue j the scalars are summed in 32-bit halves (no overflow:
-    # at most 2^20 / 4096 terms below 2^32 each).
-    pad = (-n) % M
-    total = 0
-    for wi in range(4):
-        w_ = np.concatenate([words[wi], np.zeros(pad, np.uint64)]).reshape(-1, M)
-        lo = (w_ & np.uint64(0xFFFFFFFF)).sum(axis=0)
-        hi = (w_ >> np.uint64(32)).sum(axis=0)
-        for j in range(min(M, n)):
-            total += ((int(lo[j]) + (int(hi[j]) << 32)) << (64 * wi)) * int(ks[j])
     expected = oracle.jac_to_affine(
-        oracle.scalar_mul(total % constants.FR_MODULUS, G, oracle.FQ_OPS),
-        oracle.FQ_OPS)
+        oracle.scalar_mul(host_scalar_total(ks), G, oracle.FQ_OPS), oracle.FQ_OPS)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     geo = msm_geometry(n, device=dev)            # the plan msm_g1 follows
-    cuda_ops.reset_launches()
-    cuda_g1.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     Pj = msm_g1(s_mont, A)                       # the main path, first call
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {**cuda_ops.LAUNCHES, **cuda_g1.LAUNCHES}
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
     got = g1.jacobian_to_ints(tuple(c[:, None] for c in Pj))[0]
     ok = got == expected and all(tuple(c.shape) == (24,) for c in Pj)
@@ -523,18 +649,20 @@ def main() -> int:
               "kernel_launches_traced": sum(r[2] for r in by_kernel),
               "top_device_ms": [[k[:48], round(ms, 3), c]
                                 for k, ms, c in by_kernel[:10]]})
-    del A, s_mont, s_std, Pj
+    del s_std, Pj
     torch.cuda.empty_cache()
 
     # ------------------------------------- kernels at the main path's shapes
     L, R, nb = geo["L"], geo["R"], geo["nb"]
     W_FR, W_FQ = FR.num_limbs // 2, FQ.num_limbs // 2
-    rows = []
 
     def kernel_row(name, symbol, source, replaces, shape, kernel_fn, plain_fn,
                    limbs_moved, mask_bytes, wide_mads, reps, n_launches=None,
-                   per_call=1, **extra):
-        """One row of the ``kernels`` line.  ``kernel_fn`` launches the kernel
+                   per_call=1, *, path, **extra):
+        """One row of the ``kernels`` line: a kernel at the shape that the
+        driven path ``path`` gives it, with its launches in that path's run
+        (a kernel that several paths run at different shapes has a row for
+        each, named ``kernel[path]``).  ``kernel_fn`` launches the kernel
         ``per_call`` times; ``plain_fn`` computes what its last launch does."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
@@ -555,7 +683,7 @@ def main() -> int:
                "plain_ms": time_ms(plain_fn, 1, warm=False), "bound_ms": b_ms,
                "bound_by": b_by, "bound_ms_as_stored": s_ms,
                "bound_by_as_stored": s_by, "library_ms": None, "shape": shape,
-               **extra}
+               "path": path, **extra}
         if err != 0:
             raise AssertionError(f"{name} at {shape}: kernel and plain differ")
         rows.append(row)
@@ -567,35 +695,44 @@ def main() -> int:
                "tpu_bls12_381/fields/pallas_ops.py:381",
                [16, n], lambda: cuda_ops.mont_mul(FR, a16, b16),
                lambda: cuda_ops.mont_mul_plain(FR, a16, b16),
-               3 * 16 * n, 0, n * mul_mads(W_FR), 10)
+               3 * 16 * n, 0, n * mul_mads(W_FR), 10,
+               path="msm_2e20: msm_g1")
     del a16, b16
     a24, b24 = rand_field(FQ, n), rand_field(FQ, n).flip(1).contiguous()
     kernel_row("mont_mul_fq", "mont_mul_kernel", FIELD_SRC,
                "tpu_bls12_381/fields/pallas_ops.py:381",
                [24, n], lambda: cuda_ops.mont_mul(FQ, a24, b24),
                lambda: cuda_ops.mont_mul_plain(FQ, a24, b24),
-               3 * 24 * n, 0, n * mul_mads(W_FQ), 10)
+               3 * 24 * n, 0, n * mul_mads(W_FQ), 10,
+               path="msm_2e20: msm_g1")
     del a24, b24
     z1 = rand_field(FQ, 4)[:, 3:4].contiguous()
     kernel_row("mont_sqr_fq", "mont_sqr_kernel", FIELD_SRC,
                "tpu_bls12_381/fields/pallas_ops.py:391",
                [24, 1], lambda: cuda_ops.mont_sqr(FQ, z1),
                lambda: cuda_ops.mont_sqr_plain(FQ, z1),
-               2 * 24, 0, sqr_mads(W_FQ), 50)
+               2 * 24, 0, sqr_mads(W_FQ), 50,
+               path="msm_2e20: msm_g1")
 
-    # The scan at its (R, L) tile.  The plain version needs R dependent plain
-    # adds; it is timed once.
-    At = tiled_affine(R * L)
-    tile = torch.cat([At[0], At[1]], dim=0).reshape(48, R, L).permute(1, 0, 2).contiguous()
-    xr, yr = tile[:, :24], tile[:, 24:]
-    sr = torch.from_numpy(rng.integers(0, 2, size=(R, L)).astype(bool)).to(dev)
-    ir = torch.from_numpy(rng.integers(0, 16, size=(R, L)) == 0).to(dev)
-    kernel_row("pmadd_signed", "pmadd_signed_kernel", G1_SRC,
-               "tpu_bls12_381/curves/pallas_g1.py:430",
-               [R, 24, L], lambda: cuda_g1.pmadd_signed_rows(xr, yr, sr, ir),
-               lambda: cuda_g1.pmadd_signed_rows_plain(xr, yr, sr, ir),
-               R * L * 5 * 24, R * L * 2, R * L * 11 * mul_mads(W_FQ), 3)
-    del tile, xr, yr, sr, ir, At
+    # The scan at its (R, L) tile: one launch walks the R rows of every lane.
+    # The plain version needs R dependent plain adds.
+    def scan_row_g1(name, path, R_, lanes, n_launches, **extra):
+        At_ = tiled_affine(R_ * lanes)
+        tile_ = torch.cat([At_[0], At_[1]], dim=0).reshape(48, R_, lanes
+                                                           ).permute(1, 0, 2).contiguous()
+        del At_
+        xr_, yr_ = tile_[:, :24], tile_[:, 24:]
+        sr_ = torch.from_numpy(rng.integers(0, 2, size=(R_, lanes)).astype(bool)).to(dev)
+        ir_ = torch.from_numpy(rng.integers(0, 16, size=(R_, lanes)) == 0).to(dev)
+        kernel_row(name, "pmadd_signed_kernel", G1_SRC,
+                   "tpu_bls12_381/curves/pallas_g1.py:430", [R_, 24, lanes],
+                   lambda: cuda_g1.pmadd_signed_rows(xr_, yr_, sr_, ir_),
+                   lambda: cuda_g1.pmadd_signed_rows_plain(xr_, yr_, sr_, ir_),
+                   R_ * lanes * 5 * 24, R_ * lanes * 2,
+                   R_ * lanes * 11 * mul_mads(W_FQ), 3, n_launches=n_launches,
+                   path=path, **extra)
+
+    scan_row_g1("pmadd_signed", "msm_2e20: msm_g1", R, L, launches["pmadd_signed"])
 
     # padd at the boundary stage's 2*nb lanes (its widest call on the path;
     # the stitch, triangle and Horner calls run on L down to 1 lanes).
@@ -607,18 +744,400 @@ def main() -> int:
                "tpu_bls12_381/curves/pallas_g1.py:465",
                [24, nl], lambda: cuda_g1.padd(Pl, Ql),
                lambda: cuda_g1.padd_plain(Pl, Ql),
-               9 * 24 * nl, 0, nl * 12 * mul_mads(W_FQ), 20)
+               9 * 24 * nl, 0, nl * 12 * mul_mads(W_FQ), 20,
+               path="msm_2e20: msm_g1")
     # pdbl on one lane, as the triangle combine and the Horner ladder call it.
     P1 = tuple(c[:, 7].contiguous() for c in Pl)
     kernel_row("pdbl", "pdbl_kernel", G1_SRC,
                "tpu_bls12_381/curves/pallas_g1.py:478",
                [24, 1], lambda: cuda_g1.pdbl(P1), lambda: cuda_g1.pdbl_plain(P1),
-               6 * 24, 0, 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ), 50)
+               6 * 24, 0, 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ), 50,
+               path="msm_2e20: msm_g1")
 
     del Al, Pl, Ql, P1, z1
     torch.cuda.empty_cache()
     if args.upto == "msm_2e20":
-        return 10
+        return stop_early()
+
+    # ----------------------------------------------------------- msm_ctx_small
+    # The cached-bases path at small sizes, every variant against the golden
+    # vectors or against its one-shot result.
+    def g1_ints(P):
+        return g1.jacobian_to_ints(P)[0]
+
+    def g2_ints(P):
+        return g2.jacobian_to_ints(tuple(c[..., None] for c in P))[0]
+
+    def ctx_case(what, ok, **extra):
+        emit({"phase": "msm_ctx_small", "what": what, "equal": bool(ok), **extra})
+        if not ok:
+            raise AssertionError(f"msm_ctx_small: {what}: wrong result")
+
+    with open(ROOT / "tests" / "vectors" / "msm_g2_vectors.json") as f:
+        case2 = json.load(f)["cases"][0]
+    hx = lambda v: int(v, 16)
+    pts2 = [((hx(p["x"][0]), hx(p["x"][1])), (hx(p["y"][0]), hx(p["y"][1])))
+            for p in case2["points"]]
+    expected2 = ((hx(case2["expected"]["x"][0]), hx(case2["expected"]["x"][1])),
+                 (hx(case2["expected"]["y"][0]), hx(case2["expected"]["y"][1])))
+    Av2 = g2.affine_from_ints(pts2, device=dev)
+    sv2 = torch.from_numpy(ints_to_limbs(
+        [FR.to_mont(hx(v)) for v in case2["scalars"]], FR.num_limbs
+    ).astype(np.int32)).to(dev)
+    ctx1, ctx2 = g1_context(), g2_context()
+    reset_counts()
+    ctx_case("msm_g2 golden n=1024", g2_ints(msm_g2(sv2, Av2)) == expected2)
+    bases2 = ctx2.upload_bases(Av2, precompute_factor=2)
+    ctx_case("g2_context factor=2 golden n=1024",
+             g2_ints(ctx2.msm_with_bases(sv2, bases2)) == expected2,
+             glv=bases2.glv, w=bases2.window_bits, launches=dict(cuda_g2.LAUNCHES))
+    del bases2, Av2, sv2
+
+    expected_v = (int(case["expected"]["x"], 16), int(case["expected"]["y"], 16))
+    for factor in (1, 2):
+        for use_glv in (False, True):
+            bases = ctx1.upload_bases(Av, precompute_factor=factor, glv=use_glv)
+            ctx_case(f"g1_context factor={factor} glv={use_glv} golden n=4096",
+                     g1_ints(ctx1.msm_with_bases(sv, bases)) == expected_v,
+                     w=bases.window_bits, points=int(bases.A[2].shape[-1]))
+    # `bases` is now factor 2 with GLV: the batch and the chunk paths run on it
+    sets = [sv, sv.roll(1, dims=-1).contiguous(), sv.roll(17, dims=-1).contiguous()]
+    singles = [g1_ints(ctx1.msm_with_bases(s_, bases)) for s_ in sets]
+    batch3 = [g1_ints(P_) for P_ in ctx1.msm_batch(sets, bases)]
+    ctx_case("msm_batch of 3 equals 3 single calls", batch3 == singles
+             and singles[0] == expected_v)
+    F1 = FQ_ADAPTER
+    n_v = 4096
+
+    def chunked(what, mb, fn, want, **plan_kw):
+        """Run ``fn`` under a budget of ``mb`` MiB; its scan launches must be
+        the plan's, and the plan must split where ``what`` says."""
+        set_budget_mb(mb)
+        try:
+            plan = msm_geometry(n_v, device=dev, **plan_kw)
+            reset_counts()
+            out = fn()
+            scans = cuda_g1.LAUNCHES["pmadd_signed"]
+        finally:
+            set_budget_mb(None)
+        split = plan["groups"] > 1 if "members" in what else plan["pieces"] > 1
+        ctx_case(what, out == want and split and scans == plan["scan_launches"],
+                 budget_mb=mb, pieces=plan["pieces"], groups=plan["groups"],
+                 scan_launches=scans, planned=plan["scan_launches"])
+
+    cached = dict(glv=bases.glv, F=F1, window_bits=bases.window_bits,
+                  factor=bases.factor, cached=True)
+    chunked("single MSM in pieces", 1, lambda: g1_ints(msm_g1(sv, Av, glv=False)),
+            expected_v, glv=False)
+    chunked("single MSM with GLV in pieces", 2, lambda: g1_ints(msm_g1(sv, Av, glv=True)),
+            expected_v, glv=True)
+    chunked("precomputed MSM in pieces", 4,
+            lambda: g1_ints(ctx1.msm_with_bases(sv, bases)), expected_v, **cached)
+    chunked("batch in groups of members", 16,
+            lambda: [g1_ints(P_) for P_ in ctx1.msm_batch(sets, bases)], singles,
+            batch=3, **cached)
+    chunked("batch in pieces of points", 8,
+            lambda: [g1_ints(P_) for P_ in ctx1.msm_batch(sets, bases)], singles,
+            batch=3, **cached)
+    del bases
+
+    # scalar_mul_glv: 4,096 lanes, a few of them against the host; every step
+    # is one pdbl and two pmadd launches.
+    k_std = fast.from_mont(FR, sv)
+    reset_counts()
+    t0 = time.perf_counter()
+    Pk = glv_mod.scalar_mul_glv(k_std, Av)
+    torch.cuda.synchronize()
+    glv_s = time.perf_counter() - t0
+    launches_glv = counts()
+    lanes = [0, 1, 2, 3, 2047, 4095]
+    got_k = g1.jacobian_to_ints(tuple(c[:, lanes] for c in Pk))
+    want_k = [oracle.jac_to_affine(oracle.scalar_mul(vals[i], pts[i], oracle.FQ_OPS),
+                                   oracle.FQ_OPS) if vals[i] else None for i in lanes]
+    ctx_case("scalar_mul_glv on 4096 lanes", got_k == want_k
+             and launches_glv["pmadd"] == 2 * glv_mod.GLV_HALF_BITS
+             and launches_glv["pdbl"] == glv_mod.GLV_HALF_BITS,
+             seconds=glv_s, pmadd_launches=launches_glv["pmadd"],
+             pdbl_launches=launches_glv["pdbl"])
+    del Pk
+    if args.upto == "msm_ctx_small":
+        return stop_early()
+
+    # ------------------------------------------------------------ msm_ctx_2e20
+    # The path a prover calls: bases uploaded once, expanded by factor 2 and
+    # GLV-extended as `auto` decides, then every MSM against them.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    bases = ctx1.upload_bases(A, precompute_factor=2)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    launches_up = counts()
+    geo_c = msm_geometry(n, bases.glv, F1, dev, bases.window_bits,
+                         factor=bases.factor, cached=True)
+    t0 = time.perf_counter()
+    ctx1.msm_with_bases(s_mont, bases)              # warm call
+    first_c = time.perf_counter() - t0
+    reset_counts()
+    Pc = ctx1.msm_with_bases(s_mont, bases)         # the main path
+    launches_ctx = counts()
+    got_c = g1_ints(Pc)
+    secs_c = [tracing.timed_reps(1, lambda: ctx1.msm_with_bases(s_mont, bases))
+              for _ in range(3)]
+    med_c = statistics.median(secs_c)
+    with tracing.collect_stages() as stages_c:
+        ctx1.msm_with_bases(s_mont, bases)
+    ok_c = got_c == expected and got_c == got
+    if launches_ctx["pmadd_signed"] != geo_c["scan_launches"] or geo_c["pieces"] != 1:
+        raise AssertionError(f"msm_ctx_2e20: {launches_ctx['pmadd_signed']} scan "
+                             f"launches, the plan has {geo_c}")
+
+    # A batch of 4 scalar sets against the same bases, and the 4 single calls.
+    sets4 = [s_mont] + [s_mont.roll(sh, dims=-1).contiguous() for sh in (1, 4097, 70001)]
+    t0 = time.perf_counter()
+    singles4 = [ctx1.msm_with_bases(s_, bases) for s_ in sets4]
+    torch.cuda.synchronize()
+    singles4_s = time.perf_counter() - t0
+    singles4 = [g1_ints(P_) for P_ in singles4]
+    geo_b = msm_geometry(n, bases.glv, F1, dev, bases.window_bits,
+                         factor=bases.factor, batch=4, cached=True)
+    ctx1.msm_batch(sets4, bases)                    # warm call
+    reset_counts()
+    t0 = time.perf_counter()
+    batch4 = ctx1.msm_batch(sets4, bases)
+    torch.cuda.synchronize()
+    batch4_s = time.perf_counter() - t0
+    launches_b4 = counts()
+    ok_b = [g1_ints(P_) for P_ in batch4] == singles4 and singles4[0] == expected
+    del batch4, sets4
+
+    # One MSM under a budget that forces 4 pieces.
+    need = geo_c["n"] * geo_c["bytes_per_point"]
+    mb4 = -(-need // (4 << 20))
+    set_budget_mb(mb4)
+    try:
+        geo_4 = msm_geometry(n, bases.glv, F1, dev, bases.window_bits,
+                             factor=bases.factor, cached=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        P4 = ctx1.msm_with_bases(s_mont, bases)
+        torch.cuda.synchronize()
+        pieces4_s = time.perf_counter() - t0
+        launches_p4 = counts()
+    finally:
+        set_budget_mb(None)
+    ok_4 = (g1_ints(P4) == expected and geo_4["pieces"] == 4
+            and launches_p4["pmadd_signed"] == geo_4["scan_launches"])
+    peak_c = torch.cuda.max_memory_allocated()
+    emit({"phase": "msm_ctx_2e20", "n": n, "equal": bool(ok_c and ok_b and ok_4),
+          "with_bases_equals_single_shot_and_host": ok_c,
+          "batch4_equals_4_calls": ok_b, "four_pieces_equals_one_shot": ok_4,
+          "g1_msm_cached_2e20_points_per_s": n / med_c,
+          "seconds_median_of_3": med_c, "seconds_each": secs_c,
+          "seconds_first_call": first_c, "seconds_upload": upload_s,
+          "seconds_batch4": batch4_s, "batch4_points_per_s": 4 * n / batch4_s,
+          "seconds_4_single_calls": singles4_s, "seconds_4_pieces": pieces4_s,
+          "budget_mb_4_pieces": mb4,
+          "pipeline_points": geo_c["n"],
+          **{k: geo_c[k] for k in ("glv", "factor", "w", "T", "L", "R", "nb")},
+          "plan_batch4": {k: geo_b[k] for k in ("pieces", "groups", "per_group",
+                                                "scan_launches")},
+          "plan_4_pieces": {k: geo_4[k] for k in ("pieces", "per", "L", "R",
+                                                  "scan_launches")},
+          "launches": launches_ctx, "launches_batch4": launches_b4,
+          "launches_4_pieces": launches_p4, "launches_upload": launches_up,
+          "peak_bytes_allocated": peak_c,
+          "stages_ms": {k: round(v, 3) for k, v in stages_c.items()}, "card": smi})
+    if not (ok_c and ok_b and ok_4):
+        raise AssertionError("msm_ctx_2e20: a check failed (see the line above)")
+    for k in ("mont_mul_fr", "pmadd_signed", "padd", "pdbl"):
+        if launches_ctx[k] < 1:
+            raise AssertionError(f"msm_ctx_2e20: {k} never launched on the path")
+    if geo_b["groups"] != 1 or launches_b4["pmadd_signed"] != geo_b["scan_launches"]:
+        raise AssertionError(f"msm_ctx_2e20: the batch of 4 made "
+                             f"{launches_b4['pmadd_signed']} scan launches, the "
+                             f"plan has {geo_b}")
+    m_up = int(bases.A[2].shape[-1]) // bases.factor   # points of one block
+    del bases, Pc, P4, A, singles4
+    torch.cuda.empty_cache()
+
+    # ------------------ the G1 kernels at the shapes the cached path gives them
+    # The scan tile of one cached MSM, and of the batch of 4 (the batch axis
+    # folded into the lanes: B*L columns to the kernel); padd at the
+    # boundary's 2*nb lanes; pdbl on the lanes of one expand_bases slice.
+    Rc, Lc = geo_c["R"], geo_c["L"]
+    scan_row_g1("pmadd_signed[cached]", "msm_ctx_2e20: msm_with_bases", Rc, Lc,
+                launches_ctx["pmadd_signed"])
+    scan_row_g1("pmadd_signed[batch4]", "msm_ctx_2e20: msm_batch of 4", geo_b["R"],
+                geo_b["per_group"] * geo_b["L"], launches_b4["pmadd_signed"],
+                batch=geo_b["per_group"])
+    torch.cuda.empty_cache()
+    nlc = 2 * geo_c["nb"]
+    Alc = tiled_affine(nlc)
+    Plc = contig(pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, Alc)))
+    Qlc = contig(pj.affine_to_proj(FQ_PLAIN, roll(Alc, 1)))
+    kernel_row("padd[cached]", "padd_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:465", [24, nlc],
+               lambda: cuda_g1.padd(Plc, Qlc), lambda: cuda_g1.padd_plain(Plc, Qlc),
+               9 * 24 * nlc, 0, nlc * 12 * mul_mads(W_FQ), 20,
+               n_launches=launches_ctx["padd"], path="msm_ctx_2e20: msm_with_bases")
+    del Alc, Plc, Qlc
+    expand_cap = 1 << int(os.environ.get("MIDNIGHT_EXPAND_CHUNK_LOG", "20"))
+    nup = min(m_up, expand_cap)
+    Pup = contig(pj.affine_to_proj(FQ_PLAIN, tiled_affine(nup)))
+    kernel_row("pdbl[upload]", "pdbl_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:478", [24, nup],
+               lambda: cuda_g1.pdbl(Pup), lambda: cuda_g1.pdbl_plain(Pup),
+               6 * 24 * nup, 0, nup * (6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ)), 10,
+               n_launches=launches_up["pdbl"], path="msm_ctx_2e20: upload_bases")
+    del Pup
+    torch.cuda.empty_cache()
+    if args.upto == "msm_ctx_2e20":
+        return stop_early()
+
+    # ------------------------------------------------------------- msm_g2_2e20
+    A2 = tiled_affine_g2(n)
+    expected_g2 = oracle.jac_to_affine(
+        oracle.scalar_mul(host_scalar_total(ks2), G2gen, oracle.FQ2_OPS),
+        oracle.FQ2_OPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    geo2 = msm_geometry(n, F=FQ2_ADAPTER, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    Pg2 = msm_g2(s_mont, A2)                        # the main path, first call
+    torch.cuda.synchronize()
+    first_g2 = time.perf_counter() - t0
+    launches_g2 = counts()
+    peak_g2 = torch.cuda.max_memory_allocated()
+    ok_g2 = (g2_ints(Pg2) == expected_g2
+             and all(tuple(c.shape) == (24, 2) for c in Pg2))
+    secs_g2 = [tracing.timed_reps(1, lambda: msm_g2(s_mont, A2)) for _ in range(3)]
+    med_g2 = statistics.median(secs_g2)
+    with tracing.collect_stages() as stages_g2:
+        msm_g2(s_mont, A2)
+    emit({"phase": "msm_g2_2e20", "n": n, "equal": bool(ok_g2),
+          "g2_msm_2e20_points_per_s": n / med_g2, "seconds_median_of_3": med_g2,
+          "seconds_each": secs_g2, "seconds_first_call": first_g2,
+          **{k: geo2[k] for k in ("glv", "w", "T", "L", "R", "nb", "pieces")},
+          "launches": launches_g2, "peak_bytes_allocated": peak_g2,
+          "stages_ms": {k: round(v, 3) for k, v in stages_g2.items()},
+          "host_points_seconds": round(host_points2_s, 2), "card": smi})
+    if not ok_g2:
+        raise AssertionError("msm_g2_2e20: result differs from the host scalar multiplication")
+    if launches_g2["pmadd2"] != geo2["T"] or geo2["pieces"] != 1:
+        raise AssertionError(f"msm_g2_2e20: {launches_g2['pmadd2']} scan launches, "
+                             f"the plan has {geo2['T']} windows")
+    for k in ("padd2", "pdbl2", "mont_mul_fr"):
+        if launches_g2[k] < 1:
+            raise AssertionError(f"msm_g2_2e20: {k} never launched on the path")
+    del Pg2
+
+    # The same points as cached bases through g2_context(): factor 2 (no GLV
+    # on G2), one warm call and one timed call.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    bases2 = ctx2.upload_bases(A2, precompute_factor=2)
+    torch.cuda.synchronize()
+    upload2_s = time.perf_counter() - t0
+    launches_up2 = counts()
+    geo2c = msm_geometry(n, bases2.glv, FQ2_ADAPTER, dev, bases2.window_bits,
+                         factor=bases2.factor, cached=True)
+    t0 = time.perf_counter()
+    ctx2.msm_with_bases(s_mont, bases2)             # warm call
+    torch.cuda.synchronize()
+    first_g2c = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    Pg2c = ctx2.msm_with_bases(s_mont, bases2)      # the path
+    torch.cuda.synchronize()
+    call_g2c = time.perf_counter() - t0
+    launches_g2c = counts()
+    peak_g2c = torch.cuda.max_memory_allocated()
+    ok_g2c = g2_ints(Pg2c) == expected_g2
+    emit({"phase": "msm_g2_2e20", "what": "g2_context factor=2", "n": n,
+          "equal": bool(ok_g2c), "seconds_upload": upload2_s,
+          "seconds_first_call": first_g2c, "seconds_call": call_g2c,
+          "g2_msm_cached_2e20_points_per_s": n / call_g2c,
+          "pipeline_points": geo2c["n"],
+          **{k: geo2c[k] for k in ("glv", "factor", "w", "T", "L", "R", "nb",
+                                   "pieces", "scan_launches")},
+          "launches": launches_g2c, "launches_upload": launches_up2,
+          "peak_bytes_allocated": peak_g2c, "card": smi})
+    if not ok_g2c:
+        raise AssertionError("msm_g2_2e20: the G2 context's result differs from the host's")
+    if launches_g2c["pmadd2"] != geo2c["scan_launches"] or geo2c["pieces"] != 1:
+        raise AssertionError(f"msm_g2_2e20: the G2 context made {launches_g2c['pmadd2']} "
+                             f"scan launches, the plan has {geo2c}")
+    m_up2 = int(bases2.A[2].shape[-1]) // bases2.factor
+    del Pg2c, bases2, s_mont
+
+    # ----------------------- the new kernels at the shapes their paths give them
+    G2_SRC = "tpu_bls12_381_torch/csrc/"
+    Ak = tiled_affine(n_v)
+    Pk = contig(pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, roll(Ak, 1))))
+    kernel_row("pmadd", "pmadd_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:413",
+               [24, n_v], lambda: cuda_g1.pmadd(Pk, Ak),
+               lambda: cuda_g1.pmadd_plain(Pk, Ak),
+               8 * 24 * n_v, n_v, n_v * 11 * mul_mads(W_FQ), 50,
+               n_launches=launches_glv["pmadd"],
+               path="msm_ctx_small: scalar_mul_glv")
+    del Ak, Pk
+    L2, R2, nb2 = geo2["L"], geo2["R"], geo2["nb"]
+
+    def scan_row_g2(name, path, R_, L_, n_launches):
+        At_ = tiled_affine_g2(R_ * L_)
+        tile_ = torch.cat([At_[0].reshape(48, -1), At_[1].reshape(48, -1)], dim=0
+                          ).reshape(96, R_, L_).permute(1, 0, 2).contiguous()
+        del At_
+        xr_ = tile_[:, :48].unflatten(1, (24, 2))
+        yr_ = tile_[:, 48:].unflatten(1, (24, 2))
+        sr_ = torch.from_numpy(rng.integers(0, 2, size=(R_, L_)).astype(bool)).to(dev)
+        ir_ = torch.from_numpy(rng.integers(0, 16, size=(R_, L_)) == 0).to(dev)
+        kernel_row(name, "pmadd2_kernel", G2_SRC + "g2_pmadd.cu",
+                   "tpu_bls12_381/curves/pallas_g2.py:179", [R_, 24, 2, L_],
+                   lambda: cuda_g2.pmadd2_rows(xr_, yr_, sr_, ir_),
+                   lambda: cuda_g2.pmadd2_rows_plain(xr_, yr_, sr_, ir_),
+                   R_ * L_ * 5 * 48, R_ * L_ * 2, R_ * L_ * 33 * mul_mads(W_FQ), 3,
+                   n_launches=n_launches, path=path)
+
+    scan_row_g2("pmadd2", "msm_g2_2e20: msm_g2", R2, L2, launches_g2["pmadd2"])
+    scan_row_g2("pmadd2[cached]", "msm_g2_2e20: g2_context msm_with_bases",
+                geo2c["R"], geo2c["L"], launches_g2c["pmadd2"])
+    nl2 = 2 * nb2
+    Al2 = tiled_affine_g2(nl2)
+    Pl2 = contig(pj.proj_double(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, Al2)))
+    Ql2 = contig(pj.affine_to_proj(FQ2_PLAIN, roll(Al2, 1)))
+    kernel_row("padd2", "padd2_kernel", G2_SRC + "g2_padd.cu",
+               "tpu_bls12_381/curves/pallas_g2.py:201",
+               [24, 2, nl2], lambda: cuda_g2.padd2(Pl2, Ql2),
+               lambda: cuda_g2.padd2_plain(Pl2, Ql2),
+               9 * 48 * nl2, 0, nl2 * 36 * mul_mads(W_FQ), 20,
+               n_launches=launches_g2["padd2"], path="msm_g2_2e20: msm_g2",
+               note="the G2 context's boundary has the same 2*nb lanes")
+    P12 = tuple(c[..., 7].contiguous() for c in Pl2)
+    kernel_row("pdbl2", "pdbl2_kernel", G2_SRC + "g2_pdbl.cu",
+               "tpu_bls12_381/curves/pallas_g2.py:219",
+               [24, 2, 1], lambda: cuda_g2.pdbl2(P12), lambda: cuda_g2.pdbl2_plain(P12),
+               6 * 48, 0, 22 * mul_mads(W_FQ), 50,
+               n_launches=launches_g2["pdbl2"], path="msm_g2_2e20: msm_g2")
+    del Al2, Pl2, Ql2, P12, A2
+    nup2 = min(m_up2, expand_cap)
+    Pup2 = contig(pj.affine_to_proj(FQ2_PLAIN, tiled_affine_g2(nup2)))
+    kernel_row("pdbl2[upload]", "pdbl2_kernel", G2_SRC + "g2_pdbl.cu",
+               "tpu_bls12_381/curves/pallas_g2.py:219", [24, 2, nup2],
+               lambda: cuda_g2.pdbl2(Pup2), lambda: cuda_g2.pdbl2_plain(Pup2),
+               6 * 48 * nup2, 0, nup2 * 22 * mul_mads(W_FQ), 10,
+               n_launches=launches_up2["pdbl2"],
+               path="msm_g2_2e20: g2_context upload_bases")
+    del Pup2
+    torch.cuda.empty_cache()
+    if args.upto == "msm_g2_2e20":
+        return stop_early()
 
     def set_algorithm(name):
         """What MIDNIGHT_NTT_ALGORITHM would say, for the calls that follow."""
@@ -701,7 +1220,7 @@ def main() -> int:
     release_coset_cache()
     cuda_ntt.release_fourstep_cache()
     if args.upto == "ntt_small":
-        return 10
+        return stop_early()
 
     # ---------------------------------------------------------------- ntt_2e22
     n22 = 1 << NTT_LOG_N
@@ -723,10 +1242,9 @@ def main() -> int:
     w_table_s = time.perf_counter() - t0
 
     def counted(fn):
-        cuda_ops.reset_launches()
-        cuda_ntt.reset_launches()
+        reset_counts()
         out = fn()
-        return out, {**cuda_ops.LAUNCHES, **cuda_ntt.LAUNCHES}
+        return out, counts()
 
     t0 = time.perf_counter()
     y4, launches_4 = counted(lambda: ctx.forward(x22))     # the main path
@@ -836,7 +1354,7 @@ def main() -> int:
               "ladder_ms_each": [t * 1e3 for t in ctx_c["radix2"][1][1]]})
         del ctx_c, xc, yc
     if args.upto == "ntt_2e22":
-        return 10
+        return stop_early()
 
     # ------------------------------------------- NTT kernels at the path's shapes
     tw22 = get_domain(NTT_LOG_N, dev).tw
@@ -855,7 +1373,8 @@ def main() -> int:
                note="the ladder's last stage; ladder_ms_per_stage is the mean "
                     "over the 22 stages of one ladder",
                ladder_ms_per_stage=sum(r[1] for r in trace2 if "butterfly_stage" in r[0])
-               / NTT_LOG_N)
+               / NTT_LOG_N,
+               path="ntt_2e22: the ladder")
     del xr22
     NTT_SRC = "tpu_bls12_381_torch/csrc/ntt_kernels.cu"
     m_in, m_out = 1 << lb22, 1 << la22
@@ -869,7 +1388,8 @@ def main() -> int:
                lambda: cuda_ntt.ntt_tile(xt, tw_in, w=W22),
                lambda: cuda_ntt.ntt_tile_plain(xt, tw_in, w=W22),
                3 * 16 * n22 + 16 * (m_in // 2), 0, tile_mads(m_out, m_in, 1), 5,
-               n_launches=launches_4["ntt_tile_w"])
+               n_launches=launches_4["ntt_tile_w"],
+               path="ntt_2e22: the four-step")
     del W22
     xt = x22.reshape(16, m_in, m_out)
     kernel_row("ntt_tile", "ntt_tile_kernel", NTT_SRC,
@@ -877,7 +1397,8 @@ def main() -> int:
                lambda: cuda_ntt.ntt_tile(xt, tw_out),
                lambda: cuda_ntt.ntt_tile_plain(xt, tw_out),
                2 * 16 * n22 + 16 * (m_out // 2), 0, tile_mads(m_in, m_out, 0), 5,
-               n_launches=launches_4["ntt_tile"])
+               n_launches=launches_4["ntt_tile"],
+               path="ntt_2e22: the four-step")
     del xt, y4, ctx
     release_domain()
     cuda_ntt.release_fourstep_cache()
@@ -923,7 +1444,8 @@ def main() -> int:
         kernel_row(f"{op}_fr", symbol, FIELD_SRC,
                    f"tpu_bls12_381/fields/pallas_ops.py:{line}", [16, n22],
                    lambda: kern(FR, x22, b22), lambda: plain(FR, x22, b22),
-                   3 * 16 * n22, 0, 0, 10, n_launches=launches_v[f"{op}_fr"])
+                   3 * 16 * n22, 0, 0, 10, n_launches=launches_v[f"{op}_fr"],
+                   path="vecops")
     del x22, b22, x_std
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})

@@ -1,8 +1,8 @@
 """The CUDA kernels' device code, compiled for the host, against the plain
 PyTorch versions.
 
-``csrc/field.cuh``, ``csrc/g1.cuh`` and ``csrc/ntt.cuh`` also compile as plain
-C++.  ``csrc/host_check.cpp`` loops the kernels' lane bodies (the very
+``csrc/field.cuh``, ``csrc/g1.cuh``, ``csrc/g2.cuh`` and ``csrc/ntt.cuh`` also
+compile as plain C++.  ``csrc/host_check.cpp`` loops the kernels' lane bodies (the very
 functions the CUDA kernels call per thread) over the lanes on the CPU, so the
 32-bit-word Montgomery arithmetic, the group-law formulas and the index math
 of the butterfly stage and of the NTT tile (pairs, strided twiddles, the
@@ -24,8 +24,8 @@ import pytest
 import torch
 
 from tpu_bls12_381_torch import oracle
-from tpu_bls12_381_torch.curves import cuda_g1, g1, projective as pj
-from tpu_bls12_381_torch.curves.field_adapters import FQ_PLAIN
+from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2, projective as pj
+from tpu_bls12_381_torch.curves.field_adapters import FQ2_PLAIN, FQ_PLAIN
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
 from tpu_bls12_381_torch.ntt import cuda_ntt, get_domain
@@ -263,3 +263,161 @@ def test_host_compiled_kernels_match_the_jax_package(lib, points):
     want = jfast.butterfly(JFR, j(e), j(o), j(w))
     for o_, w_ in zip((hi, lo), want):
         np.testing.assert_array_equal(o_.numpy().astype(np.uint32), np.asarray(w_))
+
+
+# -----------------------------------------------------------------------------
+# pmadd (the G1 mixed add without the sign) and the G2 kernels (g2.cuh)
+# -----------------------------------------------------------------------------
+
+def test_pmadd_elementwise(lib, points):
+    A = points["A"]
+    P = [c.clone() for c in points["P"]]
+    PA = pj.affine_to_proj(FQ_PLAIN, A)
+    inf2 = torch.tensor([i % 7 == 5 for i in range(N)])
+    for c in range(3):
+        P[c][:, 8] = PA[c][:, 8]               # P + P
+    inf2[8] = False
+    P = tuple(P)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_pmadd(*[_ptr(t) for t in P], _ptr(A[0]), _ptr(A[1]), _ptr(inf2),
+                 *[_ptr(t) for t in out], SZ(N))
+    want = cuda_g1.pmadd_plain(P, (A[0], A[1], inf2))
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert all(torch.equal(o[:, 5], p[:, 5]) for o, p in zip(out, P))  # inf2
+    # lane 0 holds the identity: identity + A = A
+    got = g1.jacobian_to_ints(pj.proj_to_jac(FQ_PLAIN, tuple(out)))
+    assert got[0] == g1.affine_to_ints(A)[0]
+
+
+def _fq2_elements(seed):
+    """(24, 2, N) Fq2 values; the first lanes hold c0 = c1, c0 = 0, c1 = 0,
+    c0 < c1 with c1 = p - 1, and 0."""
+    a = torch.stack([_elements(FQ, seed), _elements(FQ, seed + 1).flip(1)], dim=1)
+    a[:, 1, 3] = a[:, 0, 3]                    # c0 = c1 = p - 2
+    a[:, 0, 4] = 0                             # c0 = 0
+    a[:, 1, 5] = 0                             # c1 = 0
+    a[:, :, 6] = 0
+    return a.contiguous()
+
+
+def test_fq2_mul_sqr_mul12(lib):
+    """Karatsuba, the complex squaring and 12(1+u), where -c0 - c1 and
+    12(c0 - c1) must come out canonical for c0 < c1."""
+    a, b = _fq2_elements(21), _fq2_elements(23).roll(7, -1).contiguous()
+    prod, sqr, m12 = (torch.empty_like(a) for _ in range(3))
+    lib.fq2_ops(_ptr(a), _ptr(b), _ptr(prod), _ptr(sqr), _ptr(m12), SZ(N))
+    assert torch.equal(prod, FQ2_PLAIN.mul(a, b))
+    assert torch.equal(sqr, FQ2_PLAIN.sqr(a))
+    assert torch.equal(sqr, FQ2_PLAIN.mul(a, a))
+    assert torch.equal(m12, pj.mul_b3_g2(FQ2_PLAIN, a))
+    assert int(prod.max()) < (1 << 16) and int(prod.min()) >= 0
+
+
+@pytest.fixture(scope="module")
+def points2():
+    rng = random.Random(9)
+    G = oracle.g2_generator()
+    base = [oracle.jac_to_affine(
+        oracle.scalar_mul(rng.randrange(1, 1 << 24), G, oracle.FQ2_OPS),
+        oracle.FQ2_OPS) for _ in range(12)]
+    pts = [base[i % 12] for i in range(N)]
+    A = g2.affine_from_ints(pts, device="cpu")
+    B = g2.affine_from_ints(pts[5:] + pts[:5], device="cpu")
+    P = [c.clone() for c in pj.proj_double(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, B))]
+    Q = [c.clone() for c in pj.proj_add(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, A),
+                                        tuple(P))]
+    ident = pj.proj_identity(FQ2_PLAIN, (N,), "cpu")
+    negP = pj.proj_neg(FQ2_PLAIN, tuple(P))
+    for c in range(3):
+        P[c][..., 0] = ident[c][..., 0]        # identity + Q
+        Q[c][..., 1] = ident[c][..., 1]        # P + identity
+        Q[c][..., 2] = P[c][..., 2]            # P + P
+        Q[c][..., 3] = negP[c][..., 3]         # P + (-P)
+        P[c][..., 4] = ident[c][..., 4]        # identity + identity
+        Q[c][..., 4] = ident[c][..., 4]
+    return {"A": A, "P": tuple(c.contiguous() for c in P),
+            "Q": tuple(c.contiguous() for c in Q)}
+
+
+def test_padd2_and_pdbl2(lib, points2):
+    P, Q = points2["P"], points2["Q"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g2_padd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N))
+    want = cuda_g2.padd2_plain(P, Q)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not out[2][..., 3:5].any()          # identity: Z = 0
+    lib.g2_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    want = cuda_g2.pdbl2_plain(P)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+def test_pmadd2_elementwise(lib, points2):
+    A = points2["A"]
+    P = [c.clone() for c in points2["P"]]
+    PA = pj.affine_to_proj(FQ2_PLAIN, A)
+    sign = torch.tensor([i % 3 == 0 for i in range(N)])
+    inf2 = torch.tensor([i % 7 == 5 for i in range(N)])
+    for lane, s_ in ((8, False), (9, True)):   # P + P, P + (-P)
+        for c in range(3):
+            P[c][..., lane] = PA[c][..., lane]
+        sign[lane], inf2[lane] = s_, False
+    P = tuple(P)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g2_pmadd(*[_ptr(t) for t in P], _ptr(A[0]), _ptr(A[1]),
+                 SZ(48 * N), _ptr(inf2), _ptr(sign),
+                 *[_ptr(t) for t in out], SZ(N), ctypes.c_int(1))
+    want = cuda_g2.pmadd2_plain(P, (A[0], A[1], inf2), sign)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not out[2][..., 9].any()
+    assert all(torch.equal(o[..., 5], p[..., 5]) for o, p in zip(out, P))  # inf2
+    # the sign left out is a sign of zeros
+    zeros = torch.zeros_like(sign)
+    lib.g2_pmadd(*[_ptr(t) for t in P], _ptr(A[0]), _ptr(A[1]),
+                 SZ(48 * N), _ptr(inf2), _ptr(zeros),
+                 *[_ptr(t) for t in out], SZ(N), ctypes.c_int(1))
+    want = cuda_g2.pmadd2_plain(P, (A[0], A[1], inf2))
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+def test_pmadd2_rows(lib, points2):
+    """The looped form on the two halves of one (R, 96, L) tile, from the
+    identity, as the G2 MSM's scan calls it."""
+    R, L = 6, 16
+    A = points2["A"]
+    tile = torch.cat([A[0].reshape(48, N), A[1].reshape(48, N)]
+                     ).reshape(96, R, L).permute(1, 0, 2).contiguous()
+    xr = tile[:, :48].unflatten(1, (24, 2))
+    yr = tile[:, 48:].unflatten(1, (24, 2))
+    sign = torch.tensor([[(r + l) % 2 == 0 for l in range(L)] for r in range(R)])
+    inf = torch.tensor([[(r * l) % 5 == 4 for l in range(L)] for r in range(R)])
+    inf[:, 3] = True                           # a column that stays the identity
+    out = [torch.empty((R, 24, 2, L), dtype=torch.int32) for _ in range(3)]
+    lib.g2_pmadd(None, None, None, _ptr(xr), _ptr(yr), SZ(xr.stride(0)),
+                 _ptr(inf), _ptr(sign), *[_ptr(t) for t in out],
+                 SZ(L), ctypes.c_int(R))
+    want = cuda_g2.pmadd2_rows(xr, yr, sign, inf)   # the wrapper checks the strides
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not out[2][..., 3].any()
+
+
+def test_host_compiled_g2_kernels_match_the_jax_package(lib, points2):
+    """``padd2`` and ``pdbl2`` as the kernels compute them, against
+    ``curves/projective.py`` of the JAX package over its Fq2 adapter."""
+    import jax.numpy as jnp
+
+    from tpu_bls12_381.curves import projective as jpj
+    from tpu_bls12_381.curves.field_adapters import FQ2_ADAPTER as JF2
+    from tpu_bls12_381_torch import convert
+
+    jp = lambda T: tuple(tuple(jnp.asarray(c) for c in convert.fq2_to_numpy(t))
+                         for t in T)
+    P, Q = points2["P"], points2["Q"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g2_padd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N))
+    for o, w in zip(out, jpj.proj_add(JF2, jp(P), jp(Q))):
+        for got, want in zip(convert.fq2_to_numpy(o), w):
+            np.testing.assert_array_equal(got, np.asarray(want))
+    lib.g2_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    for o, w in zip(out, jpj.proj_double(JF2, jp(P))):
+        for got, want in zip(convert.fq2_to_numpy(o), w):
+            np.testing.assert_array_equal(got, np.asarray(want))

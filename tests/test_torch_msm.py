@@ -262,13 +262,22 @@ def test_msm_raises_when_the_budget_needs_more_than_one_piece(points, monkeypatc
     bpp = pip._msm_bytes_per_point(FQ_ADAPTER)
     assert pip._split_points(N, N * bpp, bpp) == 1
     assert pip._split_points(N, (N // 4) * bpp, bpp) == 4
-    # room for a quarter of the points: the JAX package would chunk, the
-    # port must refuse, and must not truncate or fall back silently
+    # room for a quarter of the points: the port chunks as the JAX package
+    # does (it used to refuse), folds the pieces' window sums and runs the
+    # Horner ladder once; nothing is truncated
     monkeypatch.setattr(pip, "_available_budget", lambda device: (N // 4) * bpp)
-    with pytest.raises(NotImplementedError, match="chunked MSM"):
-        msm_g1(sc, A)
-    with pytest.raises(NotImplementedError):
-        msm_g1(sc, A, glv=False)
+    geo = msm_geometry(N, glv=False, device="cpu")
+    assert (geo["pieces"], geo["per"], geo["n"]) == (4, N // 4, N // 4)
+    # with GLV forced on, the doubled set of a budget for N points runs in
+    # two pieces of N/2 input points, N pipeline points each
+    monkeypatch.setattr(pip, "_available_budget", lambda device: N * bpp)
+    geo = msm_geometry(N, glv=True, device="cpu", window_bits=9)
+    assert (geo["pieces"], geo["per"], geo["n"], geo["T"]) == (2, N // 2, N, 15)
+    vals = [3 + 5 * i for i in range(N)]
+    sc = convert.scalars_from_numpy(_scalars_np(vals), device="cpu")
+    got = g1.jacobian_to_ints(msm_g1(sc, A, glv=True, window_bits=9))[0]
+    assert got == _oracle_msm(vals, points)
+    monkeypatch.setattr(pip, "_available_budget", lambda device: (N // 4) * bpp)
     # GLV "auto" follows the same budget: on only while 2n points fit
     assert not msm_geometry(N, device="cpu")["glv"]
     monkeypatch.setattr(pip, "_available_budget", lambda device: 2 * N * bpp)

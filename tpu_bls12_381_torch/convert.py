@@ -83,3 +83,89 @@ def domain_to_numpy(domain):
     """A ``Domain`` of the port -> (tw, itw, n_inv) as numpy uint32 arrays, as
     the JAX package holds them."""
     return to_numpy(domain.tw), to_numpy(domain.itw), to_numpy(domain.n_inv)
+
+
+# -----------------------------------------------------------------------------
+# G2: the JAX package holds an Fq2 batch as a (c0, c1) pair of (24, *batch)
+# arrays; the port holds one (24, 2, *batch) tensor (curves/field_adapters.py).
+# -----------------------------------------------------------------------------
+
+def _is_pair(v) -> bool:
+    return isinstance(v, (tuple, list)) and len(v) == 2
+
+
+def fq2_from_numpy(pair, device=None):
+    """An Fq2 batch of the JAX package, (c0, c1), -> (24, 2, *batch) tensor."""
+    if not _is_pair(pair):
+        raise ValueError("fq2: expected a (c0, c1) pair of limb arrays")
+    c0, c1 = (np.asarray(c) for c in pair)
+    if c0.shape != c1.shape:
+        raise ValueError(f"fq2: c0 has shape {c0.shape}, c1 has {c1.shape}")
+    dev = resolve_device(device)
+    return torch.stack([_limbs_from_numpy(c0, FQ.num_limbs, "fq2 c0", dev),
+                        _limbs_from_numpy(c1, FQ.num_limbs, "fq2 c1", dev)],
+                       dim=1)
+
+
+def fq2_to_numpy(t):
+    """A (24, 2, *batch) tensor -> the JAX package's (c0, c1) pair."""
+    a = to_numpy(t)
+    return (np.ascontiguousarray(a[:, 0]), np.ascontiguousarray(a[:, 1]))
+
+
+def affine_g2_from_numpy(x, y, inf, device=None):
+    """G2 affine batch of the JAX package, ((x0, x1), (y0, y1), inf) as numpy
+    arrays, -> (x, y, inf) tensors on ``device``."""
+    dev = resolve_device(device)
+    inf_t = torch.from_numpy(np.array(inf, dtype=bool))
+    return (fq2_from_numpy(x, dev), fq2_from_numpy(y, dev), inf_t.to(dev))
+
+
+def point_g2_from_numpy(P, device=None):
+    """A G2 point of the JAX package (projective or Jacobian: three (c0, c1)
+    pairs) -> a tuple of three (24, 2, *batch) tensors."""
+    return tuple(fq2_from_numpy(c, device) for c in P)
+
+
+def point_g2_to_numpy(P):
+    """A G2 point tuple of the port (projective, Jacobian or affine) -> the
+    JAX package's form: a (c0, c1) pair per coordinate, masks as they are."""
+    return tuple(fq2_to_numpy(c) if c.dtype == LIMB_DTYPE else to_numpy(c)
+                 for c in P)
+
+
+# -----------------------------------------------------------------------------
+# Cached bases of an MsmContext: the expanded affine batch and the metadata
+# that must travel with it.
+# -----------------------------------------------------------------------------
+
+def precomputed_bases_from_numpy(A, n: int, factor: int, window_bits: int,
+                                 glv: bool = False, device=None):
+    """The fields of a ``PrecomputedBases`` of the JAX package (``A`` as numpy
+    arrays: (x, y, inf), with x and y (c0, c1) pairs for G2) -> a
+    ``PrecomputedBases`` of the port on ``device``."""
+    from .runtime.msm_context import PrecomputedBases
+
+    x, y, inf = A
+    if _is_pair(x):
+        A_t = affine_g2_from_numpy(x, y, inf, device)
+    else:
+        A_t = affine_from_numpy(x, y, inf, device)
+    want = n * max(factor, 1) * (2 if glv else 1)
+    if A_t[2].shape != (want,):
+        raise ValueError(
+            f"precomputed bases: n={n}, factor={factor}, glv={glv} need "
+            f"{want} points, got inf of shape {tuple(A_t[2].shape)}")
+    return PrecomputedBases(A=A_t, n=n, factor=factor,
+                            window_bits=window_bits, glv=glv)
+
+
+def precomputed_bases_to_numpy(bases):
+    """A ``PrecomputedBases`` of the port -> (A, n, factor, window_bits, glv)
+    with ``A`` as the JAX package holds it (numpy arrays; pairs for G2)."""
+    x, y, inf = bases.A
+    if x.dim() == 3:
+        A = point_g2_to_numpy((x, y, inf))
+    else:
+        A = point_to_numpy((x, y, inf))
+    return A, bases.n, bases.factor, bases.window_bits, bases.glv

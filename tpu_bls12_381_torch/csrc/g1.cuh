@@ -142,6 +142,17 @@ DEV void g1_pmadd_signed_lane(const uint32_t* accX, const uint32_t* accY,
     }
 }
 
+// The mixed add without the sign: P + A, lanes with `inf2` pass P through.
+DEV void g1_pmadd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+                       const uint32_t* x2, const uint32_t* y2, const uint8_t* inf2,
+                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                       size_t idx) {
+    G1Proj P = g1_load(X1, Y1, Z1, n, idx);
+    fq x = fp_load<Fq>(x2, n, idx);
+    fq y = fp_load<Fq>(y2, n, idx);
+    g1_store(X3, Y3, Z3, n, idx, g1_proj_madd(P, x, y, inf2[idx] != 0));
+}
+
 DEV void g1_padd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
                       const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,

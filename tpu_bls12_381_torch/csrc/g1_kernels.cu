@@ -1,7 +1,8 @@
-// Fused G1 group-law kernels: signed mixed add (with a row loop), add, double.
+// Fused G1 group-law kernels: signed mixed add (with a row loop), mixed add,
+// add, double.
 //
 // They take the place of the JAX package's curves/pallas_g1.py kernels
-// _pmadd_signed_kernel, _padd_kernel and _pdbl_kernel.  One thread owns one
+// _pmadd_signed_kernel, _pmadd_kernel, _padd_kernel and _pdbl_kernel.  One thread owns one
 // lane (one point operation); the formulas are in g1.cuh.
 //
 // pmadd_signed carries a row count R.  The MSM's bucket scan is, per lane, a
@@ -44,6 +45,20 @@ pmadd_signed_kernel(const uint32_t* __restrict__ accX, const uint32_t* __restric
                          X3, Y3, Z3, L, R, idx);
 }
 
+// The mixed add without the sign (the joint double-and-add of
+// curves/glv.py::scalar_mul_glv is its one caller): 11 Fq products against
+// 5 * 24 limbs read and 3 * 24 written, so the integer pipe binds as above.
+__global__ void __launch_bounds__(THREADS)
+pmadd_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
+             const uint32_t* __restrict__ Z1, const uint32_t* __restrict__ x2,
+             const uint32_t* __restrict__ y2, const uint8_t* __restrict__ inf2,
+             uint32_t* __restrict__ X3, uint32_t* __restrict__ Y3,
+             uint32_t* __restrict__ Z3, size_t n) {
+    size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= n) return;
+    g1_pmadd_lane(X1, Y1, Z1, x2, y2, inf2, X3, Y3, Z3, n, idx);
+}
+
 __global__ void __launch_bounds__(THREADS)
 padd_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
             const uint32_t* __restrict__ Z1, const uint32_t* __restrict__ X2,
@@ -81,6 +96,18 @@ int g1_pmadd_signed(const void* accX, const void* accY, const void* accZ,
             (const uint32_t*)x2, (const uint32_t*)y2, (size_t)row_stride,
             (const uint8_t*)inf2, (const uint8_t*)sign,
             (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, (size_t)L, R);
+    }
+    return (int)cudaGetLastError();
+}
+
+int g1_pmadd(const void* X1, const void* Y1, const void* Z1,
+             const void* x2, const void* y2, const void* inf2,
+             void* X3, void* Y3, void* Z3, long long n, void* stream) {
+    if (n > 0) {
+        pmadd_kernel<<<blocks_for((size_t)n), THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)X1, (const uint32_t*)Y1, (const uint32_t*)Z1,
+            (const uint32_t*)x2, (const uint32_t*)y2, (const uint8_t*)inf2,
+            (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, (size_t)n);
     }
     return (int)cudaGetLastError();
 }

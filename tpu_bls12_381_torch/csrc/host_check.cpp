@@ -1,5 +1,5 @@
 // Host build of the kernels' lane bodies: the same device code as the CUDA
-// kernels (field.cuh, g1.cuh, ntt.cuh), compiled as plain C++ and run in a
+// kernels (field.cuh, g1.cuh, g2.cuh, ntt.cuh), compiled as plain C++ and run in a
 // loop over the lanes (for the NTT tile: over the blocks, and inside a block
 // over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
 // against the plain PyTorch versions (tests/test_torch_csrc_host.py):
@@ -11,6 +11,7 @@
 #include <vector>
 
 #include "g1.cuh"
+#include "g2.cuh"
 #include "ntt.cuh"
 
 extern "C" {
@@ -96,6 +97,13 @@ void g1_pmadd_signed(const uint32_t* accX, const uint32_t* accY, const uint32_t*
                              X3, Y3, Z3, L, R, i);
 }
 
+void g1_pmadd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+              const uint32_t* x2, const uint32_t* y2, const uint8_t* inf2,
+              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        g1_pmadd_lane(X1, Y1, Z1, x2, y2, inf2, X3, Y3, Z3, n, i);
+}
+
 void g1_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
              const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
@@ -106,6 +114,38 @@ void g1_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
 void g1_pdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
     for (size_t i = 0; i < n; ++i) g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
+}
+
+// Fq2 products, squares and 12(1+u) multiples on (24, 2, n) batches.
+void fq2_ops(const uint32_t* a, const uint32_t* b, uint32_t* prod,
+             uint32_t* sqr, uint32_t* m12, size_t n) {
+    for (size_t i = 0; i < n; ++i) {
+        fq2 x = fq2_load(a, n, i), y = fq2_load(b, n, i);
+        fq2_store(prod, n, i, fq2_mul(x, y));
+        fq2_store(sqr, n, i, fq2_sqr(x));
+        fq2_store(m12, n, i, fq2_mul12(x));
+    }
+}
+
+void g2_pmadd(const uint32_t* accX, const uint32_t* accY, const uint32_t* accZ,
+              const uint32_t* x2, const uint32_t* y2, size_t row_stride,
+              const uint8_t* inf2, const uint8_t* sign,
+              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t L, int R) {
+    for (size_t i = 0; i < L; ++i)
+        g2_pmadd_lane(accX, accY, accZ, x2, y2, row_stride, inf2, sign,
+                      X3, Y3, Z3, L, R, i);
+}
+
+void g2_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+             const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        g2_padd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, i);
+}
+
+void g2_pdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
+    for (size_t i = 0; i < n; ++i) g2_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
 }
 
 }  // extern "C"

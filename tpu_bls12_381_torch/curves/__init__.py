@@ -1,4 +1,4 @@
-from .field_adapters import FQ_ADAPTER
-from . import projective, g1
+from .field_adapters import FQ2_ADAPTER, FQ_ADAPTER
+from . import projective, g1, g2, points
 
-__all__ = ["FQ_ADAPTER", "projective", "g1"]
+__all__ = ["FQ_ADAPTER", "FQ2_ADAPTER", "projective", "g1", "g2", "points"]

@@ -6,6 +6,8 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
   ``_pmadd_signed_kernel`` / ``pmadd_signed`` (``curves/pallas_g1.py:430``,
   ``:456``): RCB16 algorithm 8, y2 negated per lane where ``sign``, P passed
   through where ``inf2``;
+* ``pmadd`` takes the place of ``_pmadd_kernel`` / ``pmadd`` (``:413``,
+  ``:495``): algorithm 8 without the sign (``glv.scalar_mul_glv`` calls it);
 * ``padd`` takes the place of ``_padd_kernel`` / ``padd`` (``:465``, ``:507``):
   RCB16 algorithm 7;
 * ``pdbl`` takes the place of ``_pdbl_kernel`` / ``pdbl`` (``:478``, ``:519``):
@@ -43,7 +45,7 @@ from .field_adapters import FQ_PLAIN
 
 K = FQ.num_limbs
 
-LAUNCHES = {"pmadd_signed": 0, "padd": 0, "pdbl": 0}
+LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0}
 
 _PTR = ctypes.c_void_p
 _CONFIGURED = False
@@ -61,9 +63,11 @@ def _lib():
         lib.g1_pmadd_signed.argtypes = (
             [_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 5
             + [ctypes.c_longlong, ctypes.c_int, _PTR])
+        lib.g1_pmadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_padd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_pdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, _PTR]
-        for fn in (lib.g1_pmadd_signed, lib.g1_padd, lib.g1_pdbl):
+        for fn in (lib.g1_pmadd_signed, lib.g1_pmadd, lib.g1_padd,
+                   lib.g1_pdbl):
             fn.restype = ctypes.c_int
         _CONFIGURED = True
     return lib
@@ -80,14 +84,11 @@ def pmadd_signed_plain(P, A, sign):
 
 def pmadd_signed_rows_plain(x_rows, y_rows, sign_rows, inf_rows):
     """Row scan by R plain signed mixed adds from the identity."""
-    R = x_rows.shape[0]
-    acc = pj.proj_identity(FQ_PLAIN, tuple(inf_rows.shape[1:]), x_rows.device)
-    rows = []
-    for r in range(R):
-        acc = pmadd_signed_plain(
-            acc, (x_rows[r], y_rows[r], inf_rows[r]), sign_rows[r])
-        rows.append(acc)
-    return tuple(torch.stack([row[c] for row in rows]) for c in range(3))
+    return pj.proj_scan_rows(FQ_PLAIN, x_rows, y_rows, sign_rows, inf_rows)
+
+
+def pmadd_plain(P, A):
+    return pj.proj_add_mixed(FQ_PLAIN, P, A)
 
 
 def padd_plain(P, Q):
@@ -201,6 +202,26 @@ def pmadd_signed_rows(x_rows, y_rows, sign_rows, inf_rows):
             L, R, stream_ptr(dev))
     check_launch(code, "g1_pmadd_signed")
     LAUNCHES["pmadd_signed"] += 1
+    return tuple(out)
+
+
+def pmadd(P, A):
+    """Projective + affine addition, elementwise; lanes with ``inf2`` return
+    P (``proj_add_mixed`` contract)."""
+    x2, y2, inf2 = A
+    coords = [*P, x2, y2]
+    batch = _check_coords(coords, "pmadd")
+    dev = P[0].device
+    _check_mask(inf2, batch, dev, "pmadd: inf2")
+    if not P[0].is_cuda:
+        return pmadd_plain(P, A)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _lib().g1_pmadd(
+            *[t.data_ptr() for t in coords], inf2.data_ptr(),
+            *[o.data_ptr() for o in out], P[0].numel() // K, stream_ptr(dev))
+    check_launch(code, "g1_pmadd")
+    LAUNCHES["pmadd"] += 1
     return tuple(out)
 
 

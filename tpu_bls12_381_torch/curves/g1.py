@@ -9,10 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import constants, oracle
+from .. import constants
 from ..device import resolve_device
 from ..fields import FQ, ops
 from ..fields.limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
+from . import points
 from .field_adapters import FQ_ADAPTER
 
 F = FQ_ADAPTER
@@ -51,17 +52,10 @@ def affine_to_ints(A):
 
 
 def jacobian_to_ints(P):
-    """Jacobian batch -> affine int pairs / None (oracle comparison).
-
-    The inversion runs on the host with Python integers (the batched device
-    inverse is not ported yet); meant for a handful of result points.
-    """
-    X, Y, Z = (limbs_to_ints(c.cpu().numpy()) for c in P)
-    out = []
-    for xv, yv, zv in zip(X, Y, Z):
-        jac = (FQ.from_mont(xv), FQ.from_mont(yv), FQ.from_mont(zv))
-        out.append(oracle.jac_to_affine(jac, oracle.FQ_OPS))
-    return out
+    """Jacobian batch -> affine int pairs / None (oracle comparison).  The
+    inversion runs where the point lives (``points.jac_to_affine``)."""
+    P = tuple(c.reshape(FQ.num_limbs, -1) for c in P)
+    return affine_to_ints(points.jac_to_affine(F, P))
 
 
 def generator_affine(batch_shape=(), device=None):

@@ -1,8 +1,9 @@
 """GLV endomorphism for G1: phi(x, y) = (beta*x, y) with phi(P) = lambda*P.
 
-Counterpart of the JAX package's ``curves/glv.py`` as far as the MSM needs it:
-the endomorphism and the scalar decomposition k = k1 + k2*lambda with both
-halves below 2^128.  ``scalar_mul_glv`` is not ported yet.
+Counterpart of the JAX package's ``curves/glv.py``: the endomorphism, the
+scalar decomposition k = k1 + k2*lambda with both halves below 2^128, and
+``scalar_mul_glv``, the batched k*P by a joint double-and-add over the two
+halves.
 
 Constants are derived, not transcribed: beta is the cube root of unity in Fq
 for which phi(P) = lambda*P holds (lambda = z^2 - 1 for the BLS parameter z),
@@ -16,6 +17,8 @@ import torch
 from .. import constants
 from ..fields import FQ, FR, ops
 from ..fields.limbs import LIMB_BITS, LIMB_MASK, int_to_limbs
+from . import projective as pj
+from .field_adapters import FQ_ADAPTER
 
 P_MOD = constants.FQ_MODULUS
 R_MOD = constants.FR_MODULUS
@@ -161,3 +164,34 @@ def decompose(k_std):
         rem = torch.where(take[None], d, rem)
         k2 = _limb_inc_where(k2, take)
     return rem.to(ops.LIMB_DTYPE), k2.to(ops.LIMB_DTYPE)
+
+
+# -----------------------------------------------------------------------------
+# Batched GLV scalar multiplication
+# -----------------------------------------------------------------------------
+
+
+def scalar_mul_glv(scalars_std, A, num_bits: int = GLV_HALF_BITS):
+    """Batched k*P over G1 via GLV: k1*P + k2*phi(P), joint double-and-add.
+
+    ``scalars_std``: (16, N) int32 standard-form Fr limbs; ``A`` an affine G1
+    batch.  ``num_bits`` doublings and 2*num_bits mixed adds, each taken or
+    dropped per lane by a select on the scalar's bit: no branch on data.  The
+    loop is a Python loop: per step one ``pdbl`` and two ``pmadd`` launches
+    on the card, the only caller of the mixed add without a sign.  Returns a
+    Jacobian batch.
+    """
+    F = FQ_ADAPTER
+    k1, k2 = decompose(scalars_std)
+    phiA = endomorphism(F, A)
+    acc = pj.proj_identity(F, F.batch_shape(A[0]), A[0].device)
+    for bit_index in range(num_bits - 1, -1, -1):
+        limb, shift = divmod(bit_index, LIMB_BITS)
+        # k2 keeps only its live limbs: a bit above them is 0
+        b1 = ((k1[limb] >> shift) & 1).bool()
+        b2 = (((k2[limb] >> shift) & 1).bool() if limb < k2.shape[0]
+              else torch.zeros_like(b1))
+        acc = pj.proj_double_fast(F, acc)
+        acc = pj.proj_cmov(F, b1, pj.proj_add_mixed_fast(F, acc, A), acc)
+        acc = pj.proj_cmov(F, b2, pj.proj_add_mixed_fast(F, acc, phiA), acc)
+    return pj.proj_to_jac(F, acc)

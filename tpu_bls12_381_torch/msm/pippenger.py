@@ -1,9 +1,13 @@
-"""Pippenger multi-scalar multiplication for G1, single shot.
+"""Pippenger multi-scalar multiplication, generic over the field adapter: G1
+over ``FQ_ADAPTER``, G2 over ``FQ2_ADAPTER``.
 
-Counterpart of the JAX package's ``msm/pippenger.py`` as far as the main path
-goes: ``msm_g1(scalars, A)`` in one piece.  The pipeline is the JAX package's,
-stage by stage, because it needs no atomics and no scatter and has the same
-shape for every scalar distribution:
+Counterpart of the JAX package's ``msm/pippenger.py``: the single-shot MSM
+(``msm``, ``msm_g1``, ``msm_g2``) with its sequential point-chunks when the
+set does not fit the device memory budget, the precomputed-multiples MSM
+(``expand_bases``, ``msm_precomputed``) and the shared-bases batch
+(``msm_batch_shared``).  The pipeline is the JAX package's, stage by stage,
+because it needs no atomics and no scatter and has the same shape for every
+scalar distribution:
 
 1. **Signed-digit windows**: w-bit digits in [-(2^(w-1)-1), 2^(w-1)], bucket
    id |d| in 1..2^(w-1); zero digits go to a sentinel key.
@@ -22,30 +26,38 @@ Accumulation runs in homogeneous projective coordinates with the RCB16
 complete formulas (curves/projective.py); the result converts to Jacobian at
 the public boundary.
 
+A coordinate is a tensor ``(*F.elem_shape, *batch)``: ``(24, N)`` for G1,
+``(24, 2, N)`` for G2 (curves/field_adapters.py).  The batch axes are the
+trailing ones in both, so every stage below is written once: it touches the
+element axes only through ``F.elem_shape``.  The shared-bases batch folds its
+batch axis B between the element axes and the lanes; to the scan kernel B*L
+is one lane axis.
+
 On CUDA tensors the group-law calls (the scan's signed mixed adds, ``g_add``,
 ``g_double``) and the field products go to the CUDA kernels of
-``curves/cuda_g1.py`` and ``fields/cuda_ops.py``; sort, gather, searchsorted,
-rolls and selects are plain PyTorch.  The scan is ONE launch per window: each
-thread owns a column and walks its R rows (``cuda_g1.pmadd_signed_rows``).
-The stitch, boundary, triangle and Horner stages call ``padd`` / ``pdbl`` many
-times on few lanes; that part is bound by launch latency and is left so.
+``curves/cuda_g1.py``, ``curves/cuda_g2.py`` and ``fields/cuda_ops.py``; sort,
+gather, searchsorted, rolls and selects are plain PyTorch.  The scan is ONE
+launch per window: each thread owns a column and walks its R rows.  The
+stitch, boundary, triangle and Horner stages call the add and the doubling
+many times on few lanes; that part is bound by launch latency and is left so.
 
-Not ported yet: chunking past one shot (``msm`` raises
-``NotImplementedError`` where the JAX package would split the point set),
-precomputed bases, the shared-bases batch, G2.
+Not ported: ``msm_chunked`` and ``msm_traceable`` (the JAX package's
+pmap/trace forms).
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 import torch
 
 from .. import constants
 from ..tuning import chip_profile
-from ..curves import cuda_g1
 from ..curves import projective as pj
-from ..curves.field_adapters import FQ_ADAPTER
-from ..fields import FQ, FR, fast
+from ..curves.field_adapters import FQ2_ADAPTER, FQ_ADAPTER
+from ..fields import FR, fast
 from ..fields.ops import LIMB_DTYPE
 from ..runtime.tracing import stage
 
@@ -56,6 +68,7 @@ g_add = pj.proj_add_fast
 g_cmov = pj.proj_cmov
 g_neg = pj.proj_neg
 g_double = pj.proj_double_fast
+g_scan_rows = pj.proj_scan_rows_fast
 
 FR_BITS = 255
 # curves/glv.GLV_HALF_BITS mirrored statically (a lattice fact, not tunable).
@@ -168,13 +181,26 @@ def decompose_window_keys(scalars_std, w: int, num_bits: int = FR_BITS):
         *decompose_signed_digits(scalars_std, w, num_bits))
 
 
+def _coord_planes(F) -> int:
+    """Limb planes per affine coordinate (Fq: 24; Fq2: 48)."""
+    return math.prod(F.elem_shape)
+
+
 def _stage_pack_rows(F, x, y):
-    """Affine coordinates (limbs-first) -> (n, 48) element-major rows.
+    """Affine coordinates (limbs-first) -> (n, 2C) element-major rows, C the
+    planes of one coordinate (G1: 48 columns, G2: 96).
 
     Runs once per MSM; the per-window gather then moves whole point rows
-    (192 contiguous bytes) instead of 48 separate limb planes.
+    (192 or 384 contiguous bytes) instead of 2C separate limb planes.
     """
-    return torch.cat([x, y], dim=0).T.contiguous()
+    n = x.shape[-1]
+    return torch.cat([x.reshape(-1, n), y.reshape(-1, n)], dim=0).T.contiguous()
+
+
+def _coord_rows(F, t, off: int):
+    """Planes [off, off + C) of an (R, 2C, *lanes) tile as coordinate rows
+    (R, *F.elem_shape, *lanes): a view, nothing moves."""
+    return t[:, off:off + _coord_planes(F)].unflatten(1, F.elem_shape)
 
 
 def _shift_dyn(F, P, d: int, direction: str):
@@ -219,9 +245,10 @@ def _sum_last_axis(F, P):
     return tuple(c[..., 0] for c in S)
 
 
-def _gather_jac_rows(P_rows, r_idx, l_idx):
-    """Gather from scan-stacked rows: coordinates (R, K, L) -> (K, B)."""
-    return tuple(c[r_idx, :, l_idx].T.contiguous() for c in P_rows)
+def _indexed_axes_last(t, k: int):
+    """Move the first k axes of ``t`` behind the others (the axes an indexed
+    gather puts in front go back to where the batch axes belong)."""
+    return t.permute(*range(k, t.dim()), *range(k)).contiguous()
 
 
 def _weighted_index_sum(F, P):
@@ -252,37 +279,47 @@ def _stage_sort_tile(F, key2, R: int, L: int, em_rows, inf):
     """Sort by bucket key, row-gather the element-major point table, and tile
     column-major into scan rows.  No field arithmetic.
 
-    * points are gathered as element-major rows from the (n, 48) table built
+    ``key2`` is (n,) for one scalar set or (B, n) for a batch of B sets
+    against the one shared table.
+
+    * points are gathered as element-major rows from the (n, 2C) table built
       once per MSM by _stage_pack_rows;
     * the column-major tiling permutation is composed into the gather index,
-      so the rows move once; the (R, L, 48) -> (R, 48, L) transpose afterwards
-      is a streaming pass;
+      so the rows move once; the transpose to limb planes afterwards is a
+      streaming pass;
     * digit signs ride in bit 0 of the sort key and infinity / zero-digit
       slots in the sentinel range, so there is no separate sign or inf gather.
     * pad slots gather ``iota % n`` (a valid row) and are masked by _PAD2.
 
     Returns (bucket_sorted, x_rows, y_rows, sign_rows, inf_rows); the sorted
-    bucket ids feed _boundary_core's searchsorted.
+    bucket ids feed _boundary_core's searchsorted.  Without a batch the rows
+    are (R, *elem, L) with masks (R, L); with one the batch axis lies between
+    the element axes and the lanes: (R, *elem, B, L), masks (R, B, L).
     """
     n = inf.shape[-1]
     dev = key2.device
+    lead = tuple(key2.shape[:-1])                 # () or (B,)
     key2 = torch.where(inf, _SENT2, key2)
     pad = R * L - n
     if pad:
         key2 = torch.cat(
-            [key2, torch.full((pad,), _PAD2, dtype=_KEY_DTYPE, device=dev)])
-    key_sorted, order = torch.sort(key2, stable=True)
+            [key2, torch.full(lead + (pad,), _PAD2, dtype=_KEY_DTYPE,
+                              device=dev)], dim=-1)
+    key_sorted, order = torch.sort(key2, dim=-1, stable=True)
     perm = order % n  # the gathered value of iota % n under the sort
     # tile[r, l] = sorted[l*R + r]; compose into the gather
-    tile = lambda a: a.reshape(L, R).transpose(0, 1)
-    gidx = tile(perm).reshape(-1)      # (R*L,)
-    ks_rows = tile(key_sorted)         # (R, L)
+    tile = lambda a: a.reshape(lead + (L, R)).transpose(-1, -2)
+    gidx = tile(perm).reshape(-1)      # (R*L,) or (B*R*L,)
+    ks_rows = tile(key_sorted)         # (R, L) or (B, R, L)
 
-    rows = em_rows.index_select(0, gidx)                      # (R*L, 48)
-    t = rows.reshape(R, L, -1).permute(0, 2, 1).contiguous()  # (R, 48, L)
-    C = FQ.num_limbs
-    x_rows = t[:, :C]
-    y_rows = t[:, C:2 * C]
+    rows = em_rows.index_select(0, gidx)                      # (.., 2C)
+    if lead:
+        t = rows.reshape(lead + (R, L, -1)).permute(1, 3, 0, 2).contiguous()
+        ks_rows = ks_rows.transpose(0, 1)                     # (R, B, L)
+    else:
+        t = rows.reshape(R, L, -1).permute(0, 2, 1).contiguous()
+    x_rows = _coord_rows(F, t, 0)
+    y_rows = _coord_rows(F, t, _coord_planes(F))
     sign_rows = (ks_rows & 1) != 0
     inf_rows = ks_rows >= _SENT2
     return key_sorted >> 1, x_rows, y_rows, sign_rows, inf_rows
@@ -292,11 +329,19 @@ def _stage_scan(F, x_rows, y_rows, sign_rows, inf_rows):
     """Row scan of signed mixed adds: the hot loop (N mixed adds in all).
 
     One call: on the card, one kernel launch in which each thread walks the
-    R rows of its column.  Returns the column totals (the last prefix row)
-    and the per-column inclusive prefix sums, coordinates (R, 24, L).
+    R rows of its column.  A batch axis is folded into the lanes for the
+    call (B*L columns) and unfolded after it.  Returns the column totals (the
+    last prefix row) and the per-column inclusive prefix sums, coordinates
+    (R, *elem, [B,] L).
     """
-    prefix_rows = cuda_g1.pmadd_signed_rows(
-        x_rows, y_rows, sign_rows.contiguous(), inf_rows.contiguous())
+    lanes = tuple(inf_rows.shape[1:])             # (L,) or (B, L)
+    if len(lanes) > 1:
+        x_rows, y_rows = x_rows.flatten(-2), y_rows.flatten(-2)
+        sign_rows = sign_rows.contiguous().flatten(-2)
+        inf_rows = inf_rows.contiguous().flatten(-2)
+    prefix_rows = g_scan_rows(F, x_rows, y_rows, sign_rows, inf_rows)
+    if len(lanes) > 1:
+        prefix_rows = tuple(c.unflatten(-1, lanes) for c in prefix_rows)
     col_total = tuple(c[-1] for c in prefix_rows)
     return col_total, prefix_rows
 
@@ -311,26 +356,40 @@ def _boundary_core(F, key_sorted, col_carry, nb: int, prefix_rows):
 
     bucket_b = S[end_b] - S[start_b - 1]; S[e] = col_carry[l] + prefix[r, l].
     A pure gather and group subtract, constant shape for any input.
+
+    ``key_sorted`` is (R*L,), or (B, R*L) for a batch, with col_carry
+    (*elem, B, L) and prefix rows (R, *elem, B, L); the buckets are then
+    (*elem, B, nb).  The batch is one batched ``searchsorted`` and one gather
+    (the JAX package maps the unbatched function over B).
     """
     R, L = prefix_rows[0].shape[0], prefix_rows[0].shape[-1]
     dev = key_sorted.device
+    lead = tuple(key_sorted.shape[:-1])           # () or (B,)
     b_vals = torch.arange(1, nb + 1, dtype=_KEY_DTYPE, device=dev)
+    b_vals = b_vals.expand(lead + (nb,)).contiguous()
     starts = torch.searchsorted(key_sorted, b_vals, right=False)
     ends = torch.searchsorted(key_sorted, b_vals, right=True)
     cnt = ends - starts
 
-    pos = torch.cat([ends - 1, starts - 1])  # (2*nb,)
-    valid = torch.cat([cnt > 0, (cnt > 0) & (starts > 0)])
+    pos = torch.cat([ends - 1, starts - 1], dim=-1)           # (.., 2*nb)
+    valid = torch.cat([cnt > 0, (cnt > 0) & (starts > 0)], dim=-1)
     p = pos.clamp(0, R * L - 1)
     r_idx, l_idx = p % R, p // R
-    part = _gather_jac_rows(prefix_rows, r_idx, l_idx)  # (K, 2*nb)
-    carry = tuple(c[..., l_idx].contiguous() for c in col_carry)
+    if lead:
+        b_idx = torch.arange(lead[0], device=dev)[:, None]
+        part = tuple(_indexed_axes_last(c[r_idx, ..., b_idx, l_idx], 2)
+                     for c in prefix_rows)                    # (*elem, B, 2*nb)
+        carry = tuple(c[..., b_idx, l_idx].contiguous() for c in col_carry)
+    else:
+        part = tuple(_indexed_axes_last(c[r_idx, ..., l_idx], 1)
+                     for c in prefix_rows)                    # (*elem, 2*nb)
+        carry = tuple(c[..., l_idx].contiguous() for c in col_carry)
     S = g_add(F, part, carry)
-    S = g_cmov(F, valid, S, g_identity(F, (2 * nb,), dev))
+    S = g_cmov(F, valid, S, g_identity(F, lead + (2 * nb,), dev))
     S_hi = tuple(c[..., :nb] for c in S)
     S_lo = tuple(c[..., nb:] for c in S)
     sums = g_add(F, S_hi, g_neg(F, S_lo))
-    return g_cmov(F, cnt > 0, sums, g_identity(F, (nb,), dev))
+    return g_cmov(F, cnt > 0, sums, g_identity(F, lead + (nb,), dev))
 
 
 def _stage_triangle_scans(F, buckets, nb: int):
@@ -349,7 +408,8 @@ def _stage_triangle_scans(F, buckets, nb: int):
     row_sum = _sum_last_axis(F, tiled)   # (K, Rb)
     # pad rows to Lb lanes and batch both weighted sums in one pass
     if Lb > Rb:
-        idR = g_identity(F, (Lb - Rb,), buckets[0].device)
+        lead = F.batch_shape(buckets[0])[:-1]     # () or (B,)
+        idR = g_identity(F, lead + (Lb - Rb,), buckets[0].device)
         row_sum = tuple(torch.cat([c, i], dim=-1)
                         for c, i in zip(row_sum, idR))
     both = tuple(torch.stack([a, b], dim=-2) for a, b in zip(row_sum, col_l))
@@ -369,7 +429,7 @@ def _stage_triangle_combine(F, w_rows, w_cols, total, lb_bits: int):
 
 def _stage_horner(F, Ws, w: int):
     """Combine window sums top-down: acc = 2^w acc + W_t.  ``Ws`` holds the
-    window sums stacked over the T windows, coordinates (T, K)."""
+    window sums stacked over the T windows, coordinates (T, *elem[, B])."""
     T = Ws[0].shape[0]
     acc = tuple(c[T - 1] for c in Ws)
     for t in range(T - 2, -1, -1):
@@ -421,7 +481,9 @@ def glv_extend_bases(F, A):
 # -----------------------------------------------------------------------------
 # Device-memory budget.  The working set per point: the element-major table,
 # the gathered rows and their transposed tile, the 3-coordinate prefix rows,
-# the input affine batch, and a margin for transients.
+# the input affine batch, and a margin for transients.  When an MSM (or a
+# shared-bases batch) would exceed the budget, the point (or batch) axis is
+# split into sequential pieces.
 # -----------------------------------------------------------------------------
 
 _CPU_BUDGET_BYTES = 8 << 30  # nominal; the CPU path exists for the tests
@@ -429,27 +491,46 @@ _CPU_BUDGET_BYTES = 8 << 30  # nominal; the CPU path exists for the tests
 
 def _msm_bytes_per_point(F) -> int:
     """Approximate pipeline working-set bytes per point (int32 planes):
-    table and tile rows (2 x 48 planes), the gathered x/y rows and the
-    3-coordinate prefix rows and the input batch (7 x 24 planes), plus 25%."""
-    C = FQ.num_limbs * getattr(F, "limb_planes", 1)  # planes per coordinate
+    table and tile rows (2 x 2C planes), the gathered x/y rows and the
+    3-coordinate prefix rows and the input batch (7 x C planes), plus 25%."""
+    C = _coord_planes(F)          # planes per affine coordinate
     W = 2 * C
     return 4 * (2 * W + 7 * C) * 5 // 4
+
+
+def _budget_limit_bytes() -> int | None:
+    """MIDNIGHT_MSM_HBM_BUDGET_MB: an upper limit on the memory the pipeline
+    may plan with, which a caller sets to keep room on the card for its own
+    buffers.  Unset: no limit but the card's free memory.  Read at every
+    call, as the JAX package reads it."""
+    raw = os.environ.get("MIDNIGHT_MSM_HBM_BUDGET_MB")
+    if raw is None or not raw.strip():
+        return None
+    mb = int(raw)
+    if mb <= 0:
+        raise ValueError(f"MIDNIGHT_MSM_HBM_BUDGET_MB={raw!r}: need a positive "
+                         f"number of MiB")
+    return mb << 20
 
 
 def _available_budget(device) -> int:
     """Bytes the pipeline may use on ``device`` right now.
 
     On the card: what ``torch.cuda.mem_get_info`` reports free, plus what
-    PyTorch's allocator holds cached but unused.  Whatever the caller keeps
-    live on the card is thereby already taken off.
+    PyTorch's allocator holds cached but unused; whatever the caller keeps
+    live on the card is thereby already taken off.  MIDNIGHT_MSM_HBM_BUDGET_MB
+    caps the figure.  It never falls below 1/8 of the cap (the limit, or the
+    card's memory), so that piece counts stay sane under memory pressure.
     """
     device = torch.device(device)
+    limit = _budget_limit_bytes()
     if device.type == "cuda":
-        free, _total = torch.cuda.mem_get_info(device)
+        free, total = torch.cuda.mem_get_info(device)
         cached = (torch.cuda.memory_reserved(device)
                   - torch.cuda.memory_allocated(device))
-        return free + cached
-    return _CPU_BUDGET_BYTES
+        cap = total if limit is None else limit
+        return max(min(free + cached, cap), cap // 8)
+    return _CPU_BUDGET_BYTES if limit is None else limit
 
 
 def _split_points(n: int, budget: int, bpp: int) -> int:
@@ -458,10 +539,26 @@ def _split_points(n: int, budget: int, bpp: int) -> int:
     return max(1, need)
 
 
-def _resolve_glv(glv, n: int, budget: int, bpp: int) -> bool:
-    """The GLV decision: as asked, else MIDNIGHT_MSM_GLV, where ``auto``
-    takes GLV only while the doubled point set still fits in one shot (it
-    halves the window count but doubles the points)."""
+def _point_pieces(unit: int, n_eff: int, budget: int, bpp: int):
+    """Sequential point-chunks for ``n_eff`` pipeline points that are sliced
+    along an axis of ``unit`` points: (pieces, points of ``unit`` a piece).
+    Equal sizes; a piece count that divides ``unit`` is preferred (for powers
+    of two it lands on power-of-two pieces)."""
+    pieces = _split_points(n_eff, budget, bpp)
+    if pieces == 1:
+        return 1, unit
+    while unit % pieces and pieces < 64:
+        pieces += 1
+    per = -(-unit // pieces)
+    return -(-unit // per), per
+
+
+def _resolve_glv(glv, n: int, budget: int, bpp: int, F=FQ_ADAPTER) -> bool:
+    """The GLV decision (G1 only): as asked, else MIDNIGHT_MSM_GLV, where
+    ``auto`` takes GLV only while the doubled point set still fits in one
+    shot (it halves the window count but doubles the points)."""
+    if F is not FQ_ADAPTER:
+        return False
     if glv is None:
         from ..runtime.config import config
 
@@ -472,50 +569,143 @@ def _resolve_glv(glv, n: int, budget: int, bpp: int) -> bool:
     return bool(glv)
 
 
+def _tile_plan(F, n_eff: int, w: int, device) -> dict:
+    """The tiles of one pipeline run over ``n_eff`` points at window bits w."""
+    nb = 1 << (w - 1)
+    L = lane_tile_for(n_eff, F, device)
+    return {"n": n_eff, "w": w, "nb": nb,
+            "lb_bits": triangle_lb(nb).bit_length() - 1,
+            "L": L, "R": -(-n_eff // L)}
+
+
 def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
-                 window_bits: int | None = None) -> dict:
-    """The plan ``msm`` follows for n input points on ``device`` now, and the
+                 window_bits: int | None = None, *, factor: int = 1,
+                 batch: int = 1, cached: bool = False) -> dict:
+    """The plan an MSM over n input points follows on ``device`` now, and the
     only place where it is made.
 
-    ``glv``: as asked, or None for the default (MIDNIGHT_MSM_GLV against the
-    device's memory budget).  Returns the GLV decision, the point count n
-    after the split, window bits w, window count T, buckets nb, the triangle
-    tile's log2 lane width lb_bits, the scan tile (R, L), and the number of
-    pieces the budget would force (``msm`` refuses more than one).
+    ``cached=False``: the plan of :func:`msm` (ad-hoc bases).  ``glv``: as
+    asked, or None for the default (MIDNIGHT_MSM_GLV against the device's
+    memory budget).
+
+    ``cached=True``: the plan of the cached-bases paths against n bases
+    uploaded with ``factor``, ``glv`` and ``window_bits``:
+    :func:`msm_precomputed` for ``batch == 1``, :func:`msm_batch_shared` for a
+    batch of B scalar sets.  With ``glv`` or ``window_bits`` None it is the
+    plan ``MsmContext.upload_bases`` makes for them: GLV while the doubled,
+    expanded set fits the budget in one shot, and the window for the whole
+    expanded set (MIDNIGHT_MSM_WINDOW, else the heuristic).
+
+    Returns the GLV decision, the points of one pipeline run ``n`` (after the
+    GLV split, the expansion and the cut into pieces), window bits w, the
+    window count T of a run, buckets nb, the triangle tile's log2 lane width
+    lb_bits, the scan tile (R, L), ``pieces`` sequential point-chunks of
+    ``per`` points each (counted along the axis that is sliced), ``groups``
+    sequential batch groups of ``per_group`` scalar sets, and
+    ``scan_launches``, the scan launches of the whole call (one a window, a
+    piece and a group).
     """
     from ..device import resolve_device
 
-    budget = _available_budget(resolve_device(device))
+    device = resolve_device(device)
+    budget = _available_budget(device)
     bpp = _msm_bytes_per_point(F)
-    glv = _resolve_glv(glv, n, budget, bpp)
-    n_eff = n * (2 if glv else 1)
-    w = window_bits or window_bits_for(n_eff, F, device)
-    nb = 1 << (w - 1)
-    L = lane_tile_for(n_eff, F, device)
-    return {"glv": glv, "n": n_eff, "w": w,
-            "T": num_windows(w, GLV_HALF_BITS_STATIC if glv else FR_BITS),
-            "nb": nb, "lb_bits": triangle_lb(nb).bit_length() - 1,
-            "L": L, "R": -(-n_eff // L),
-            "pieces": _split_points(n_eff, budget, bpp),
+    factor = max(int(factor), 1)
+    groups, per_group = 1, batch
+    if not cached:
+        if factor != 1 or batch != 1:
+            raise ValueError("msm_geometry: factor and batch belong to cached "
+                             "bases (cached=True)")
+        glv = _resolve_glv(glv, n, budget, bpp, F)
+        mult = 2 if glv else 1
+        pieces, per = _point_pieces(n, n * mult, budget, bpp)
+        n_run = per * mult
+        w = window_bits or window_bits_for(n_run, F, device)
+        T = num_windows(w, GLV_HALF_BITS_STATIC if glv else FR_BITS)
+    else:
+        if glv is None:
+            glv = _resolve_glv(None, n * factor, budget, bpp, F)
+        glv = bool(glv) and F is FQ_ADAPTER
+        m = n * (2 if glv else 1)             # points of one factor block
+        n_eff = m * factor
+        if window_bits is None:
+            from ..runtime.config import config
+
+            window_bits = config().msm_window or window_bits_for(n_eff, F, device)
+        w = window_bits
+        num_bits = GLV_HALF_BITS_STATIC if glv else FR_BITS
+        T = (precompute_window_span(w, factor, num_bits) if factor > 1
+             else num_windows(w, num_bits))
+        if batch == 1:
+            pieces, per = _point_pieces(m, n_eff, budget, bpp)
+        else:
+            # The element-major table is shared by the batch; the tiles
+            # scale with B.  The point axis chunks when even one member
+            # does not fit; then the batch runs in groups.
+            W = 2 * _coord_planes(F)
+            C = _coord_planes(F)
+            shared, per_b = 4 * W * n_eff, 4 * (W + 5 * C) * n_eff
+            pieces, per = 1, m
+            if shared + per_b > budget and m > 1:
+                pieces = -(-(shared + per_b) // budget) + 1
+                while m % pieces and pieces < 64:
+                    pieces += 1
+                per = -(-m // pieces)
+                if per >= m:
+                    per = max(1, m // 2)
+                pieces = -(-m // per)
+            shared, per_b = 4 * W * per * factor, 4 * (W + 5 * C) * per * factor
+            room = max(budget - shared, per_b)
+            bg = max(1, min(batch, room // per_b))
+            groups = -(-batch // bg)
+            per_group = -(-batch // groups)
+            groups = -(-batch // per_group)
+        n_run = per * factor
+    return {"glv": glv, "T": T, **_tile_plan(F, n_run, w, device),
+            "factor": factor, "batch": batch, "pieces": pieces, "per": per,
+            "groups": groups, "per_group": per_group,
+            "scan_launches": T * pieces * groups,
             "budget_bytes": budget, "bytes_per_point": bpp}
 
 
-def _check_inputs(scalars, A):
+def _check_inputs(F, scalars, A):
+    if F is not FQ_ADAPTER and F is not FQ2_ADAPTER:
+        raise NotImplementedError(
+            "msm: the field adapter must be FQ_ADAPTER (G1) or FQ2_ADAPTER (G2)")
     x, y, inf = A
-    for t, k, name in ((scalars, FR.num_limbs, "scalars"),
-                       (x, FQ.num_limbs, "x"), (y, FQ.num_limbs, "y")):
+    elem = tuple(F.elem_shape)
+    for t, shape, name in ((scalars, (FR.num_limbs,), "scalars"),
+                           (x, elem, "x"), (y, elem, "y")):
         if not isinstance(t, torch.Tensor) or t.dtype != LIMB_DTYPE:
             raise TypeError(f"msm: {name} must be a {LIMB_DTYPE} tensor")
-        if t.dim() != 2 or t.shape[0] != k:
+        if t.dim() != len(shape) + 1 or tuple(t.shape[:-1]) != shape:
             raise ValueError(
-                f"msm: {name} must have shape ({k}, N), got {tuple(t.shape)}")
+                f"msm: {name} must have shape {shape + ('N',)}, got "
+                f"{tuple(t.shape)}")
     if not isinstance(inf, torch.Tensor) or inf.dtype != torch.bool:
         raise TypeError("msm: inf must be a bool tensor")
     n = inf.shape[-1]
-    if inf.dim() != 1 or not (scalars.shape[1] == x.shape[1] == y.shape[1] == n):
+    if inf.dim() != 1 or not (scalars.shape[-1] == x.shape[-1] == y.shape[-1] == n):
         raise ValueError("msm: scalars, x, y and inf disagree on N")
     if not (scalars.device == x.device == y.device == inf.device):
         raise ValueError("msm: scalars and points live on different devices")
+
+
+def _r_ws_add(F, Wa, Wb):
+    """Group-add two stacked window-sum points (coordinates (T, *elem[, B])).
+
+    The sequential point-chunk paths fold each chunk's per-window bucket
+    sums into a running total with it (sums over points distribute per
+    window), so the Horner ladder runs once per MSM and not once per chunk.
+    The T axis is moved behind the element axes for the add and back after."""
+    k = len(F.elem_shape)
+    back = lambda P: tuple(c.movedim(0, k) for c in P)
+    return tuple(c.movedim(k, 0) for c in g_add(F, back(Wa), back(Wb)))
+
+
+def _horner_to_jac(F, Ws, w: int):
+    with stage("horner"):
+        return _stage_to_jac(F, _stage_horner(F, Ws, w))
 
 
 def msm(F, scalars, A, *, window_bits: int | None = None,
@@ -526,17 +716,17 @@ def msm(F, scalars, A, *, window_bits: int | None = None,
     A: affine batch (x, y, inf).  Returns a single Jacobian point.  Runs on
     the device the tensors live on.
 
-    ``glv`` (default from MIDNIGHT_MSM_GLV) splits every scalar
+    ``glv`` (G1 only; default from MIDNIGHT_MSM_GLV) splits every scalar
     k = k1 + k2*lambda and runs the pipeline over [k1 || k2] against
     [A || phi(A)]: half the window count on 2n points.  ``auto`` turns it on
     while the doubled set fits the device memory budget in one shot.
 
-    A point set that does not fit the budget in one shot raises
-    ``NotImplementedError``: chunking is not ported yet.
+    A point set that does not fit the budget in one shot runs in sequential
+    point-chunks of equal size.  Equal chunks share one window geometry, so
+    each chunk's per-window bucket sums fold into a running total and the
+    Horner ladder and the Jacobian conversion run once.
     """
-    if F is not FQ_ADAPTER:
-        raise NotImplementedError("msm: only G1 (FQ_ADAPTER) is ported")
-    _check_inputs(scalars, A)
+    _check_inputs(F, scalars, A)
     x, y, inf = A
     n = inf.shape[-1]
     if n > (1 << constants.MAX_MSM_LOG_SIZE):
@@ -545,36 +735,28 @@ def msm(F, scalars, A, *, window_bits: int | None = None,
         with stage("from_mont"):
             scalars = fast.from_mont(FR, scalars)
     geo = msm_geometry(n, glv, F, inf.device, window_bits)
-    if geo["pieces"] > 1:
-        raise NotImplementedError(
-            f"msm: {geo['n']} points at {geo['bytes_per_point']} bytes each "
-            f"exceed the device memory budget of {geo['budget_bytes']} bytes; "
-            f"the chunked MSM ({geo['pieces']} pieces) is not ported yet")
-    Ws = _msm_window_sums(F, scalars, (x, y, inf), geo)
-    with stage("horner"):
-        return _stage_to_jac(F, _stage_horner(F, Ws, geo["w"]))
+    w, per = geo["w"], geo["per"]
+    Ws = None
+    for s in range(0, n, per):
+        e = min(s + per, n)
+        Ai = (x[..., s:e], y[..., s:e], inf[s:e])
+        Wi = _msm_window_sums(F, scalars[..., s:e], Ai, w, geo["glv"])
+        Ws = Wi if Ws is None else _r_ws_add(F, Ws, Wi)
+    return _horner_to_jac(F, Ws, w)
 
 
-def _msm_window_sums(F, scalars_std, A, geo: dict):
-    """Per-window signed-bucket sums for one point set, to the plan ``geo``
-    of :func:`msm_geometry`: the whole pipeline short of the Horner ladder
-    (projective window sums stacked over the T windows, coordinates (T, K))."""
+def _window_sums_from_keys(F, keys, A, w: int):
+    """The window loop: per-window signed-bucket sums for sort keys
+    (T, n) or (T, B, n) against the affine batch A of n points (projective
+    window sums stacked over the windows, coordinates (T, *elem[, B]))."""
     x, y, inf = A
-    num_bits = FR_BITS
-    if geo["glv"]:
-        with stage("glv"):
-            scalars_std, num_bits = glv_split_scalars(scalars_std)
-            x, y, inf = glv_extend_bases(F, (x, y, inf))
-    w, T, nb, lb_bits, L, R = (geo[k] for k in ("w", "T", "nb", "lb_bits", "L", "R"))
-    assert inf.shape[-1] == geo["n"]
-
+    plan = _tile_plan(F, inf.shape[-1], w, inf.device)
+    nb, lb_bits, L, R = (plan[k] for k in ("nb", "lb_bits", "L", "R"))
     with stage("keys"):
-        keys = decompose_window_keys(scalars_std, w, num_bits)  # (T, N)
-        assert keys.shape[0] == T
-        em_rows = _stage_pack_rows(F, x, y)  # (N, 48), shared by all windows
+        em_rows = _stage_pack_rows(F, x, y)  # (n, 2C), shared by all windows
 
     window_sums = []
-    for t in range(T):
+    for t in range(keys.shape[0]):
         with stage("sort_gather"):
             key_sorted, x_rows, y_rows, sign_rows, inf_rows = _stage_sort_tile(
                 F, keys[t], R, L, em_rows, inf)
@@ -589,5 +771,216 @@ def _msm_window_sums(F, scalars_std, A, geo: dict):
     return tuple(torch.stack([ws[c] for ws in window_sums]) for c in range(3))
 
 
+def _msm_window_sums(F, scalars_std, A, w: int, glv: bool):
+    """Per-window signed-bucket sums for one point set: the whole pipeline
+    short of the Horner ladder.  Split out of :func:`msm` so that the
+    point-chunk path can add window sums across chunks and pay the ladder
+    once."""
+    num_bits = FR_BITS
+    if glv:
+        with stage("glv"):
+            scalars_std, num_bits = glv_split_scalars(scalars_std)
+            A = glv_extend_bases(F, A)
+    with stage("keys"):
+        keys = decompose_window_keys(scalars_std, w, num_bits)  # (T, N)
+    return _window_sums_from_keys(F, keys, A, w)
+
+
 def msm_g1(scalars, A, **kw):
     return msm(FQ_ADAPTER, scalars, A, **kw)
+
+
+def msm_g2(scalars, A, **kw):
+    return msm(FQ2_ADAPTER, scalars, A, **kw)
+
+
+# -----------------------------------------------------------------------------
+# Precomputed-multiples MSM.  With factor f the base array is expanded to
+# [P, 2^(w*T')P, ..., 2^(w*T'(f-1))P], so the window loop shrinks from T to
+# T' = ceil(T/f) windows over f*N points: memory for sequential windows.
+# -----------------------------------------------------------------------------
+
+
+def precompute_window_span(w: int, factor: int,
+                           num_bits: int = FR_BITS) -> int:
+    """T': windows per precomputed multiple (shift = w*T' bits)."""
+    return -(-num_windows(w, num_bits) // factor)
+
+
+def expand_bases(F, A, w: int, factor: int, num_bits: int = FR_BITS):
+    """Affine bases (x, y, inf) of n points -> expanded (factor*n) points.
+
+    Block j holds 2^(w*T'*j) * P_i (batched doublings, then one batched
+    inversion a block, on the device the bases live on).  Returns the
+    expanded affine batch; run once at set-up time.  ``num_bits``: the bit
+    length of the scalars the expansion will serve (128 for GLV halves, which
+    shrinks the shift between blocks).
+
+    Large inputs expand in sequential point-slices (the doubling chain is
+    pointwise, so any partition is exact): one shot keeps a projective copy
+    of the whole array and the inversion's scratch alive.
+    MIDNIGHT_EXPAND_CHUNK_LOG overrides the slice of 2^20 lanes.
+    """
+    if factor <= 1:
+        return A
+    n = A[2].shape[-1]
+    cap = 1 << int(os.environ.get("MIDNIGHT_EXPAND_CHUNK_LOG", "20"))
+    if n > cap:
+        pieces = [expand_bases(F, tuple(c[..., s:s + cap] for c in A), w,
+                               factor, num_bits)
+                  for s in range(0, n, cap)]
+
+        # back to block-major: a piece holds (.., factor*m) -> (.., factor, m);
+        # the pieces join along the point axis of every block
+        def stitch(cs):
+            parts = [c.reshape(c.shape[:-1] + (factor, -1)) for c in cs]
+            return torch.cat(parts, dim=-1).reshape(cs[0].shape[:-1] + (-1,))
+
+        return tuple(stitch([p[c] for p in pieces]) for c in range(3))
+    span = precompute_window_span(w, factor, num_bits) * w
+    blocks = [A]
+    cur = pj.affine_to_proj(F, A)
+    for _ in range(factor - 1):
+        cur = _double_n(F, cur, span)
+        blocks.append(pj.proj_to_affine(F, cur))
+    return tuple(torch.cat([b[c] for b in blocks], dim=-1) for c in range(3))
+
+
+def _digits_for_precompute(scalars_std, w: int, factor: int,
+                           num_bits: int = FR_BITS):
+    """Digit tensors (T, [B,] N) regrouped to (T', [B,] factor*N), matching
+    :func:`expand_bases`: window t = j*T' + t' of the scalars feeds base
+    block j."""
+    abs_d, signs = decompose_signed_digits(scalars_std, w, num_bits)
+    if factor <= 1:
+        return abs_d, signs
+    T, n = abs_d.shape[0], abs_d.shape[-1]
+    lead = tuple(abs_d.shape[1:-1])               # () or (B,)
+    Tp = precompute_window_span(w, factor, num_bits)
+    pad = Tp * factor - T
+
+    def regroup(a):
+        if pad:
+            a = torch.cat([a, torch.zeros((pad,) + lead + (n,), dtype=a.dtype,
+                                          device=a.device)])
+        a = a.reshape((factor, Tp) + lead + (n,)).movedim(0, -2)
+        return a.reshape((Tp,) + lead + (factor * n,))
+
+    return regroup(abs_d), regroup(signs)
+
+
+def _slice_factor_blocks(c, m: int, s: int, e: int, factor: int):
+    """Slice points [s, e) out of every factor block of a block-major
+    expanded tensor: (..., factor*m) -> (..., factor*(e-s))."""
+    b = c.reshape(c.shape[:-1] + (factor, m))
+    return b[..., s:e].reshape(c.shape[:-1] + (factor * (e - s),))
+
+
+def _precomputed_window_sums(F, scalars_std, A_expanded, w: int, factor: int,
+                             num_bits: int):
+    """Per-window bucket sums for the precomputed-bases pipeline, one scalar
+    set (16, m) or a batch (16, B, m) (coordinates (T', *elem[, B])); the
+    Horner ladder is the caller's, so that chunked runs share it."""
+    with stage("keys"):
+        keys = _keys_from_digits(
+            *_digits_for_precompute(scalars_std, w, factor, num_bits))
+    return _window_sums_from_keys(F, keys, A_expanded, w)
+
+
+def _cached_scalars(scalars, scalars_montgomery: bool, glv: bool):
+    """Scalars of a cached-bases call -> standard form, GLV-split to match
+    GLV-extended bases; returns (scalars, bit length)."""
+    if scalars_montgomery:
+        with stage("from_mont"):
+            scalars = fast.from_mont(FR, scalars)
+    if not glv:
+        return scalars, FR_BITS
+    with stage("glv"):
+        return glv_split_scalars(scalars)
+
+
+def _sliced_window_sums(F, scalars_std, A_expanded, w: int, factor: int,
+                        num_bits: int, per: int):
+    """Window sums over sequential point-chunks of ``per`` points: every
+    factor block is sliced alike, so a piece is itself a precomputed MSM over
+    the sliced bases, and the pieces' window sums add up."""
+    m = scalars_std.shape[-1]
+    if per >= m:
+        return _precomputed_window_sums(F, scalars_std, A_expanded, w, factor,
+                                        num_bits)
+    Ws = None
+    for s in range(0, m, per):
+        e = min(s + per, m)
+        Ai = tuple(_slice_factor_blocks(c, m, s, e, factor)
+                   for c in A_expanded)
+        Wi = _precomputed_window_sums(F, scalars_std[..., s:e], Ai, w, factor,
+                                      num_bits)
+        Ws = Wi if Ws is None else _r_ws_add(F, Ws, Wi)
+    return Ws
+
+
+def msm_precomputed(F, scalars, A_expanded, *, window_bits: int, factor: int,
+                    scalars_montgomery: bool = True, glv: bool = False):
+    """MSM against bases expanded by :func:`expand_bases` (same w and factor).
+
+    ``glv``: the bases were uploaded GLV-extended ([A || phi(A)] before the
+    expansion); the scalars are split to match and the window counts are
+    those of 128-bit scalars.
+
+    Like :func:`msm`, the point axis chunks sequentially when the working
+    set would not fit the memory budget: this is the path a prover calls
+    while it holds the expanded bases and its own buffers on the card.
+    """
+    factor = max(int(factor), 1)
+    if factor == 1 and not glv:
+        return msm(F, scalars, A_expanded, window_bits=window_bits,
+                   scalars_montgomery=scalars_montgomery, glv=False)
+    inf = A_expanded[2]
+    n = inf.shape[-1] // (factor * (2 if glv else 1))
+    geo = msm_geometry(n, glv, F, inf.device, window_bits, factor=factor,
+                       cached=True)
+    scalars, num_bits = _cached_scalars(scalars, scalars_montgomery, glv)
+    Ws = _sliced_window_sums(F, scalars, A_expanded, window_bits, factor,
+                             num_bits, geo["per"])
+    return _horner_to_jac(F, Ws, window_bits)
+
+
+# -----------------------------------------------------------------------------
+# Batched MSM with shared bases: ONE pipeline for all B scalar sets.  The
+# batch axis is folded between the element axes and the lanes of every tile,
+# so each per-window stage runs once over B-times-wider lanes instead of B
+# times: one batched sort, one row gather from the SHARED point table, one
+# scan of B*L columns.
+# -----------------------------------------------------------------------------
+
+
+def msm_batch_shared(F, scalars_b, A, *, window_bits: int | None = None,
+                     factor: int = 1, scalars_montgomery: bool = True,
+                     glv: bool = False):
+    """B MSMs over shared affine bases in one batched pipeline.
+
+    scalars_b: (16, B, N) int32 Fr limbs (limbs first, batch in the middle).
+    A: the affine bases, already expanded by :func:`expand_bases` when
+    factor > 1 and GLV-extended beforehand when ``glv`` (the scalars are
+    split to the 128-bit halves here).  Returns a Jacobian point batch,
+    coordinates (*elem, B): one result per scalar set.
+
+    The memory budget chunks both axes: the batch runs in sequential groups
+    (their window sums join along the batch axis), and when even one member
+    does not fit, the point axis chunks first (window sums add up).  All of
+    it happens at the window-sum level, so the Horner ladder runs once.
+    """
+    factor = max(int(factor), 1)
+    inf = A[2]
+    n_eff = inf.shape[-1]
+    B = scalars_b.shape[1]
+    n = n_eff // (factor * (2 if glv else 1))
+    w = window_bits or window_bits_for(n_eff // factor, F, inf.device)
+    geo = msm_geometry(n, glv, F, inf.device, w, factor=factor, batch=B,
+                       cached=True)
+    scalars_b, num_bits = _cached_scalars(scalars_b, scalars_montgomery, glv)
+    parts = [_sliced_window_sums(F, scalars_b[:, s:s + geo["per_group"]], A, w,
+                                 factor, num_bits, geo["per"])
+             for s in range(0, B, geo["per_group"])]
+    Ws = tuple(torch.cat([p[c] for p in parts], dim=-1) for c in range(3))
+    return _horner_to_jac(F, Ws, w)

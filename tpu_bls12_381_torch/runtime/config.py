@@ -3,6 +3,12 @@
 Counterpart of the JAX package's ``runtime/config.py``, with only what the
 ported slice reads:
 
+  MIDNIGHT_TPU_PRECOMPUTE precompute factor of an ``MsmContext`` upload that
+                          names none, 1..8, default 1 (alias
+                          MIDNIGHT_GPU_PRECOMPUTE; the name is the JAX
+                          package's).
+  MIDNIGHT_MSM_WINDOW     window bits of the context's MSMs, default 0 = the
+                          heuristic (``pippenger.window_bits_for``).
   MIDNIGHT_MSM_GLV        auto | on | off   G1 MSM via the GLV split.  ``auto``
                           (default): on while the doubled point set still fits
                           the device memory budget in one shot.
@@ -12,6 +18,11 @@ ported slice reads:
                           (``mixedradix`` is read as ``fourstep``); the
                           routing rule is ``ntt/ntt.py::_route_fourstep``.
   MIDNIGHT_NTT_MAX_LOG_N  default domain size a context pre-builds, default 16.
+
+Two more are read where they are used, at every call, as in the JAX package:
+MIDNIGHT_MSM_HBM_BUDGET_MB (an upper limit on the device memory the MSM
+pipeline plans with, ``pippenger._available_budget``) and
+MIDNIGHT_EXPAND_CHUNK_LOG (the point-slice of ``pippenger.expand_bases``).
 """
 
 from __future__ import annotations
@@ -23,23 +34,30 @@ from dataclasses import dataclass
 logger = logging.getLogger("tpu_bls12_381_torch")
 
 
-def _int_env(name: str, default: int, lo: int, hi: int) -> int:
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    try:
-        v = int(raw)
-    except ValueError:
-        logger.warning("%s=%r is not an int; using %d", name, raw, default)
-        return default
-    if not lo <= v <= hi:
-        logger.warning("%s=%d out of [%d, %d]; clamping", name, v, lo, hi)
-        return min(max(v, lo), hi)
-    return v
+def _int_env(name: str, default: int, lo: int, hi: int,
+             aliases: tuple = ()) -> int:
+    """The first of ``name`` and its aliases that is set, as an int clamped
+    to [lo, hi]; ``default`` where none is set or the value is no int."""
+    for key in (name, *aliases):
+        raw = os.environ.get(key)
+        if raw is None:
+            continue
+        try:
+            v = int(raw)
+        except ValueError:
+            logger.warning("%s=%r is not an int; using %d", key, raw, default)
+            return default
+        if not lo <= v <= hi:
+            logger.warning("%s=%d out of [%d, %d]; clamping", key, v, lo, hi)
+            return min(max(v, lo), hi)
+        return v
+    return default
 
 
 @dataclass(frozen=True)
 class Config:
+    precompute_factor: int
+    msm_window: int | None
     msm_glv: str
     ntt_max_log_n: int
     ntt_ordering: str
@@ -49,6 +67,9 @@ class Config:
     def from_env(cls) -> "Config":
         algorithm = os.environ.get("MIDNIGHT_NTT_ALGORITHM", "auto").lower()
         return cls(
+            precompute_factor=_int_env("MIDNIGHT_TPU_PRECOMPUTE", 1, 1, 8,
+                                       aliases=("MIDNIGHT_GPU_PRECOMPUTE",)),
+            msm_window=_int_env("MIDNIGHT_MSM_WINDOW", 0, 0, 24) or None,
             msm_glv={"1": "on", "true": "on", "on": "on", "yes": "on",
                      "0": "off", "false": "off", "off": "off", "no": "off",
                      }.get(os.environ.get("MIDNIGHT_MSM_GLV", "auto")
