@@ -14,7 +14,17 @@ an MSM forced into 4 pieces) on the same 2^20 points, and ``msm_g2`` and
 ``g2_context()`` (factor 2) on 2^20 G2 points, each checked against the host; and the Fr NTT on 2^22 elements
 through ``NttContext`` (the four-step by default, the radix-2 ladder when
 asked), checked against host sums, round trips and each other; then the
-vector ops at 2^22.
+vector ops at 2^22.  Then SRS point validation (``points_2e20``): 2^20 G1
+points with planted non-members, off-curve points and an identity, written to
+wire bytes and read back on the card, checked with ``is_on_curve_affine`` and
+``is_in_subgroup`` (the Jacobian kernels ``jdbl`` and ``madd``, once a bit)
+against the planted masks, the members summed by ``sum_reduce`` (``jadd``)
+against the host, ``scalar_mul`` routed against the generic formulas, and G2
+on 1,028 lanes; and the README's Quick start through ``global_accelerator()``
+(``entry``): warmup at 2^20 with factor 4, the validated points uploaded with
+factor 4, ``msm_with_bases`` and its async form against the host, the 2^22
+NTT round trip, ``dispatch_*`` on Python ints (every route must be ACCEL, and
+CPU under ``MIDNIGHT_DEVICE=cpu``), with ``MIDNIGHT_TRACE=msm,ntt`` spans.
 
 One JSON object per phase goes to standard output.  The last lines are the
 ``{"kernels": [...]}`` table, the card's name and power limit as ``nvidia-smi``
@@ -25,7 +35,10 @@ the kernel's own time on the card, read from a ``torch.profiler`` trace of
 the timed launches; ``call_ms`` beside it is what one wrapper call costs
 back to back (host checks, allocation and launch included), by CUDA events.
 ``bound_ms`` counts the bytes the function needs (2 for a 16-bit limb);
-``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in.  Any failing phase raises,
+``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in; for
+``madd`` and ``jadd``, whose every lane also computes a doubling that only
+the P == A lanes use, ``bound_ms_without_doubling`` is the add's alone.  A
+phase's line ends with ``seconds_since_start``.  Any failing phase raises,
 and the exit code is then not 0.  Without a CUDA device the script exits with
 code 2 and prints no result.
 
@@ -38,10 +51,12 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -62,11 +77,18 @@ SEED = 20
 LOG_N = 20             # the MSM path's point count, 2^20: never cut
 NTT_LOG_N = 22         # the NTT path's size, 2^22 Fr elements: never cut
 PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_ctx_small",
-          "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops"]
+          "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
+          "points_2e20", "entry"]
 G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended."""
+    if "phase" in obj:
+        obj = {**obj, "seconds_since_start": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -169,21 +191,27 @@ def main() -> int:
 
     import numpy as np
 
-    from tpu_bls12_381_torch import _build, constants, oracle, vecops
+    from tpu_bls12_381_torch import _build, constants, native, oracle, vecops
     from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2
     from tpu_bls12_381_torch.curves import glv as glv_mod
+    from tpu_bls12_381_torch.curves import points as pt
     from tpu_bls12_381_torch.curves import projective as pj
     from tpu_bls12_381_torch.curves.field_adapters import (FQ2_ADAPTER, FQ2_PLAIN,
-                                                           FQ_ADAPTER, FQ_PLAIN)
+                                                           FQ_ADAPTER, FQ_PLAIN,
+                                                           FqAdapter)
     from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, fast, ops
-    from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
+    from tpu_bls12_381_torch.fields.limbs import int_to_limbs, ints_to_limbs
     from tpu_bls12_381_torch.msm import msm_g1, msm_g2, msm_geometry
     from tpu_bls12_381_torch.ntt import (Ordering, coset_intt, coset_ntt,
                                          cuda_ntt, get_domain, intt, ntt,
                                          release_domain)
     from tpu_bls12_381_torch.ntt.ntt import _butterflies, release_coset_cache
-    from tpu_bls12_381_torch.runtime import (NttContext, g1_context, g2_context,
-                                             reset_config_cache, tracing)
+    from tpu_bls12_381_torch.runtime import (NttContext, backend_info, dispatch_msm,
+                                             dispatch_ntt, dispatch_vecop, g1_context,
+                                             g2_context, global_accelerator,
+                                             reset_config_cache, total_live_bytes,
+                                             tracing)
+    from tpu_bls12_381_torch.runtime import types as wire
     from tpu_bls12_381_torch.tuning import chip_profile
 
     dev = torch.device("cuda", 0)
@@ -212,9 +240,21 @@ def main() -> int:
           "profile": dataclasses.asdict(chip_profile(dev))})
 
     # ------------------------------------------------------------------- build
+    # The host library of the CPU route (g++ of native/), built beside the
+    # CUDA sources so that the entry phase's CPU route times the MSM only.
+    native_build = {}
+
+    def build_native():
+        t_ = time.perf_counter()
+        native_build["available"] = native.available()
+        native_build["seconds"] = time.perf_counter() - t_
+
     t0 = time.perf_counter()
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     paths = _build.build()
     build_s = time.perf_counter() - t0
+    native_thread.join()
     registers = {}
     for name in paths:
         fn = None
@@ -226,6 +266,8 @@ def main() -> int:
             elif "spill" in ln and fn and "0 bytes spill stores, 0 bytes spill loads" not in ln:
                 registers[fn + " spills"] = ln.strip()
     emit({"phase": "build", "seconds": round(build_s, 2),
+          "native_host_library": native_build["available"],
+          "seconds_native_build_beside": round(native_build["seconds"], 2),
           "libraries": sorted(p.name for p in paths.values()),
           "ptxas": registers})
     if args.upto == "build":
@@ -302,6 +344,39 @@ def main() -> int:
     # ----------------------------------------------------------------- kernels
     N = 1 << 16
     contig = lambda T: tuple(c.contiguous() for c in T)
+
+    def jac_edge_cases(n):
+        """Jacobian P, Q (Z != 1) and affine A on n tiled lanes, with the edge
+        lanes: 0 P identity; 1 Q identity and A's inf; 2 P == Q and 3 P == -Q,
+        Q's Z 7 times P's; 4 both identities; 5 P identity with A's inf;
+        6 P == A and 7 P == -A, P's Z = 5; A's inf also on a random eighth."""
+        A_ = tiled_affine(n)
+        lam = lambda v: ops.broadcast_constant(FQ, int_to_limbs(FQ.to_mont(v), 24), (n,), dev)
+
+        def scaled(T, l):
+            l2 = FQ_PLAIN.sqr(l)
+            return (FQ_PLAIN.mul(T[0], l2), FQ_PLAIN.mul(T[1], FQ_PLAIN.mul(l2, l)),
+                    FQ_PLAIN.mul(T[2], l))
+
+        P_ = list(pt.jac_double(FQ_PLAIN, pt.affine_to_jac(FQ_PLAIN, roll(A_, 1))))
+        Q_ = list(pt.jac_add(FQ_PLAIN, pt.affine_to_jac(FQ_PLAIN, roll(A_, 2)), tuple(P_)))
+        id_ = pt.jac_identity(FQ_PLAIN, (n,), dev)
+        Pq = scaled(tuple(P_), lam(7))
+        Aq = scaled(pt.affine_to_jac(FQ_PLAIN, A_), lam(5))
+        for c in range(3):
+            P_[c][:, 0] = id_[c][:, 0]
+            Q_[c][:, 1] = id_[c][:, 1]
+            Q_[c][:, 2] = Pq[c][:, 2]
+            Q_[c][:, 3] = pt.jac_neg(FQ_PLAIN, Pq)[c][:, 3]
+            P_[c][:, 4] = id_[c][:, 4]
+            Q_[c][:, 4] = id_[c][:, 4]
+            P_[c][:, 5] = id_[c][:, 5]
+            P_[c][:, 6] = Aq[c][:, 6]
+            P_[c][:, 7] = pt.jac_neg(FQ_PLAIN, Aq)[c][:, 7]
+        inf_ = torch.from_numpy(rng.integers(0, 8, size=n) == 0).to(dev)
+        inf_[[1, 5]] = True
+        inf_[[0, 2, 3, 4, 6, 7]] = False
+        return contig(P_), contig(Q_), (A_[0], A_[1], inf_)
 
     def check(name, symbol, n, got, want, kernel_fn, plain_fn, counter, reps=5):
         torch.cuda.synchronize()
@@ -524,6 +599,26 @@ def main() -> int:
           lambda: cuda_g2.pmadd2_rows_plain(xr, yr, sr, ir),
           lambda: cuda_g2.LAUNCHES["pmadd2"], reps=3)
     del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2
+
+    # The Jacobian kernels on the edge lanes of points.jac_add_affine /
+    # jac_add / jac_double (operands from jac_edge_cases, below).
+    Pj, Qj, Aj = jac_edge_cases(N)
+    got = cuda_g1.jadd(Pj, Qj)
+    if not bool(ops.is_zero(FQ, got[2][:, 3:5]).all()):
+        raise AssertionError("jadd: P + (-P) is not the identity")
+    check("jadd", "jadd_kernel", N, got, cuda_g1.jadd_plain(Pj, Qj),
+          lambda: cuda_g1.jadd(Pj, Qj), lambda: cuda_g1.jadd_plain(Pj, Qj),
+          lambda: cuda_g1.LAUNCHES["jadd"])
+    got = cuda_g1.madd(Pj, Aj)
+    if not bool(ops.is_zero(FQ, got[2][:, [5, 7]]).all()):
+        raise AssertionError("madd: P + (-A) is not the identity")
+    check("madd", "madd_kernel", N, got, cuda_g1.madd_plain(Pj, Aj),
+          lambda: cuda_g1.madd(Pj, Aj), lambda: cuda_g1.madd_plain(Pj, Aj),
+          lambda: cuda_g1.LAUNCHES["madd"])
+    check("jdbl", "jdbl_kernel", N, cuda_g1.jdbl(Pj), cuda_g1.jdbl_plain(Pj),
+          lambda: cuda_g1.jdbl(Pj), lambda: cuda_g1.jdbl_plain(Pj),
+          lambda: cuda_g1.LAUNCHES["jdbl"])
+    del Pj, Qj, Aj, got
     if args.upto == "kernels":
         return stop_early()
 
@@ -1337,7 +1432,7 @@ def main() -> int:
 
     # Where the two algorithms cross: both timed at smaller sizes, the
     # four-step forced below the size from which `auto` takes it.
-    for log_c in (12, 14, 16, 18, 20):
+    for log_c in (12, 16, 20):
         xc = x22[:, :1 << log_c].contiguous()
         ctx_c = {}
         for algo in ("fourstep", "radix2"):
@@ -1447,6 +1542,364 @@ def main() -> int:
                    3 * 16 * n22, 0, 0, 10, n_launches=launches_v[f"{op}_fr"],
                    path="vecops")
     del x22, b22, x_std
+    if args.upto == "vecops":
+        return stop_early()
+
+    # -------------------------------------------------------------- points_2e20
+    # SRS point validation, what a prover runs on an SRS it has read as bytes:
+    # 2^20 G1 points (a K=20 circuit's SRS) written to wire bytes and read back
+    # on the card, checked on the curve and in the r-torsion, the members
+    # summed; scalar_mul routed through the Jacobian kernels against the
+    # generic formulas; then G2 on 1,028 lanes through the generic Fq2 path.
+    P_MOD, R_MOD = constants.FQ_MODULUS, constants.FR_MODULUS
+    F1g = FqAdapter(FQ)            # the same field kernels, not routed to madd/jdbl/jadd
+
+    def g1_non_members(count):
+        """Curve points outside G1: x = 5, 6, ... with x^3 + 4 a square."""
+        out, x = [], 5
+        while len(out) < count:
+            rhs = (x ** 3 + 4) % P_MOD
+            y = pow(rhs, (P_MOD + 1) // 4, P_MOD)       # p = 3 mod 4
+            if y * y % P_MOD == rhs:
+                out.append((x, y))
+            x += 1
+        return out
+
+    def fq2_sqrt(a):
+        """A square root in Fq2 (p = 3 mod 4), or None."""
+        sq = lambda v: pow(v, (P_MOD + 1) // 4, P_MOD)
+        norm = (a[0] * a[0] + a[1] * a[1]) % P_MOD
+        alpha = sq(norm)
+        if alpha * alpha % P_MOD != norm:
+            return None
+        half = pow(2, P_MOD - 2, P_MOD)
+        for d in ((a[0] + alpha) * half % P_MOD, (a[0] - alpha) * half % P_MOD):
+            x0 = sq(d)
+            if x0 and x0 * x0 % P_MOD == d:
+                x1 = a[1] * pow(2 * x0, P_MOD - 2, P_MOD) % P_MOD
+                if oracle.fq2_sqr((x0, x1)) == (a[0] % P_MOD, a[1] % P_MOD):
+                    return (x0, x1)
+        return None
+
+    def g2_non_members(count):
+        """Points of E'(Fq2) outside G2: x = c + u with x^3 + 4(1+u) a square."""
+        out, c = [], 1
+        while len(out) < count:
+            x = (c, 1)
+            y = fq2_sqrt(oracle.fq2_add(oracle.fq2_mul(oracle.fq2_sqr(x), x), (4, 4)))
+            if y is not None:
+                out.append((x, y))
+            c += 1
+        return out
+
+    def timed(fn):
+        """(result, seconds, launches by kernel) of one call, counts from 0."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        return out_, time.perf_counter() - t0_, {k: v for k, v in counts().items() if v}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nm_lanes = [5, n // 15, n // 2 + 1, n - 3]          # planted non-members
+    off_lanes = [17, n // 8 + 3, 3 * n // 4 + 1, n - 2]  # planted off-curve (y + 1)
+    id_lane = n - 1
+    Av = [c.clone() for c in tiled_affine(n)]
+    planted = g1.affine_from_ints(
+        g1_non_members(4) + [(base_pts[l % M][0], (base_pts[l % M][1] + 1) % P_MOD)
+                             for l in off_lanes], device=dev)
+    lanes_t = torch.tensor(nm_lanes + off_lanes, device=dev)
+    for c in range(2):
+        Av[c][:, lanes_t] = planted[c]
+        Av[c][:, id_lane] = 0
+    Av[2][id_lane] = True
+    t0 = time.perf_counter()
+    wire_g1 = wire.g1_affine_to_bytes(*Av)
+    to_bytes_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = wire.g1_affine_from_bytes(wire_g1, device=dev)
+    torch.cuda.synchronize()
+    from_bytes_s = time.perf_counter() - t0
+    bytes_ok = len(wire_g1) == 96 * n and trees_equal(A, Av)
+    del Av, planted
+    want_on = torch.ones(n, dtype=torch.bool)
+    want_on[off_lanes] = False
+    want_sub = want_on.clone()
+    want_sub[nm_lanes] = False
+    on, on_s, launches_on = timed(
+        lambda: pt.is_on_curve_affine(FQ_ADAPTER, A, g1.b_mont((n,), dev)))
+    sub, sub_s, launches_sub = timed(lambda: pt.is_in_subgroup(FQ_ADAPTER, A))
+    masks_ok = torch.equal(on.cpu(), want_on) and torch.equal(sub.cpu(), want_sub)
+    valid = on & sub
+    A_valid = (A[0], A[1], A[2] | ~valid)
+    S, sum_s, launches_sum = timed(
+        lambda: pt.sum_reduce(FQ_ADAPTER, pt.affine_to_jac(FQ_ADAPTER, A_valid)))
+    k_members = ((n // M) * sum(int(k) for k in ks)
+                 - sum(int(ks[l % M]) for l in nm_lanes + off_lanes + [id_lane]))
+    want_sum = oracle.jac_to_affine(
+        oracle.scalar_mul(k_members % R_MOD, G, oracle.FQ_OPS), oracle.FQ_OPS)
+    sum_ok = g1_ints(tuple(c[:, None] for c in S)) == want_sum
+    # scalar_mul on 256 lanes: routed (jdbl + madd a bit) and generic (field
+    # kernels and torch ops), same tensors, same limbs
+    k256 = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(256)]
+    k256[:2] = [0, R_MOD - 1]
+    k256_t = torch.from_numpy(ints_to_limbs(k256, 16).astype(np.int32)).to(dev)
+    A256 = tuple(c[..., :256].contiguous() for c in A)
+    R_routed, routed_s, launches_sm = timed(lambda: pt.scalar_mul(FQ_ADAPTER, k256_t, A256))
+    R_gen, generic_s, launches_gen = timed(lambda: pt.scalar_mul(F1g, k256_t, A256))
+    probe = [0, 1, 2, 255]
+    routed_ok = (trees_equal(R_routed, R_gen)
+                 and g1.jacobian_to_ints(tuple(c[:, probe] for c in R_routed)) == [
+                     oracle.jac_to_affine(oracle.scalar_mul(k256[l], base_pts[l % M],
+                                                            oracle.FQ_OPS), oracle.FQ_OPS)
+                     for l in probe])
+    peak_pts = torch.cuda.max_memory_allocated()
+    del S, R_routed, R_gen
+
+    # G2: the 1,024 host points, 2 planted non-members, 2 off-curve (y + 1)
+    pts2 = (list(base_pts2) + g2_non_members(2)
+            + [(p[0], oracle.fq2_add(p[1], (1, 0))) for p in base_pts2[:2]])
+    n2 = len(pts2)
+    wire_g2 = wire.g2_affine_to_bytes(*g2.affine_from_ints(pts2, device=dev))
+    A2 = wire.g2_affine_from_bytes(wire_g2, device=dev)
+    want_on2 = torch.tensor([True] * (n2 - 2) + [False] * 2)
+    want_sub2 = torch.tensor([True] * (n2 - 4) + [False] * 4)
+    on2, on2_s, _ = timed(lambda: pt.is_on_curve_affine(FQ2_ADAPTER, A2, g2.b_mont((n2,), dev)))
+    sub2, sub2_s, launches_sub2 = timed(lambda: pt.is_in_subgroup(FQ2_ADAPTER, A2))
+    masks2_ok = torch.equal(on2.cpu(), want_on2) and torch.equal(sub2.cpu(), want_sub2)
+    A2_valid = (A2[0], A2[1], A2[2] | ~(on2 & sub2))
+    S2, sum2_s, _ = timed(lambda: pt.sum_reduce(FQ2_ADAPTER, pt.affine_to_jac(FQ2_ADAPTER, A2_valid)))
+    want_sum2 = oracle.jac_to_affine(
+        oracle.scalar_mul(sum(int(k) for k in ks2) % R_MOD, G2gen, oracle.FQ2_OPS),
+        oracle.FQ2_OPS)
+    sum2_ok = g2_ints(S2) == want_sum2
+    g2_generic = not any(launches_sub2.get(k) for k in ("madd", "jadd", "jdbl"))
+    points_ok = (bytes_ok and masks_ok and sum_ok and routed_ok and masks2_ok
+                 and sum2_ok and g2_generic)
+    emit({"phase": "points_2e20", "n": n, "equal": bool(points_ok),
+          "wire_roundtrip": bytes_ok, "masks_as_planted": masks_ok,
+          "sum_of_members": sum_ok, "scalar_mul_routed_equals_generic": routed_ok,
+          "g2_masks_as_planted": masks2_ok, "g2_sum_of_members": sum2_ok,
+          "wire_bytes": len(wire_g1), "seconds_to_bytes": to_bytes_s,
+          "seconds_from_bytes": from_bytes_s, "seconds_is_on_curve": on_s,
+          "seconds_is_in_subgroup": sub_s, "seconds_sum_reduce": sum_s,
+          "seconds_scalar_mul_256_routed": routed_s,
+          "seconds_scalar_mul_256_generic": generic_s,
+          "g1_points_validated_per_s": n / (on_s + sub_s),
+          "launches_is_on_curve": launches_on, "launches_is_in_subgroup": launches_sub,
+          "launches_sum_reduce": launches_sum, "launches_scalar_mul_routed": launches_sm,
+          "launches_scalar_mul_generic": launches_gen, "peak_bytes_allocated": peak_pts,
+          "g2_lanes": n2, "g2_seconds_is_on_curve": on2_s,
+          "g2_seconds_is_in_subgroup": sub2_s, "g2_seconds_sum_reduce": sum2_s,
+          "g2_launches_is_in_subgroup": launches_sub2, "card": smi})
+    if not points_ok:
+        raise AssertionError("points_2e20: a check failed (see the line above)")
+    if (launches_sub.get("jdbl"), launches_sub.get("madd"), launches_sum.get("jadd")) != (255, 255, 20):
+        raise AssertionError(f"points_2e20: the Jacobian kernels were not launched as the "
+                             f"ladder and the tree need: {launches_sub}, {launches_sum}")
+    del A2, A2_valid, S2, on2, sub2
+
+    # ----------------- the Jacobian kernels at N = 2^16 with the edge lanes, and
+    # at the shapes points_2e20 gives them
+    JAC_SRC = "tpu_bls12_381_torch/csrc/g1_jac_kernels.cu"
+    jdbl_mads = 2 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
+    madd_mads = 9 * mul_mads(W_FQ) + 9 * sqr_mads(W_FQ)
+    jadd_mads = 13 * mul_mads(W_FQ) + 10 * sqr_mads(W_FQ)
+    # The doubling inside madd and jadd serves only the P == A lanes; every
+    # lane computes it (constant time, as in JAX).  The bound of the add
+    # alone stands beside the row's bound.
+    madd_add_mads = 7 * mul_mads(W_FQ) + 4 * sqr_mads(W_FQ)
+    jadd_add_mads = 11 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
+    madd_alone = lambda lanes: bound(8 * 24 * lanes * LIMB_BYTES + lanes,
+                                     lanes * madd_add_mads)[0]
+    jadd_alone = lambda lanes: bound(9 * 24 * lanes * LIMB_BYTES, lanes * jadd_add_mads)[0]
+    Pj, Qj, Aj = jac_edge_cases(N)
+    edge = "kernels: N = 2^16 with the edge lanes (launches: points_2e20's)"
+    kernel_row("madd[edge]", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",
+               [24, N], lambda: cuda_g1.madd(Pj, Aj), lambda: cuda_g1.madd_plain(Pj, Aj),
+               8 * 24 * N, N, N * madd_mads, 20, n_launches=launches_sub["madd"],
+               path=edge, equal=True, bound_ms_without_doubling=madd_alone(N))
+    kernel_row("jadd[edge]", "jadd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:252",
+               [24, N], lambda: cuda_g1.jadd(Pj, Qj), lambda: cuda_g1.jadd_plain(Pj, Qj),
+               9 * 24 * N, 0, N * jadd_mads, 20, n_launches=launches_sum["jadd"],
+               path=edge, equal=True, bound_ms_without_doubling=jadd_alone(N))
+    kernel_row("jdbl[edge]", "jdbl_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
+               [24, N], lambda: cuda_g1.jdbl(Pj), lambda: cuda_g1.jdbl_plain(Pj),
+               6 * 24 * N, 0, N * jdbl_mads, 20, n_launches=launches_sub["jdbl"],
+               path=edge, equal=True)
+    del Pj, Qj, Aj
+    # the ladder's accumulator is a Jacobian batch with Z != 1: 2A here
+    Pbig = contig(cuda_g1.jdbl_plain(pt.affine_to_jac(FQ_PLAIN, A)))
+    kernel_row("madd", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",
+               [24, n], lambda: cuda_g1.madd(Pbig, A), lambda: cuda_g1.madd_plain(Pbig, A),
+               8 * 24 * n, n, n * madd_mads, 10, n_launches=launches_sub["madd"],
+               path="points_2e20: is_in_subgroup, one a bit", equal=True,
+               bound_ms_without_doubling=madd_alone(n))
+    kernel_row("jdbl", "jdbl_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
+               [24, n], lambda: cuda_g1.jdbl(Pbig), lambda: cuda_g1.jdbl_plain(Pbig),
+               6 * 24 * n, 0, n * jdbl_mads, 10, n_launches=launches_sub["jdbl"],
+               path="points_2e20: is_in_subgroup, one a bit", equal=True)
+    Jl = tuple(c[:, :n // 2].contiguous() for c in Pbig)
+    Jr = tuple(c[:, n // 2:].contiguous() for c in Pbig)
+    del Pbig
+    kernel_row("jadd", "jadd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:252",
+               [24, n // 2], lambda: cuda_g1.jadd(Jl, Jr), lambda: cuda_g1.jadd_plain(Jl, Jr),
+               9 * 24 * (n // 2), 0, (n // 2) * jadd_mads, 10,
+               n_launches=launches_sum["jadd"],
+               path="points_2e20: sum_reduce, its first round of 20", equal=True,
+               bound_ms_without_doubling=jadd_alone(n // 2))
+    del Jl, Jr
+    torch.cuda.empty_cache()
+    if args.upto == "points_2e20":
+        return stop_early()
+
+    # -------------------------------------------------------------------- entry
+    # The README's Quick start through the port, on the points validated above,
+    # with MIDNIGHT_TRACE=msm,ntt so that the spans are logged; then the
+    # host-int surface (dispatch_*) a consumer without tensors calls.
+    spans = []
+    rdv = lambda r: r.route.value if r.error is None else f"{r.route.value}: {r.error!r}"
+
+    class SpanLog(logging.Handler):
+        def emit(self, record):
+            spans.append(record.getMessage())
+
+    trace_log = logging.getLogger("tpu_bls12_381_torch.trace")
+    trace_log.setLevel(logging.INFO)
+    span_log = SpanLog()
+    trace_log.addHandler(span_log)
+    os.environ["MIDNIGHT_TRACE"] = "msm,ntt"
+    reset_config_cache()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        acc = global_accelerator()
+        info = backend_info()
+        t0 = time.perf_counter()
+        acc.warmup(n=n, factor=4, ntt_log_n=NTT_LOG_N)   # 2^20 points, 2^22
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        # scalars as wire bytes, standard form (the msm_2e20 phase's values)
+        s_entry = wire.scalars_from_bytes(np.ascontiguousarray(words.T).tobytes(), device=dev)
+        bases4, upload4_s, launches_up4 = timed(
+            lambda: acc.g1.upload_bases(A_valid, precompute_factor=4))
+        geo4 = msm_geometry(n, bases4.glv, F1, dev, bases4.window_bits,
+                            factor=bases4.factor, cached=True)
+        P_e, call4_s, launches_e4 = timed(
+            lambda: acc.g1.msm_with_bases(s_entry, bases4, scalars_montgomery=False))
+        handle = acc.g1.msm_with_bases_async(s_entry, bases4, scalars_montgomery=False)
+        P_async = handle.wait()
+        secs4 = [tracing.timed_reps(1, lambda: acc.g1.msm_with_bases(
+            s_entry, bases4, scalars_montgomery=False)) for _ in range(3)]
+        bad = nm_lanes + off_lanes + [id_lane]
+        s_words = [sum(int(words[wi, l]) << (64 * wi) for wi in range(4)) for l in bad]
+        k_entry = (host_scalar_total(ks)
+                   - sum(s * int(ks[l % M]) for s, l in zip(s_words, bad))) % R_MOD
+        want_e = oracle.jac_to_affine(oracle.scalar_mul(k_entry, G, oracle.FQ_OPS), oracle.FQ_OPS)
+        msm4_ok = g1_ints(P_e) == want_e and g1_ints(P_async) == want_e
+        # standard-form scalars: no from_mont, so no mont_mul_fr on this path
+        msm4_launched = (launches_e4.get("pmadd_signed") == geo4["scan_launches"]
+                         and all(launches_e4.get(k) for k in ("padd", "pdbl")))
+        del P_e, P_async, s_entry
+        # NTT round trip at 2^22 through acc.ntt
+        x_std = rand_field(FR, n22)
+        xe = fr_mont(x_std)
+        ye, fwd_s, launches_fwd = timed(lambda: acc.ntt.forward(xe))
+        back, inv_s, _ = timed(lambda: acc.ntt.inverse(ye))
+        ntt_ok = (torch.equal(back, xe)
+                  and fr_ints(ye[:, :1])[0] == limb_sum(x_std.cpu().numpy().astype(np.int64)) % R_MOD)
+        del xe, ye, back, x_std
+        # dispatch_msm from Python ints: G1 at 2^16, G2 at 2^15 points
+        n16, n15 = 1 << 16, 1 << 15
+        sc16 = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(n16)]
+        res16, d16_s, launches_d16 = timed(
+            lambda: dispatch_msm(sc16, [base_pts[i % M] for i in range(n16)]))
+        want16 = oracle.jac_to_affine(oracle.scalar_mul(
+            sum(s * int(ks[i % M]) for i, s in enumerate(sc16)) % R_MOD, G, oracle.FQ_OPS),
+            oracle.FQ_OPS)
+        res15, d15_s, launches_d15 = timed(
+            lambda: dispatch_msm(sc16[:n15], [base_pts2[i % G2_HOST_POINTS]
+                                              for i in range(n15)], "g2"))
+        want15 = oracle.jac_to_affine(oracle.scalar_mul(
+            sum(s * int(ks2[i % G2_HOST_POINTS]) for i, s in enumerate(sc16[:n15])) % R_MOD,
+            G2gen, oracle.FQ2_OPS), oracle.FQ2_OPS)
+        # dispatch_ntt at 2^14, dispatch_vecop("mul") at 2^13
+        v14 = sc16[:1 << 14]
+        rn, dn_s, _ = timed(lambda: dispatch_ntt(v14))
+        rv, dv_s, _ = timed(lambda: dispatch_vecop("mul", sc16[:1 << 13], sc16[1 << 13:1 << 14]))
+        ntt14_ok = rn.value == oracle.ntt(v14)
+        vec13_ok = rv.value == [a * b % R_MOD for a, b in zip(sc16[:1 << 13], sc16[1 << 13:1 << 14])]
+        # the host route under MIDNIGHT_DEVICE=cpu
+        os.environ["MIDNIGHT_DEVICE"] = "cpu"
+        reset_config_cache()
+        try:
+            rc, dc_s, launches_dc = timed(
+                lambda: dispatch_msm(sc16[:1024], [base_pts[i] for i in range(1024)]))
+        finally:
+            os.environ.pop("MIDNIGHT_DEVICE")
+            reset_config_cache()
+        want_c = oracle.jac_to_affine(oracle.scalar_mul(
+            sum(s * int(ks[i]) for i, s in enumerate(sc16[:1024])) % R_MOD, G, oracle.FQ_OPS),
+            oracle.FQ_OPS)
+        routes = {"msm_g1_2e16": rdv(res16), "msm_g2_2e15": rdv(res15),
+                  "ntt_2e14": rdv(rn), "vecop_mul_2e13": rdv(rv), "msm_g1_1024_cpu": rdv(rc)}
+        live_b, alloc_b = total_live_bytes(), torch.cuda.memory_allocated()
+        peak_e = torch.cuda.max_memory_allocated()
+    finally:
+        trace_log.removeHandler(span_log)
+        os.environ.pop("MIDNIGHT_TRACE", None)
+        reset_config_cache()
+    want_spans = ["g1.precompute_bases[f=4]", f"ntt.forward[n={n22}]",
+                  f"ntt.inverse[n={n22}]", f"g1.msm[n={n16}]", f"g2.msm[n={n15}]"]
+    spans_ok = all(any(s.startswith(w + ":") for s in spans) for w in want_spans)
+    routes_ok = routes == {"msm_g1_2e16": "accel", "msm_g2_2e15": "accel", "ntt_2e14": "accel",
+                           "vecop_mul_2e13": "accel", "msm_g1_1024_cpu": "cpu"}
+    dispatch_ok = (res16.value == want16 and res15.value == want15 and ntt14_ok
+                   and vec13_ok and rc.value == want_c)
+    entry_ok = msm4_ok and msm4_launched and ntt_ok and routes_ok and dispatch_ok and spans_ok
+    emit({"phase": "entry", "equal": bool(entry_ok), "backend_info": info.splitlines(),
+          "msm_with_bases_factor4": msm4_ok, "msm_factor4_launches_as_planned": msm4_launched,
+          "ntt_roundtrip": ntt_ok, "routes": routes,
+          "dispatch_values": dispatch_ok, "spans_logged": spans_ok,
+          "seconds_warmup": warmup_s, "seconds_upload_factor4": upload4_s,
+          "seconds_call_factor4": call4_s, "seconds_each_factor4": secs4,
+          "g1_msm_factor4_2e20_points_per_s": n / statistics.median(secs4),
+          "seconds_ntt_forward": fwd_s, "seconds_ntt_inverse": inv_s,
+          "seconds_dispatch_msm_g1_2e16": d16_s, "seconds_dispatch_msm_g2_2e15": d15_s,
+          "seconds_dispatch_ntt_2e14": dn_s, "seconds_dispatch_vecop_2e13": dv_s,
+          "seconds_dispatch_msm_cpu_1024": dc_s,
+          **{f"plan_{k}": geo4[k] for k in ("glv", "factor", "n", "w", "T", "L", "R", "nb",
+                                           "pieces", "scan_launches")},
+          "launches_upload": launches_up4, "launches_call": launches_e4,
+          "launches_ntt_forward": launches_fwd, "launches_dispatch_g1": launches_d16,
+          "launches_dispatch_g2": launches_d15, "launches_dispatch_cpu": launches_dc,
+          "total_live_bytes": live_b, "memory_allocated": alloc_b,
+          "peak_bytes_allocated": peak_e, "spans": spans[:12], "card": smi})
+    if not entry_ok:
+        raise AssertionError("entry: a check failed (see the line above)")
+    if launches_dc:
+        raise AssertionError(f"entry: the host route launched kernels: {launches_dc}")
+    if not (launches_d16.get("pmadd_signed") and launches_d15.get("pmadd2")):
+        raise AssertionError(f"entry: dispatch_msm ran no scan on the card: "
+                             f"{launches_d16}, {launches_d15}")
+    del bases4, A, A_valid, on, sub, valid
+    torch.cuda.empty_cache()
+    # the MSM kernels at the factor-4 plan's shapes
+    scan_row_g1("pmadd_signed[factor4]", "entry: msm_with_bases, factor 4", geo4["R"],
+                geo4["L"], launches_e4["pmadd_signed"])
+    nl4 = 2 * geo4["nb"]
+    Al4 = tiled_affine(nl4)
+    Pl4 = contig(pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, Al4)))
+    Ql4 = contig(pj.affine_to_proj(FQ_PLAIN, roll(Al4, 1)))
+    kernel_row("padd[factor4]", "padd_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:465", [24, nl4],
+               lambda: cuda_g1.padd(Pl4, Ql4), lambda: cuda_g1.padd_plain(Pl4, Ql4),
+               9 * 24 * nl4, 0, nl4 * 12 * mul_mads(W_FQ), 20,
+               n_launches=launches_e4["padd"], path="entry: msm_with_bases, factor 4")
+    del Al4, Pl4, Ql4
+    torch.cuda.empty_cache()
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": rows})

@@ -1,8 +1,8 @@
 """The CUDA kernels' device code, compiled for the host, against the plain
 PyTorch versions.
 
-``csrc/field.cuh``, ``csrc/g1.cuh``, ``csrc/g2.cuh`` and ``csrc/ntt.cuh`` also
-compile as plain C++.  ``csrc/host_check.cpp`` loops the kernels' lane bodies (the very
+``csrc/field.cuh``, ``csrc/g1.cuh``, ``csrc/g1_jac.cuh``, ``csrc/g2.cuh`` and
+``csrc/ntt.cuh`` also compile as plain C++.  ``csrc/host_check.cpp`` loops the kernels' lane bodies (the very
 functions the CUDA kernels call per thread) over the lanes on the CPU, so the
 32-bit-word Montgomery arithmetic, the group-law formulas and the index math
 of the butterfly stage and of the NTT tile (pairs, strided twiddles, the
@@ -10,7 +10,8 @@ periodic table rows, rows shared by a block) are held against the plain
 versions here, without a GPU.  What only a GPU can show (the
 launch, the build for sm_90a) is left to ``chip_smoke.py``.  One test holds
 the host-compiled product and addition against the JAX package itself, so
-that the kernels' arithmetic does not rest on the port's plain versions alone.
+that the kernels' arithmetic does not rest on the port's plain versions alone
+(and likewise the G2 kernels and the Jacobian ones).
 """
 
 import ctypes
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from tpu_bls12_381_torch import oracle
-from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2, projective as pj
+from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2, points as pt, projective as pj
 from tpu_bls12_381_torch.curves.field_adapters import FQ2_PLAIN, FQ_PLAIN
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
@@ -421,3 +422,98 @@ def test_host_compiled_g2_kernels_match_the_jax_package(lib, points2):
     for o, w in zip(out, jpj.proj_double(JF2, jp(P))):
         for got, want in zip(convert.fq2_to_numpy(o), w):
             np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# -----------------------------------------------------------------------------
+# The Jacobian kernels (g1_jac.cuh): madd, jadd, jdbl
+# -----------------------------------------------------------------------------
+
+def _scaled(P, lam):
+    """(lambda^2 X, lambda^3 Y, lambda Z): the same point with another Z."""
+    l = g1.affine_from_ints([(lam, 1)] * N, device="cpu")[0]
+    l2 = FQ_PLAIN.sqr(l)
+    return (FQ_PLAIN.mul(P[0], l2), FQ_PLAIN.mul(P[1], FQ_PLAIN.mul(l2, l)),
+            FQ_PLAIN.mul(P[2], l))
+
+
+@pytest.fixture(scope="module")
+def jac_points(points):
+    """Jacobian P, Q (Z != 1) and affine A with the edge lanes:
+    0 P identity; 1 Q identity and A's inf; 2 P == Q (Q's Z scaled by 7);
+    3 P == -Q (likewise); 4 both identities; 5 P identity with A's inf;
+    6 P == A (Z = 5); 7 P == -A."""
+    A = points["A"]
+    B = tuple(c.roll(5, 1) for c in A[:2]) + (A[2],)
+    P = [c.clone() for c in pt.jac_double(FQ_PLAIN, pt.affine_to_jac(FQ_PLAIN, B))]
+    Q = [c.clone() for c in pt.jac_add(FQ_PLAIN, pt.affine_to_jac(FQ_PLAIN, A), tuple(P))]
+    ident = pt.jac_identity(FQ_PLAIN, (N,), "cpu")
+    Pq = _scaled(tuple(P), 7)
+    Aj = _scaled(pt.affine_to_jac(FQ_PLAIN, A), 5)
+    for c in range(3):
+        P[c][:, 0] = ident[c][:, 0]
+        Q[c][:, 1] = ident[c][:, 1]
+        Q[c][:, 2] = Pq[c][:, 2]
+        Q[c][:, 3] = pt.jac_neg(FQ_PLAIN, Pq)[c][:, 3]
+        P[c][:, 4] = ident[c][:, 4]
+        Q[c][:, 4] = ident[c][:, 4]
+        P[c][:, 5] = ident[c][:, 5]
+        P[c][:, 6] = Aj[c][:, 6]
+        P[c][:, 7] = pt.jac_neg(FQ_PLAIN, Aj)[c][:, 7]
+    inf2 = torch.tensor([i in (1, 5) or i % 11 == 10 for i in range(N)])
+    return {"P": tuple(c.contiguous() for c in P), "Q": tuple(c.contiguous() for c in Q),
+            "A": (A[0], A[1], inf2)}
+
+
+def test_jadd_and_jdbl(lib, jac_points):
+    P, Q = jac_points["P"], jac_points["Q"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_jadd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N))
+    assert all(torch.equal(o, w) for o, w in zip(out, cuda_g1.jadd_plain(P, Q)))
+    assert not out[2][:, 3:5].any()            # P + (-P), O + O: Z = 0
+    got = g1.jacobian_to_ints(tuple(out))
+    assert got[2] == g1.jacobian_to_ints(pt.jac_double(FQ_PLAIN, P))[2]   # P + P = 2P
+    assert got[0] == g1.jacobian_to_ints(Q)[0] and got[1] == g1.jacobian_to_ints(P)[1]
+    lib.g1_jdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    assert all(torch.equal(o, w) for o, w in zip(out, cuda_g1.jdbl_plain(P)))
+    assert not out[2][:, [0, 4, 5]].any()      # 2 O = O
+
+
+def test_madd(lib, jac_points):
+    P, A = jac_points["P"], jac_points["A"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_madd(*[_ptr(t) for t in P], _ptr(A[0]), _ptr(A[1]), _ptr(A[2]),
+                *[_ptr(t) for t in out], SZ(N))
+    assert all(torch.equal(o, w) for o, w in zip(out, cuda_g1.madd_plain(P, A)))
+    assert not out[2][:, [5, 7]].any()         # O with inf, P + (-P)
+    assert all(torch.equal(o[:, 1], p[:, 1]) for o, p in zip(out, P))   # inf2: P
+    one = torch.from_numpy(FQ.one_mont_limbs.astype(np.int32))
+    assert torch.equal(out[0][:, 0], A[0][:, 0]) and torch.equal(out[2][:, 0], one)
+    got = g1.jacobian_to_ints(tuple(out))
+    assert got[6] == g1.jacobian_to_ints(pt.jac_double(FQ_PLAIN, P))[6]   # P + P = 2P
+
+
+def test_host_compiled_jacobian_kernels_match_the_jax_package(lib, jac_points):
+    """``madd``, ``jadd`` and ``jdbl`` as the kernels compute them, against
+    ``curves/points.py`` of the JAX package (its CPU path: the generic
+    formulas, to which its Pallas kernels are bit-identical)."""
+    import jax.numpy as jnp
+
+    from tpu_bls12_381.curves import points as jpt
+    from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER as JF
+
+    j = lambda t: jnp.asarray(t.numpy().astype(np.uint32) if t.dtype == torch.int32
+                              else t.numpy())
+    P, Q, A = jac_points["P"], jac_points["Q"], jac_points["A"]
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    cases = (
+        (lambda: lib.g1_jadd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N)),
+         jpt.jac_add(JF, tuple(map(j, P)), tuple(map(j, Q)))),
+        (lambda: lib.g1_madd(*[_ptr(t) for t in (*P, *A, *out)], SZ(N)),
+         jpt.jac_add_affine(JF, tuple(map(j, P)), tuple(map(j, A)))),
+        (lambda: lib.g1_jdbl(*[_ptr(t) for t in (*P, *out)], SZ(N)),
+         jpt.jac_double(JF, tuple(map(j, P)))),
+    )
+    for run, want in cases:
+        run()
+        for o, w in zip(out, want):
+            np.testing.assert_array_equal(o.numpy().astype(np.uint32), np.asarray(w))

@@ -256,7 +256,7 @@ def test_env_flag_routes_glv(flag, mode, monkeypatch):
         reset_config_cache()
 
 
-def test_msm_raises_when_the_budget_needs_more_than_one_piece(points, monkeypatch):
+def test_msm_chunks_when_the_budget_needs_more_than_one_piece(points, monkeypatch):
     A = g1.affine_from_ints(points, device="cpu")
     sc = convert.scalars_from_numpy(_scalars_np([1] * N), device="cpu")
     bpp = pip._msm_bytes_per_point(FQ_ADAPTER)

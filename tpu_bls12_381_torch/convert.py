@@ -45,6 +45,20 @@ def affine_from_numpy(x, y, inf, device=None):
             inf_t.to(dev))
 
 
+def point_from_numpy(P, device=None):
+    """A G1 point of the JAX package (projective or Jacobian: three (24,
+    *batch) limb arrays) -> a tuple of three int32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return tuple(_limbs_from_numpy(c, FQ.num_limbs, f"coordinate {i}", dev)
+                 for i, c in enumerate(P))
+
+
+def mask_from_numpy(m, device=None):
+    """A bool batch mask of the JAX package (an affine ``inf``, the result of
+    ``is_on_curve_*`` or ``is_in_subgroup``) -> a bool tensor on ``device``."""
+    return torch.from_numpy(np.array(m, dtype=bool)).to(resolve_device(device))
+
+
 def to_numpy(t):
     """A limb or mask tensor -> numpy (limbs as uint32, as the JAX package)."""
     a = t.detach().cpu().numpy()

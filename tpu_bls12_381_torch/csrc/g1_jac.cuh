@@ -1,0 +1,181 @@
+// Jacobian group law for G1 (y^2 = x^3 + 4 over Fq), a = 0, with the
+// constant-time edge-case selections.  One point operation per thread.
+//
+// The formulas and the order of the selections are those of the JAX package's
+// curves/pallas_g1.py (_k_dbl, _madd_kernel, _add_kernel), which are those of
+// its curves/points.py (jac_double, jac_add_affine, jac_add): with canonical
+// field results the coordinates written back equal the plain PyTorch versions
+// in curves/points.py limb for limb.  Jacobian (X : Y : Z) is x = X/Z^2,
+// y = Y/Z^3; the identity is any point with Z = 0, and the canonical one
+// written here is (R mod p : R mod p : 0), the Montgomery one twice.
+//
+// Nothing branches on data.  The generic sum and the doubling are computed in
+// every lane, and the edge cases (P == A, P == -A, an identity operand) pick
+// between them with fp_cmov, as the JAX formulas do.
+//
+// fp_sub is canonical only for canonical operands.  Every operand here comes
+// from a kernel, from g1.affine_from_ints or from the plain versions, all of
+// which write canonical values, so every intermediate is canonical too.
+
+#pragma once
+
+#include "g1.cuh"
+
+struct G1Jac {
+    fq X, Y, Z;
+};
+
+DEV bool fq_is_zero(const fq& a) {
+    uint32_t acc = 0u;
+    UNROLL
+    for (int j = 0; j < Fq::W; ++j) acc |= a.v[j];
+    return acc == 0u;
+}
+
+DEV G1Jac g1_jac_cmov(bool take, const G1Jac& a, const G1Jac& b) {
+    G1Jac r;
+    r.X = fp_cmov<Fq>(take, a.X, b.X);
+    r.Y = fp_cmov<Fq>(take, a.Y, b.Y);
+    r.Z = fp_cmov<Fq>(take, a.Z, b.Z);
+    return r;
+}
+
+// (1 : 1 : 0) in Montgomery form.
+DEV G1Jac g1_jac_identity() {
+    G1Jac r;
+    r.X = fp_one<Fq>();
+    r.Y = fp_one<Fq>();
+    r.Z = fp_zero<Fq>();
+    return r;
+}
+
+// dbl-2009-l (a = 0), 2M + 5S.  Complete for Z = 0: Z3 = 2YZ = 0.
+DEV G1Jac g1_jac_dbl(const G1Jac& P) {
+    fq A = fq_sqr(P.X);
+    fq B = fq_sqr(P.Y);
+    fq C = fq_sqr(B);
+    fq D = fq_sub(fq_sub(fq_sqr(fq_add(P.X, B)), A), C);
+    D = fq_add(D, D);
+    fq E = fq_add(fq_add(A, A), A);                 // 3A
+    fq G = fq_sqr(E);
+    G1Jac R;
+    R.X = fq_sub(G, fq_add(D, D));
+    fq C8 = fq_add(C, C);
+    C8 = fq_add(C8, C8);
+    C8 = fq_add(C8, C8);
+    R.Y = fq_sub(fq_mul(E, fq_sub(D, R.X)), C8);
+    R.Z = fq_mul(fq_add(P.Y, P.Y), P.Z);
+    return R;
+}
+
+// madd-2007-bl (Z2 = 1), 7M + 4S, plus the doubling for P == A.  The affine
+// operand cannot hold the identity, so `inf2` passes P through.
+DEV G1Jac g1_jac_madd(const G1Jac& P, const fq& x2, const fq& y2, bool inf2) {
+    fq Z1Z1 = fq_sqr(P.Z);
+    fq U2 = fq_mul(x2, Z1Z1);
+    fq S2 = fq_mul(fq_mul(y2, P.Z), Z1Z1);
+    fq H = fq_sub(U2, P.X);
+    fq HH = fq_sqr(H);
+    fq I = fq_add(HH, HH);
+    I = fq_add(I, I);
+    fq J = fq_mul(H, I);
+    fq rr = fq_sub(S2, P.Y);
+    fq r = fq_add(rr, rr);
+    fq V = fq_mul(P.X, I);
+    G1Jac R;
+    R.X = fq_sub(fq_sub(fq_sqr(r), J), fq_add(V, V));
+    fq YJ = fq_mul(P.Y, J);
+    R.Y = fq_sub(fq_mul(r, fq_sub(V, R.X)), fq_add(YJ, YJ));
+    R.Z = fq_sub(fq_sub(fq_sqr(fq_add(P.Z, H)), Z1Z1), HH);
+
+    // the selections, in the order of points.jac_add_affine
+    bool idP = fq_is_zero(P.Z);
+    bool x_eq = fq_is_zero(H) & !idP & !inf2;
+    bool y_eq = fq_is_zero(rr);
+    R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl(P), R);        // P == A
+    R = g1_jac_cmov(x_eq & !y_eq, g1_jac_identity(), R);   // P == -A
+    G1Jac promoted;                                        // identity + A
+    promoted.X = x2;
+    promoted.Y = y2;
+    promoted.Z = fp_one<Fq>();
+    R = g1_jac_cmov(idP & !inf2, promoted, R);
+    return g1_jac_cmov(inf2, P, R);
+}
+
+// add-2007-bl, 11M + 5S, plus the doubling for P == Q; complete.
+DEV G1Jac g1_jac_add(const G1Jac& P, const G1Jac& Q) {
+    fq Z1Z1 = fq_sqr(P.Z);
+    fq Z2Z2 = fq_sqr(Q.Z);
+    fq U1 = fq_mul(P.X, Z2Z2);
+    fq U2 = fq_mul(Q.X, Z1Z1);
+    fq S1 = fq_mul(fq_mul(P.Y, Q.Z), Z2Z2);
+    fq S2 = fq_mul(fq_mul(Q.Y, P.Z), Z1Z1);
+    fq H = fq_sub(U2, U1);
+    fq I = fq_sqr(fq_add(H, H));
+    fq J = fq_mul(H, I);
+    fq rr = fq_sub(S2, S1);
+    fq r = fq_add(rr, rr);
+    fq V = fq_mul(U1, I);
+    G1Jac R;
+    R.X = fq_sub(fq_sub(fq_sqr(r), J), fq_add(V, V));
+    fq SJ = fq_mul(S1, J);
+    R.Y = fq_sub(fq_mul(r, fq_sub(V, R.X)), fq_add(SJ, SJ));
+    R.Z = fq_mul(fq_sub(fq_sub(fq_sqr(fq_add(P.Z, Q.Z)), Z1Z1), Z2Z2), H);
+
+    // the selections, in the order of points.jac_add
+    bool idP = fq_is_zero(P.Z);
+    bool idQ = fq_is_zero(Q.Z);
+    bool x_eq = fq_is_zero(H) & !idP & !idQ;
+    bool y_eq = fq_is_zero(rr);
+    R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl(P), R);        // P == Q
+    R = g1_jac_cmov(x_eq & !y_eq, g1_jac_identity(), R);   // P == -Q
+    R = g1_jac_cmov(idP, Q, R);
+    return g1_jac_cmov(idQ, P, R);
+}
+
+DEV G1Jac g1_jac_load(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                      size_t n, size_t idx) {
+    G1Jac P;
+    P.X = fp_load<Fq>(X, n, idx);
+    P.Y = fp_load<Fq>(Y, n, idx);
+    P.Z = fp_load<Fq>(Z, n, idx);
+    return P;
+}
+
+DEV void g1_jac_store(uint32_t* X, uint32_t* Y, uint32_t* Z, size_t n, size_t idx,
+                      const G1Jac& P) {
+    fp_store<Fq>(X, n, idx, P.X);
+    fp_store<Fq>(Y, n, idx, P.Y);
+    fp_store<Fq>(Z, n, idx, P.Z);
+}
+
+// ---------------------------------------------------------------------------
+// Lane bodies: what one thread does.  The kernels in g1_jac_kernels.cu call
+// them with the thread's index; host_check.cpp calls them in a loop on a CPU.
+// Every operand is a contiguous (24, n) plane, `inf2` one byte a lane.
+// ---------------------------------------------------------------------------
+
+DEV void g1_jdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+                      uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                      size_t idx) {
+    g1_jac_store(X3, Y3, Z3, n, idx, g1_jac_dbl(g1_jac_load(X1, Y1, Z1, n, idx)));
+}
+
+DEV void g1_madd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+                      const uint32_t* x2, const uint32_t* y2, const uint8_t* inf2,
+                      uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                      size_t idx) {
+    G1Jac P = g1_jac_load(X1, Y1, Z1, n, idx);
+    fq x = fp_load<Fq>(x2, n, idx);
+    fq y = fp_load<Fq>(y2, n, idx);
+    g1_jac_store(X3, Y3, Z3, n, idx, g1_jac_madd(P, x, y, inf2[idx] != 0));
+}
+
+DEV void g1_jadd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+                      const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
+                      uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                      size_t idx) {
+    G1Jac P = g1_jac_load(X1, Y1, Z1, n, idx);
+    G1Jac Q = g1_jac_load(X2, Y2, Z2, n, idx);
+    g1_jac_store(X3, Y3, Z3, n, idx, g1_jac_add(P, Q));
+}

@@ -1,5 +1,5 @@
 // Host build of the kernels' lane bodies: the same device code as the CUDA
-// kernels (field.cuh, g1.cuh, g2.cuh, ntt.cuh), compiled as plain C++ and run in a
+// kernels (field.cuh, g1.cuh, g1_jac.cuh, g2.cuh, ntt.cuh), compiled as plain C++ and run in a
 // loop over the lanes (for the NTT tile: over the blocks, and inside a block
 // over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
 // against the plain PyTorch versions (tests/test_torch_csrc_host.py):
@@ -11,6 +11,7 @@
 #include <vector>
 
 #include "g1.cuh"
+#include "g1_jac.cuh"
 #include "g2.cuh"
 #include "ntt.cuh"
 
@@ -114,6 +115,25 @@ void g1_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
 void g1_pdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
     for (size_t i = 0; i < n; ++i) g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
+}
+
+void g1_jdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
+    for (size_t i = 0; i < n; ++i) g1_jdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
+}
+
+void g1_madd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+             const uint32_t* x2, const uint32_t* y2, const uint8_t* inf2,
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        g1_madd_lane(X1, Y1, Z1, x2, y2, inf2, X3, Y3, Z3, n, i);
+}
+
+void g1_jadd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
+             const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        g1_jadd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, i);
 }
 
 // Fq2 products, squares and 12(1+u) multiples on (24, 2, n) batches.

@@ -11,11 +11,17 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
 * ``padd`` takes the place of ``_padd_kernel`` / ``padd`` (``:465``, ``:507``):
   RCB16 algorithm 7;
 * ``pdbl`` takes the place of ``_pdbl_kernel`` / ``pdbl`` (``:478``, ``:519``):
-  RCB16 algorithm 9.
+  RCB16 algorithm 9;
+* ``madd``, ``jadd`` and ``jdbl`` take the place of the Jacobian kernels
+  ``_madd_kernel`` (``:180``), ``_add_kernel`` (``:252``) and ``_dbl_kernel``
+  (``:156``) with their wrappers ``madd``, ``jadd``, ``jdbl``: madd-2007-bl,
+  add-2007-bl and dbl-2009-l with the edge-case selections of
+  ``curves/points.py``.
 
-The kernels are CUDA C++ in ``csrc/g1_kernels.cu`` (formulas in
-``csrc/g1.cuh``, field arithmetic in ``csrc/field.cuh``): one thread per lane,
-all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
+The kernels are CUDA C++: the projective ones in ``csrc/g1_kernels.cu``
+(formulas in ``csrc/g1.cuh``), the Jacobian ones in ``csrc/g1_jac_kernels.cu``
+(formulas in ``csrc/g1_jac.cuh``), field arithmetic in ``csrc/field.cuh``: one
+thread per lane, all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
 launch walks the R rows of a scan tile inside each thread and writes every
 prefix row, where the JAX package launches R times.  On an H100 the integer
 pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
@@ -23,11 +29,12 @@ pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
 (PERF.md has the numbers).
 
 Each wrapper takes its plain version (``*_plain``: the formulas of
-``curves/projective.py`` over plain PyTorch field ops) only for tensors on the
-CPU.  For CUDA tensors it launches the kernel or raises; there is no
+``curves/projective.py`` or ``curves/points.py`` over plain PyTorch field ops)
+only for tensors on the CPU.  For CUDA tensors it launches the kernel or raises; there is no
 fallback.  The wrappers copy nothing: coordinates must be contiguous and of
 one shape, masks contiguous, and anything else raises (the ``*_fast`` routers
-of ``curves/projective.py`` broadcast and lay out for them).  ``LAUNCHES``
+of ``curves/projective.py`` and ``curves/points.py`` broadcast and lay out
+for them).  ``LAUNCHES``
 counts kernel launches, and nothing else.
 """
 
@@ -40,15 +47,18 @@ import torch
 from .. import _build
 from ..fields import FQ
 from ..fields.cuda_ops import check_launch, check_limbs, stream_ptr
+from . import points as pt
 from . import projective as pj
 from .field_adapters import FQ_PLAIN
 
 K = FQ.num_limbs
 
-LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0}
+LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0,
+            "madd": 0, "jadd": 0, "jdbl": 0}
 
 _PTR = ctypes.c_void_p
 _CONFIGURED = False
+_JAC_CONFIGURED = False
 
 
 def reset_launches() -> None:
@@ -70,6 +80,19 @@ def _lib():
                    lib.g1_pdbl):
             fn.restype = ctypes.c_int
         _CONFIGURED = True
+    return lib
+
+
+def _jac_lib():
+    global _JAC_CONFIGURED
+    lib = _build.library("g1_jac_kernels")
+    if not _JAC_CONFIGURED:
+        lib.g1_madd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
+        lib.g1_jadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
+        lib.g1_jdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, _PTR]
+        for fn in (lib.g1_madd, lib.g1_jadd, lib.g1_jdbl):
+            fn.restype = ctypes.c_int
+        _JAC_CONFIGURED = True
     return lib
 
 
@@ -97,6 +120,18 @@ def padd_plain(P, Q):
 
 def pdbl_plain(P):
     return pj.proj_double(FQ_PLAIN, P)
+
+
+def madd_plain(P, A):
+    return pt.jac_add_affine(FQ_PLAIN, P, A)
+
+
+def jadd_plain(P, Q):
+    return pt.jac_add(FQ_PLAIN, P, Q)
+
+
+def jdbl_plain(P):
+    return pt.jac_double(FQ_PLAIN, P)
 
 
 # -----------------------------------------------------------------------------
@@ -256,4 +291,65 @@ def pdbl(P):
             P[0].numel() // K, stream_ptr(dev))
     check_launch(code, "g1_pdbl")
     LAUNCHES["pdbl"] += 1
+    return tuple(out)
+
+
+# -----------------------------------------------------------------------------
+# Jacobian wrappers (csrc/g1_jac_kernels.cu)
+# -----------------------------------------------------------------------------
+
+
+def madd(P, A):
+    """Jacobian + affine addition, elementwise, complete: the doubling where
+    P == A, the identity where P == -A, A where P is the identity, P where
+    ``inf2`` (``points.jac_add_affine`` contract)."""
+    x2, y2, inf2 = A
+    coords = [*P, x2, y2]
+    batch = _check_coords(coords, "madd")
+    dev = P[0].device
+    _check_mask(inf2, batch, dev, "madd: inf2")
+    if not P[0].is_cuda:
+        return madd_plain(P, A)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _jac_lib().g1_madd(
+            *[t.data_ptr() for t in coords], inf2.data_ptr(),
+            *[o.data_ptr() for o in out], P[0].numel() // K, stream_ptr(dev))
+    check_launch(code, "g1_madd")
+    LAUNCHES["madd"] += 1
+    return tuple(out)
+
+
+def jadd(P, Q):
+    """Complete Jacobian + Jacobian addition (``points.jac_add`` contract)."""
+    coords = [*P, *Q]
+    _check_coords(coords, "jadd")
+    if not P[0].is_cuda:
+        return jadd_plain(P, Q)
+    dev = P[0].device
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _jac_lib().g1_jadd(
+            *[t.data_ptr() for t in coords], *[o.data_ptr() for o in out],
+            P[0].numel() // K, stream_ptr(dev))
+    check_launch(code, "g1_jadd")
+    LAUNCHES["jadd"] += 1
+    return tuple(out)
+
+
+def jdbl(P):
+    """Jacobian doubling, complete for Z = 0 (``points.jac_double``
+    contract)."""
+    coords = list(P)
+    _check_coords(coords, "jdbl")
+    if not P[0].is_cuda:
+        return jdbl_plain(P)
+    dev = P[0].device
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _jac_lib().g1_jdbl(
+            *[t.data_ptr() for t in coords], *[o.data_ptr() for o in out],
+            P[0].numel() // K, stream_ptr(dev))
+    check_launch(code, "g1_jdbl")
+    LAUNCHES["jdbl"] += 1
     return tuple(out)

@@ -59,13 +59,14 @@ def jacobian_to_ints(P):
 
 
 def generator_affine(batch_shape=(), device=None):
-    g = (constants.G1_GENERATOR_X, constants.G1_GENERATOR_Y)
-    count = int(np.prod(batch_shape)) if batch_shape else 1
-    A = affine_from_ints([g] * count, device)
-    if batch_shape:
-        return tuple(
-            c.reshape(c.shape[:1] + tuple(batch_shape)) if c.dim() > 1
-            else c.reshape(tuple(batch_shape))
-            for c in A
-        )
-    return A
+    """The generator in every lane of ``batch_shape`` (one lane converted on
+    the host, then repeated where the batch lives)."""
+    batch_shape = tuple(batch_shape)
+    x, y, inf = affine_from_ints(
+        [(constants.G1_GENERATOR_X, constants.G1_GENERATOR_Y)], device)
+    if not batch_shape:
+        return x, y, inf
+    shape = (FQ.num_limbs,) + batch_shape
+    col = lambda c: c.reshape((FQ.num_limbs,) + (1,) * len(batch_shape))
+    return (col(x).expand(shape).contiguous(), col(y).expand(shape).contiguous(),
+            inf.reshape((1,) * len(batch_shape)).expand(batch_shape).contiguous())

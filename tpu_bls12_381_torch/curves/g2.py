@@ -68,11 +68,14 @@ def jacobian_to_ints(P):
 
 
 def generator_affine(batch_shape=(), device=None):
+    """The generator in every lane of ``batch_shape`` (one lane converted on
+    the host, then repeated where the batch lives)."""
     batch_shape = tuple(batch_shape)
-    count = int(np.prod(batch_shape)) if batch_shape else 1
     x, y, inf = affine_from_ints(
-        [(constants.G2_GENERATOR_X, constants.G2_GENERATOR_Y)] * count, device)
+        [(constants.G2_GENERATOR_X, constants.G2_GENERATOR_Y)], device)
     if not batch_shape:
         return x, y, inf
     shape = (FQ.num_limbs, 2) + batch_shape
-    return x.reshape(shape), y.reshape(shape), inf.reshape(batch_shape)
+    col = lambda c: c.reshape((FQ.num_limbs, 2) + (1,) * len(batch_shape))
+    return (col(x).expand(shape).contiguous(), col(y).expand(shape).contiguous(),
+            inf.reshape((1,) * len(batch_shape)).expand(batch_shape).contiguous())

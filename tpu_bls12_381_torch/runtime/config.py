@@ -1,8 +1,19 @@
 """Env-var-driven configuration, read once and cached.
 
-Counterpart of the JAX package's ``runtime/config.py``, with only what the
-ported slice reads:
+Counterpart of the JAX package's ``runtime/config.py``: every knob is an
+environment variable read on first use and cached for the process (call
+``reset_config_cache()`` after changing one in-process).  The names are the
+JAX package's; where they say TPU, the port reads them for the GPU:
 
+  MIDNIGHT_DEVICE         auto | gpu | cpu, default auto: where ``dispatch_*``
+                          send a call.  ``tpu`` is read as ``gpu`` (the JAX
+                          package's name for its accelerator); ``gpu`` is the
+                          reference's own value.  Anything else: a warning and
+                          auto.
+  MIDNIGHT_TPU_MIN_K      MSM accelerator threshold, log2 of the point count,
+                          default 15, 0..30.
+  MIDNIGHT_NTT_MIN_K      NTT accelerator threshold log2, default 12, 0..32.
+  MIDNIGHT_VECOPS_MIN_SIZE  vecops accelerator threshold, default 4096.
   MIDNIGHT_TPU_PRECOMPUTE precompute factor of an ``MsmContext`` upload that
                           names none, 1..8, default 1 (alias
                           MIDNIGHT_GPU_PRECOMPUTE; the name is the JAX
@@ -18,6 +29,8 @@ ported slice reads:
                           (``mixedradix`` is read as ``fourstep``); the
                           routing rule is ``ntt/ntt.py::_route_fourstep``.
   MIDNIGHT_NTT_MAX_LOG_N  default domain size a context pre-builds, default 16.
+  MIDNIGHT_TRACE          comma list of span tags: msm, ntt, vecops, all
+                          (``runtime/tracing.py::span``).
 
 Two more are read where they are used, at every call, as in the JAX package:
 MIDNIGHT_MSM_HBM_BUDGET_MB (an upper limit on the device memory the MSM
@@ -27,9 +40,10 @@ MIDNIGHT_EXPAND_CHUNK_LOG (the point-slice of ``pippenger.expand_bases``).
 
 from __future__ import annotations
 
+import enum
 import logging
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 logger = logging.getLogger("tpu_bls12_381_torch")
 
@@ -54,19 +68,45 @@ def _int_env(name: str, default: int, lo: int, hi: int,
     return default
 
 
+class DeviceType(enum.Enum):
+    AUTO = "auto"
+    GPU = "gpu"
+    CPU = "cpu"
+
+
+# The JAX package's name for its accelerator, read as the GPU.
+_DEVICE_ALIASES = {"tpu": "gpu"}
+
+
 @dataclass(frozen=True)
 class Config:
+    device: DeviceType
+    msm_min_k: int
+    ntt_min_k: int
+    vecops_min_size: int
     precompute_factor: int
     msm_window: int | None
     msm_glv: str
     ntt_max_log_n: int
     ntt_ordering: str
     ntt_algorithm: str
+    trace: frozenset = field(default_factory=frozenset)
 
     @classmethod
     def from_env(cls) -> "Config":
+        raw_dev = os.environ.get("MIDNIGHT_DEVICE", "auto").lower()
+        try:
+            device = DeviceType(_DEVICE_ALIASES.get(raw_dev, raw_dev))
+        except ValueError:
+            logger.warning("MIDNIGHT_DEVICE=%r unknown; using auto", raw_dev)
+            device = DeviceType.AUTO
+        trace_raw = os.environ.get("MIDNIGHT_TRACE", "")
         algorithm = os.environ.get("MIDNIGHT_NTT_ALGORITHM", "auto").lower()
         return cls(
+            device=device,
+            msm_min_k=_int_env("MIDNIGHT_TPU_MIN_K", 15, 0, 30),
+            ntt_min_k=_int_env("MIDNIGHT_NTT_MIN_K", 12, 0, 32),
+            vecops_min_size=_int_env("MIDNIGHT_VECOPS_MIN_SIZE", 4096, 0, 1 << 30),
             precompute_factor=_int_env("MIDNIGHT_TPU_PRECOMPUTE", 1, 1, 8,
                                        aliases=("MIDNIGHT_GPU_PRECOMPUTE",)),
             msm_window=_int_env("MIDNIGHT_MSM_WINDOW", 0, 0, 24) or None,
@@ -77,7 +117,34 @@ class Config:
             ntt_max_log_n=_int_env("MIDNIGHT_NTT_MAX_LOG_N", 16, 0, 32),
             ntt_ordering=os.environ.get("MIDNIGHT_NTT_ORDERING", "NN").upper(),
             ntt_algorithm={"mixedradix": "fourstep"}.get(algorithm, algorithm),
+            trace=frozenset(t.strip() for t in trace_raw.split(",") if t.strip()),
         )
+
+    # --- routing decisions of runtime/dispatch.py ----------------------------
+
+    def use_accel_msm(self, n: int) -> bool:
+        if self.device is DeviceType.CPU:
+            return False
+        if self.device is DeviceType.GPU:
+            return True
+        return n >= (1 << self.msm_min_k)
+
+    def use_accel_ntt(self, n: int) -> bool:
+        if self.device is DeviceType.CPU:
+            return False
+        if self.device is DeviceType.GPU:
+            return True
+        return n >= (1 << self.ntt_min_k)
+
+    def use_accel_vecops(self, n: int) -> bool:
+        if self.device is DeviceType.CPU:
+            return False
+        if self.device is DeviceType.GPU:
+            return True
+        return n >= self.vecops_min_size
+
+    def traces(self, tag: str) -> bool:
+        return "all" in self.trace or tag in self.trace
 
 
 _CONFIG: Config | None = None

@@ -10,7 +10,8 @@ against shared bases in one batched pipeline.  One class serves both curves:
 ``g1_context()`` over ``FQ_ADAPTER``, ``g2_context()`` over ``FQ2_ADAPTER``.
 
 Everything runs where the tensors live.  ``warmup`` makes its own inputs and
-takes ``device=None`` = the card.
+takes ``device=None`` = the card.  ``upload_bases`` and ``msm`` open the JAX
+package's ``msm`` spans (``runtime/tracing.py::span``, MIDNIGHT_TRACE).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..fields.ops import LIMB_DTYPE
 from ..msm import pippenger
 from .config import config
 from .handles import AsyncHandle
-from .tracing import stage
+from .tracing import span
 
 
 @dataclass
@@ -77,7 +78,8 @@ class MsmContext:
                                      factor=factor, cached=True)
         glv, w = geo["glv"], geo["w"]
         num_bits = pippenger.GLV_HALF_BITS_STATIC if glv else pippenger.FR_BITS
-        with stage(f"{self.name}.precompute_bases[f={factor}]"):
+        label = f"{self.name}.precompute_bases[f={factor}]"
+        with span("msm", label):
             if glv:
                 A = pippenger.glv_extend_bases(self.F, A)
             A_exp = AsyncHandle(
@@ -91,7 +93,8 @@ class MsmContext:
             scalars_montgomery: bool = True):
         """One MSM against ad-hoc bases; returns a Jacobian point when it is
         ready."""
-        with stage(f"{self.name}.msm[n={A[2].shape[-1]}]"):
+        label = f"{self.name}.msm[n={A[2].shape[-1]}]"
+        with span("msm", label):
             out = self.msm_async(scalars, A, window_bits=window_bits,
                                  scalars_montgomery=scalars_montgomery).wait()
         return out

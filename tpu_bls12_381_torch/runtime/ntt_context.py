@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``runtime/ntt_context.py``: wraps the
 twiddle-domain cache (``ntt/domain.py``) and exposes forward/inverse, batch
 (leading axes), coset, orderings and async handles.  ``device=None`` means
-the card; a call runs where its tensor lives.
+the card; a call runs where its tensor lives.  ``forward`` and ``inverse``
+open the JAX package's ``ntt`` spans; the coset calls open none, as there.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..ntt.ntt import Ordering, coset_intt, coset_ntt, intt
 from ..ntt.ntt import ntt as ntt_fn
 from .config import config
 from .handles import AsyncHandle
-from .tracing import stage
+from .tracing import span
 
 
 def _synchronize(out) -> None:
@@ -49,13 +50,15 @@ class NttContext:
     def forward(self, x, ordering=None):
         """Forward NTT along the last axis; leading axes are batch.  Returns
         when the result is ready."""
-        with stage(f"ntt.forward[n={x.shape[-1]}]"):
+        label = f"ntt.forward[n={x.shape[-1]}]"
+        with span("ntt", label):
             out = ntt_fn(x, self._ordering(ordering), self._domain(x))
             _synchronize(out)
         return out
 
     def inverse(self, x, ordering=None):
-        with stage(f"ntt.inverse[n={x.shape[-1]}]"):
+        label = f"ntt.inverse[n={x.shape[-1]}]"
+        with span("ntt", label):
             out = intt(x, self._ordering(ordering), self._domain(x))
             _synchronize(out)
         return out
