@@ -8,7 +8,9 @@ against its plain PyTorch version on the card (integer arithmetic, canonical
 results: the tolerance is zero, ``torch.equal``), runs the golden n = 4096 G1
 MSM vector with GLV off and on, and drives the ported paths once each at
 full width: ``msm_g1`` on 2^20 points, checked against one host scalar
-multiplication; the cached-bases path a prover calls (``g1_context()``:
+multiplication, its tail's launches against the plan, then the tail's lane
+scan (``padd_scan``) at its shapes and the ``tile_sweep`` (the scan kernel
+over three tiles of one window's adds, ``padd`` at two widths); the cached-bases path a prover calls (``g1_context()``:
 ``upload_bases`` with precompute factor 2, ``msm_with_bases``, ``msm_batch``,
 an MSM forced into 4 pieces) on the same 2^20 points, and ``msm_g2`` and
 ``g2_context()`` (factor 2) on 2^20 G2 points, each checked against the host; and the Fr NTT on 2^22 elements
@@ -341,6 +343,20 @@ def main() -> int:
         else:
             os.environ["MIDNIGHT_MSM_HBM_BUDGET_MB"] = str(mb)
 
+    def scan_counts():
+        """``padd_scan``'s launches since the counts were set to 0, by the
+        mode and shape of each call."""
+        return dict(cuda_g1.SCAN_LAUNCHES)
+
+    def check_tail(what, launches_, plan):
+        """The tail's lane scans and adds of one call are the plan's: every
+        G1 lane scan went through ``padd_scan``, no Hillis-Steele step is
+        left (each would be one more ``padd``)."""
+        got = {k: launches_.get(k, 0) for k in plan["tail_launches"]}
+        if got != plan["tail_launches"]:
+            raise AssertionError(f"{what}: tail launches {got}, the plan has "
+                                 f"{plan['tail_launches']}")
+
     # ----------------------------------------------------------------- kernels
     N = 1 << 16
     contig = lambda T: tuple(c.contiguous() for c in T)
@@ -535,7 +551,30 @@ def main() -> int:
           lambda: cuda_g1.pmadd_signed_rows(xr, yr, sr, ir),
           lambda: cuda_g1.pmadd_signed_rows_plain(xr, yr, sr, ir),
           lambda: cuda_g1.LAUNCHES["pmadd_signed"], reps=3)
-    del P, Q, Pm, A, Ai, Aproj, tile, xr, yr, got, want, negP, ident
+
+    # The lane scan in every mode, on 2^16 lanes of one row and on 3 rows of
+    # 1,001 lanes (an odd width, the last block part empty), with the edge
+    # lanes: identities (lanes 0 and 4 of P), P and -P side by side (lanes 8
+    # and 9: P's lane 3 and Q's, which is -P there).
+    Ps = tuple(torch.cat([p[:, :8], p[:, 3:4], q[:, 3:4], p[:, 10:]], dim=1).contiguous()
+               for p, q in zip(P, Q))
+    Po = tuple(c[:, :3 * 1001].reshape(24, 3, 1001).contiguous() for c in Ps)
+    modes = [dict(reverse=r, exclusive=e) for r in (False, True) for e in (False, True)]
+    modes.append(dict(total=True))
+    for operand, what in ((Ps, "2^16"), (Po, "3 x 1001")):
+        for mode in modes:
+            if not trees_equal(cuda_g1.padd_scan(operand, **mode),
+                               cuda_g1.padd_scan_plain(operand, **mode)):
+                raise AssertionError(f"padd_scan {what} {mode}: kernel and plain differ")
+    pair = tuple(c[:, 8:10].contiguous() for c in Ps)
+    if not bool(ops.is_zero(FQ, cuda_g1.padd_scan(pair, total=True)[2])):
+        raise AssertionError("padd_scan: P + (-P) is not the identity")
+    check("padd_scan", "padd_scan_", N, cuda_g1.padd_scan(Ps, exclusive=True),
+          cuda_g1.padd_scan_plain(Ps, exclusive=True),
+          lambda: cuda_g1.padd_scan(Ps, exclusive=True),
+          lambda: cuda_g1.padd_scan_plain(Ps, exclusive=True),
+          lambda: cuda_g1.LAUNCHES["padd_scan"], reps=3)
+    del P, Q, Pm, A, Ai, Aproj, tile, xr, yr, got, want, negP, ident, Ps, Po
 
     # The same edge lanes over Fq2, coordinates (24, 2, N).  Lanes 10..12 of
     # the first operand hold Fq2 values with c0 = c1, c0 = 0 and c1 = p - 1 in
@@ -689,6 +728,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = counts()
+    scans = scan_counts()
     peak = torch.cuda.max_memory_allocated()
     got = g1.jacobian_to_ints(tuple(c[:, None] for c in Pj))[0]
     ok = got == expected and all(tuple(c.shape) == (24,) for c in Pj)
@@ -700,11 +740,11 @@ def main() -> int:
     with tracing.collect_stages() as stages:
         msm_g1(s_mont, A)
     on_path = ["mont_mul_fr", "mont_mul_fq", "mont_sqr_fq",
-               "pmadd_signed", "padd", "pdbl"]
+               "pmadd_signed", "padd", "pdbl", "padd_scan"]
     emit({"phase": "msm_2e20", "n": n, "equal": bool(ok),
           "g1_msm_2e20_points_per_s": n / med, "seconds_median_of_3": med,
           "seconds_each": secs, "seconds_first_call": first_s,
-          **{k: geo[k] for k in ("glv", "w", "T", "L", "R", "nb")},
+          **{k: geo[k] for k in ("glv", "w", "T", "L", "R", "nb", "tail_launches")},
           "launches": launches, "peak_bytes_allocated": peak,
           "stages_ms": {k: round(v, 3) for k, v in stages.items()},
           "host_points_seconds": round(host_points_s, 2), "card": smi})
@@ -719,6 +759,7 @@ def main() -> int:
         raise AssertionError(
             f"msm_2e20: {launches['pmadd_signed']} scan launches, the plan has "
             f"{geo['T']} windows")
+    check_tail("msm_2e20", launches, geo)
     if args.profile:
         # Kernel times come from the trace; the wall time does not (tracing
         # slows the host), so the busy share is taken against the untraced
@@ -753,12 +794,14 @@ def main() -> int:
 
     def kernel_row(name, symbol, source, replaces, shape, kernel_fn, plain_fn,
                    limbs_moved, mask_bytes, wide_mads, reps, n_launches=None,
-                   per_call=1, *, path, **extra):
+                   per_call=1, *, path, kernels_per_call=1, **extra):
         """One row of the ``kernels`` line: a kernel at the shape that the
         driven path ``path`` gives it, with its launches in that path's run
         (a kernel that several paths run at different shapes has a row for
         each, named ``kernel[path]``).  ``kernel_fn`` launches the kernel
-        ``per_call`` times; ``plain_fn`` computes what its last launch does."""
+        ``per_call`` times; ``plain_fn`` computes what its last launch does.
+        A function of several kernels (``kernels_per_call``, the lane scan's
+        passes) is timed whole: ``ms`` is the sum of its kernels' times."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -768,6 +811,8 @@ def main() -> int:
         b_ms, b_by = bound(limbs_moved * LIMB_BYTES + mask_bytes, wide_mads)
         s_ms, s_by = bound(limbs_moved * LIMB_BYTES_STORED + mask_bytes, wide_mads)
         timed = measure(kernel_fn, symbol, reps)
+        if timed["ms_from"] == "profiler":
+            timed["ms"] *= kernels_per_call
         timed["call_ms"] /= per_call
         if timed["ms_from"] == "events":
             timed["ms"] /= per_call
@@ -828,6 +873,91 @@ def main() -> int:
                    path=path, **extra)
 
     scan_row_g1("pmadd_signed", "msm_2e20: msm_g1", R, L, launches["pmadd_signed"])
+
+    def proj_points(shape):
+        """Projective points with Z != 1 on the lanes of ``shape``."""
+        lanes = int(np.prod(shape))
+        P_ = pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, tiled_affine(lanes)))
+        return tuple(c.reshape((24,) + tuple(shape)).contiguous() for c in P_)
+
+    def scan_row(name, path, shape, n_launches, **mode):
+        """The lane scan at one of the tail's shapes; its bound counts the
+        L - 1 adds a row that any scan needs."""
+        P_ = proj_points(shape)
+        rows_, L_ = int(np.prod(shape[:-1])), shape[-1]
+        total_ = mode.get("total", False)
+        kernel_row(name, "padd_scan_", G1_SRC, "tpu_bls12_381/curves/pallas_g1.py:465",
+                   [24, *shape], lambda: cuda_g1.padd_scan(P_, **mode),
+                   lambda: cuda_g1.padd_scan_plain(P_, **mode),
+                   3 * 24 * (rows_ * L_ + (rows_ if total_ else rows_ * L_)), 0,
+                   rows_ * (L_ - 1) * 12 * mul_mads(W_FQ), 5, n_launches=n_launches,
+                   path=path, kernels_per_call=2 if total_ else 3, mode=mode,
+                   note="replaces the log2(L) Hillis-Steele padd steps of the "
+                        "JAX package's lane scans")
+
+    scan_kw = {cuda_g1.scan_mode(**kw): kw
+               for kw in [dict(total=True)] + [dict(reverse=r, exclusive=e)
+                                               for r in (False, True) for e in (False, True)]}
+
+    def scan_rows(tag, path, by_shape, n_total):
+        """One ``padd_scan[tag: mode shape]`` row for each mode and shape at
+        which the driven path called the scan, with the launches counted at
+        it in that path's run (``cuda_g1.SCAN_LAUNCHES``); together they are
+        all of the path's ``padd_scan`` launches.  On the single shot: the
+        stitch (prefix exclusive, L lanes), the triangle's column and row
+        totals (Lb x Rb, Rb x Lb), its weighted suffix scan and that scan's
+        total (2 x Lb)."""
+        if sum(by_shape.values()) != n_total:
+            raise AssertionError(f"{path}: padd_scan launches by shape {by_shape} "
+                                 f"do not sum to the {n_total} counted")
+        for (mode_name, shape_), n_ in sorted(by_shape.items()):
+            dims = list(shape_[1:])
+            scan_row(f"padd_scan[{tag}: {mode_name} {'x'.join(map(str, dims))}]",
+                     path, dims, n_, **scan_kw[mode_name])
+
+    scan_rows("single", "msm_2e20: msm_g1", scans, launches["padd_scan"])
+
+    # The tile sweep: one window's 2^21 signed adds as (R, L) tiles of
+    # 128 x 2^14, 64 x 2^15 and 32 x 2^16 (each held to the plain rows on its
+    # first 2 rows), with the stitch's lane scan at each L; then padd at 2^15
+    # and 2^16 lanes.  Kernel times from the trace.
+    sweep = []
+    adds = 1 << 21
+    At_ = tiled_affine(adds)
+    tile_all = torch.cat([At_[0], At_[1]], dim=0)
+    del At_
+    sign_all = torch.from_numpy(rng.integers(0, 2, size=adds).astype(bool)).to(dev)
+    inf_all = torch.from_numpy(rng.integers(0, 16, size=adds) == 0).to(dev)
+    for log_l in (14, 15, 16):
+        Ls = 1 << log_l
+        Rs = adds // Ls
+        ts = tile_all.reshape(48, Rs, Ls).permute(1, 0, 2).contiguous()
+        xs_, ys_ = ts[:, :24], ts[:, 24:]
+        ss_, is_ = sign_all.reshape(Rs, Ls), inf_all.reshape(Rs, Ls)
+        rows_ = cuda_g1.pmadd_signed_rows(xs_, ys_, ss_, is_)
+        head = cuda_g1.pmadd_signed_rows_plain(xs_[:2], ys_[:2], ss_[:2], is_[:2])
+        if not trees_equal(tuple(c[:2] for c in rows_), head):
+            raise AssertionError(f"pmadd_signed at {Rs} x {Ls}: kernel and plain differ")
+        t_ = measure(lambda: cuda_g1.pmadd_signed_rows(xs_, ys_, ss_, is_),
+                     "pmadd_signed_kernel", 3)
+        sweep.append({"kernel": "pmadd_signed", "tile": [Rs, Ls], "ms": t_["ms"],
+                      "ms_from": t_["ms_from"]})
+        col = tuple(c[-1].contiguous() for c in rows_)
+        t_ = measure(lambda: cuda_g1.padd_scan(col, exclusive=True), "padd_scan_", 5)
+        sweep.append({"kernel": "padd_scan", "shape": [24, Ls], "what": "the stitch",
+                      "ms": t_["ms"] * (3 if t_["ms_from"] == "profiler" else 1),
+                      "ms_from": t_["ms_from"]})
+        del ts, xs_, ys_, rows_, head, col
+    del tile_all, sign_all, inf_all
+    for lanes_ in (1 << 15, 1 << 16):
+        Pw, Qw = proj_points([lanes_]), contig(pj.affine_to_proj(FQ_PLAIN, tiled_affine(lanes_)))
+        if not trees_equal(cuda_g1.padd(Pw, Qw), cuda_g1.padd_plain(Pw, Qw)):
+            raise AssertionError(f"padd at {lanes_} lanes: kernel and plain differ")
+        t_ = measure(lambda: cuda_g1.padd(Pw, Qw), "padd_kernel", 20)
+        sweep.append({"kernel": "padd", "shape": [24, lanes_], "ms": t_["ms"],
+                      "ms_from": t_["ms_from"]})
+    emit({"phase": "tile_sweep", "adds": adds, "rows": sweep, "card": smi})
+    torch.cuda.empty_cache()
 
     # padd at the boundary stage's 2*nb lanes (its widest call on the path;
     # the stitch, triangle and Horner calls run on L down to 1 lanes).
@@ -977,6 +1107,7 @@ def main() -> int:
     reset_counts()
     Pc = ctx1.msm_with_bases(s_mont, bases)         # the main path
     launches_ctx = counts()
+    scans_ctx = scan_counts()
     got_c = g1_ints(Pc)
     secs_c = [tracing.timed_reps(1, lambda: ctx1.msm_with_bases(s_mont, bases))
               for _ in range(3)]
@@ -1004,6 +1135,7 @@ def main() -> int:
     torch.cuda.synchronize()
     batch4_s = time.perf_counter() - t0
     launches_b4 = counts()
+    scans_b4 = scan_counts()
     ok_b = [g1_ints(P_) for P_ in batch4] == singles4 and singles4[0] == expected
     del batch4, sets4
 
@@ -1020,6 +1152,7 @@ def main() -> int:
         torch.cuda.synchronize()
         pieces4_s = time.perf_counter() - t0
         launches_p4 = counts()
+        scans_p4 = scan_counts()
     finally:
         set_budget_mb(None)
     ok_4 = (g1_ints(P4) == expected and geo_4["pieces"] == 4
@@ -1036,19 +1169,23 @@ def main() -> int:
           "budget_mb_4_pieces": mb4,
           "pipeline_points": geo_c["n"],
           **{k: geo_c[k] for k in ("glv", "factor", "w", "T", "L", "R", "nb")},
+          "plan_tail_launches": geo_c["tail_launches"],
           "plan_batch4": {k: geo_b[k] for k in ("pieces", "groups", "per_group",
-                                                "scan_launches")},
+                                                "scan_launches", "tail_launches")},
           "plan_4_pieces": {k: geo_4[k] for k in ("pieces", "per", "L", "R",
-                                                  "scan_launches")},
+                                                  "scan_launches", "tail_launches")},
           "launches": launches_ctx, "launches_batch4": launches_b4,
           "launches_4_pieces": launches_p4, "launches_upload": launches_up,
           "peak_bytes_allocated": peak_c,
           "stages_ms": {k: round(v, 3) for k, v in stages_c.items()}, "card": smi})
     if not (ok_c and ok_b and ok_4):
         raise AssertionError("msm_ctx_2e20: a check failed (see the line above)")
-    for k in ("mont_mul_fr", "pmadd_signed", "padd", "pdbl"):
+    for k in ("mont_mul_fr", "pmadd_signed", "padd", "pdbl", "padd_scan"):
         if launches_ctx[k] < 1:
             raise AssertionError(f"msm_ctx_2e20: {k} never launched on the path")
+    check_tail("msm_ctx_2e20", launches_ctx, geo_c)
+    check_tail("msm_ctx_2e20 batch of 4", launches_b4, geo_b)
+    check_tail("msm_ctx_2e20 in 4 pieces", launches_p4, geo_4)
     if geo_b["groups"] != 1 or launches_b4["pmadd_signed"] != geo_b["scan_launches"]:
         raise AssertionError(f"msm_ctx_2e20: the batch of 4 made "
                              f"{launches_b4['pmadd_signed']} scan launches, the "
@@ -1067,6 +1204,14 @@ def main() -> int:
     scan_row_g1("pmadd_signed[batch4]", "msm_ctx_2e20: msm_batch of 4", geo_b["R"],
                 geo_b["per_group"] * geo_b["L"], launches_b4["pmadd_signed"],
                 batch=geo_b["per_group"])
+    scan_row_g1("pmadd_signed[pieces4]", "msm_ctx_2e20: msm_with_bases in 4 pieces",
+                geo_4["R"], geo_4["L"], launches_p4["pmadd_signed"])
+    torch.cuda.empty_cache()
+    scan_rows("cached", "msm_ctx_2e20: msm_with_bases", scans_ctx,
+              launches_ctx["padd_scan"])
+    scan_rows("batch4", "msm_ctx_2e20: msm_batch of 4", scans_b4, launches_b4["padd_scan"])
+    scan_rows("pieces4", "msm_ctx_2e20: msm_with_bases in 4 pieces", scans_p4,
+              launches_p4["padd_scan"])
     torch.cuda.empty_cache()
     nlc = 2 * geo_c["nb"]
     Alc = tiled_affine(nlc)
@@ -1077,6 +1222,12 @@ def main() -> int:
                lambda: cuda_g1.padd(Plc, Qlc), lambda: cuda_g1.padd_plain(Plc, Qlc),
                9 * 24 * nlc, 0, nlc * 12 * mul_mads(W_FQ), 20,
                n_launches=launches_ctx["padd"], path="msm_ctx_2e20: msm_with_bases")
+    kernel_row("padd[pieces4]", "padd_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:465", [24, nlc],
+               lambda: cuda_g1.padd(Plc, Qlc), lambda: cuda_g1.padd_plain(Plc, Qlc),
+               9 * 24 * nlc, 0, nlc * 12 * mul_mads(W_FQ), 20,
+               n_launches=launches_p4["padd"],
+               path="msm_ctx_2e20: msm_with_bases in 4 pieces")
     del Alc, Plc, Qlc
     expand_cap = 1 << int(os.environ.get("MIDNIGHT_EXPAND_CHUNK_LOG", "20"))
     nup = min(m_up, expand_cap)
@@ -1789,6 +1940,7 @@ def main() -> int:
                             factor=bases4.factor, cached=True)
         P_e, call4_s, launches_e4 = timed(
             lambda: acc.g1.msm_with_bases(s_entry, bases4, scalars_montgomery=False))
+        scans_e4 = scan_counts()
         handle = acc.g1.msm_with_bases_async(s_entry, bases4, scalars_montgomery=False)
         P_async = handle.wait()
         secs4 = [tracing.timed_reps(1, lambda: acc.g1.msm_with_bases(
@@ -1879,6 +2031,7 @@ def main() -> int:
           "peak_bytes_allocated": peak_e, "spans": spans[:12], "card": smi})
     if not entry_ok:
         raise AssertionError("entry: a check failed (see the line above)")
+    check_tail("entry: msm_with_bases, factor 4", launches_e4, geo4)
     if launches_dc:
         raise AssertionError(f"entry: the host route launched kernels: {launches_dc}")
     if not (launches_d16.get("pmadd_signed") and launches_d15.get("pmadd2")):
@@ -1889,6 +2042,8 @@ def main() -> int:
     # the MSM kernels at the factor-4 plan's shapes
     scan_row_g1("pmadd_signed[factor4]", "entry: msm_with_bases, factor 4", geo4["R"],
                 geo4["L"], launches_e4["pmadd_signed"])
+    scan_rows("factor4", "entry: msm_with_bases, factor 4", scans_e4,
+              launches_e4["padd_scan"])
     nl4 = 2 * geo4["nb"]
     Al4 = tiled_affine(nl4)
     Pl4 = contig(pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, Al4)))

@@ -517,3 +517,46 @@ def test_host_compiled_jacobian_kernels_match_the_jax_package(lib, jac_points):
         run()
         for o, w in zip(out, want):
             np.testing.assert_array_equal(o.numpy().astype(np.uint32), np.asarray(w))
+
+
+# -----------------------------------------------------------------------------
+# The carry-chain product (field_carry.cuh) and the lane scan (padd_scan)
+# -----------------------------------------------------------------------------
+
+def test_carry_chain_product(lib):
+    """``fq_mul_cc``'s two chains (as C++ with an explicit carry) against the
+    plain product: 0, 1, p - 1, p - 2, R mod p and the word edges among the
+    lanes, a*b and a*a."""
+    a = _elements(FQ, 31)
+    b = _elements(FQ, 32).flip(1).contiguous()
+    out = torch.empty_like(a)
+    for x, y in ((a, b), (a, a), (b, a)):
+        lib.fq_mont_mul_carry(_ptr(x), _ptr(y), _ptr(out), SZ(N))
+        assert torch.equal(out, cuda_ops.mont_mul_plain(FQ, x, y))
+
+
+@pytest.mark.parametrize("rows,L,run,threads,mode", [
+    (2, 19, 2, 4, dict()),                            # 3 blocks, the last part empty
+    (1, 19, 3, 2, dict(exclusive=True)),
+    (3, 7, 4, 2, dict(reverse=True)),                 # one block
+    (1, 20, 1, 4, dict(reverse=True, exclusive=True)),
+    (2, 1, 4, 1, dict()),                             # L = 1
+    (2, 19, 2, 4, dict(total=True)),
+])
+def test_padd_scan(lib, points, rows, L, run, threads, mode):
+    """The lane scan's serial bodies (the run's fold, the carry-in walk, the
+    carry pass) with the block scans as host loops, against
+    ``padd_scan_plain`` limb for limb: the same association."""
+    P = tuple(c[:, :rows * L].reshape(24, rows, L).contiguous() for c in points["Q"])
+    nblk, threads2, _ = cuda_g1.scan_geometry(L, run, threads)
+    new = lambda *d: [torch.empty((24,) + d, dtype=torch.int32) for _ in range(3)]
+    V, C = new(rows, nblk * threads), new(rows, nblk)
+    total = mode.get("total", False)
+    O, S = ([None] * 3, new(rows)) if total else (new(rows, L), [None] * 3)
+    ptr = lambda t: None if t is None else _ptr(t)
+    lib.g1_padd_scan(*[ptr(t) for t in (*P, *O, *S, *V, *C)], SZ(rows), SZ(L),
+                     ctypes.c_int(run), ctypes.c_int(threads), ctypes.c_int(threads2),
+                     ctypes.c_int(mode.get("reverse", False)),
+                     ctypes.c_int(mode.get("exclusive", False)))
+    want = cuda_g1.padd_scan_plain(P, run=run, threads=threads, **mode)
+    assert all(torch.equal(o, w) for o, w in zip(S if total else O, want))

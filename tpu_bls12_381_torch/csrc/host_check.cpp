@@ -1,5 +1,6 @@
 // Host build of the kernels' lane bodies: the same device code as the CUDA
-// kernels (field.cuh, g1.cuh, g1_jac.cuh, g2.cuh, ntt.cuh), compiled as plain C++ and run in a
+// kernels (field.cuh, field_carry.cuh, g1.cuh, g1_jac.cuh, g2.cuh, ntt.cuh),
+// compiled as plain C++ and run in a
 // loop over the lanes (for the NTT tile: over the blocks, and inside a block
 // over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
 // against the plain PyTorch versions (tests/test_torch_csrc_host.py):
@@ -80,6 +81,12 @@ void fr_ntt_tile(const uint32_t* x, const uint32_t* tw, const uint32_t* w,
     }
 }
 
+// The carry-chain product of field_carry.cuh (its chains as C++).
+void fq_mont_mul_carry(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        fp_store<Fq>(out, n, i, fq_mul_cc(fp_load<Fq>(a, n, i), fp_load<Fq>(b, n, i)));
+}
+
 void fq_add_sub(const uint32_t* a, const uint32_t* b, uint32_t* sum,
                 uint32_t* diff, size_t n) {
     for (size_t i = 0; i < n; ++i) {
@@ -134,6 +141,58 @@ void g1_jadd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
     for (size_t i = 0; i < n; ++i)
         g1_jadd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, i);
+}
+
+// The lane scan's three passes (g1_kernels.cu: padd_scan), block by block,
+// with the shared-memory block scan as a loop over the block's values (the
+// same Hillis-Steele steps: at step s, value t takes value t - s of the step
+// before).  Arguments as g1_kernels.cu's g1_padd_scan.
+static void host_block_scan(std::vector<G1Proj>& v) {
+    for (size_t s = 1; s < v.size(); s <<= 1) {
+        std::vector<G1Proj> before = v;
+        for (size_t t = s; t < v.size(); ++t)
+            v[t] = g1_proj_add(before[t - s], before[t]);
+    }
+}
+
+void g1_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                  uint32_t* OX, uint32_t* OY, uint32_t* OZ,
+                  uint32_t* SX, uint32_t* SY, uint32_t* SZ,
+                  uint32_t* VX, uint32_t* VY, uint32_t* VZ,
+                  uint32_t* CX, uint32_t* CY, uint32_t* CZ,
+                  size_t rows, size_t L, int run, int threads, int threads2,
+                  int reverse, int exclusive) {
+    size_t T = threads, T2 = threads2, n = rows * L;   // n: the walk's planes
+    size_t nblk = (L + (size_t)run * T - 1) / ((size_t)run * T);
+    int run2 = (int)((nblk + T2 - 1) / T2);
+    for (size_t b = 0; b < rows; ++b) {
+        for (size_t k = 0; k < nblk; ++k) {                        // up
+            std::vector<G1Proj> v(T);
+            for (size_t t = 0; t < T; ++t)
+                v[t] = g1_scan_fold_lanes(X, Y, Z, (uint32_t)L, (uint32_t)rows,
+                                          (uint32_t)b, (uint32_t)((k * T + t) * run),
+                                          (uint32_t)run, reverse != 0);
+            host_block_scan(v);
+            for (size_t t = 0; t < T; ++t)
+                g1_store(VX, VY, VZ, rows * nblk * T, (b * nblk + k) * T + t, v[t]);
+        }
+        std::vector<G1Proj> w(T2);                                 // carry
+        for (size_t t = 0; t < T2; ++t)
+            w[t] = g1_scan_fold_totals(VX, VY, VZ, (uint32_t)rows, (uint32_t)nblk,
+                                       (uint32_t)T, (uint32_t)b, (uint32_t)(t * run2),
+                                       (uint32_t)run2);
+        host_block_scan(w);
+        if (SX != nullptr) g1_store(SX, SY, SZ, rows, b, w[T2 - 1]);
+        for (size_t t = 0; t < T2; ++t)
+            g1_scan_carry_walk(t > 0 ? w[t - 1] : g1_identity(), VX, VY, VZ, CX, CY, CZ,
+                               rows, nblk, T, b, t * run2, run2);
+        if (OX == nullptr) continue;
+        for (size_t k = 0; k < nblk; ++k)                          // down
+            for (size_t t = 0; t < T; ++t)
+                g1_scan_walk(g1_scan_carry_in(VX, VY, VZ, CX, CY, CZ, rows, nblk, T, b, k, t),
+                             X, Y, Z, OX, OY, OZ, L, n, b, (k * T + t) * run, run,
+                             reverse != 0, exclusive != 0);
+    }
 }
 
 // Fq2 products, squares and 12(1+u) multiples on (24, 2, n) batches.

@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
 * ``pmadd`` takes the place of ``_pmadd_kernel`` / ``pmadd`` (``:413``,
   ``:495``): algorithm 8 without the sign (``glv.scalar_mul_glv`` calls it);
 * ``padd`` takes the place of ``_padd_kernel`` / ``padd`` (``:465``, ``:507``):
-  RCB16 algorithm 7;
+  RCB16 algorithm 7; ``padd_scan`` is the same addition scanned along the
+  last axis (the MSM tail's lane scans, which the JAX package runs as
+  log2(L) Hillis-Steele steps of ``padd``);
 * ``pdbl`` takes the place of ``_pdbl_kernel`` / ``pdbl`` (``:478``, ``:519``):
   RCB16 algorithm 9;
 * ``madd``, ``jadd`` and ``jdbl`` take the place of the Jacobian kernels
@@ -23,7 +25,8 @@ The kernels are CUDA C++: the projective ones in ``csrc/g1_kernels.cu``
 (formulas in ``csrc/g1_jac.cuh``), field arithmetic in ``csrc/field.cuh``: one
 thread per lane, all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
 launch walks the R rows of a scan tile inside each thread and writes every
-prefix row, where the JAX package launches R times.  On an H100 the integer
+prefix row, where the JAX package launches R times.  ``pmadd_signed``, ``padd``
+and ``padd_scan`` take the carry-chain Fq product of ``csrc/field_carry.cuh``.  On an H100 the integer
 pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
 864 bytes); the many launches on few lanes are bound by launch latency
 (PERF.md has the numbers).
@@ -35,12 +38,14 @@ fallback.  The wrappers copy nothing: coordinates must be contiguous and of
 one shape, masks contiguous, and anything else raises (the ``*_fast`` routers
 of ``curves/projective.py`` and ``curves/points.py`` broadcast and lay out
 for them).  ``LAUNCHES``
-counts kernel launches, and nothing else.
+counts kernel launches, and nothing else; ``SCAN_LAUNCHES`` splits the lane
+scan's by mode and shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -54,7 +59,15 @@ from .field_adapters import FQ_PLAIN
 K = FQ.num_limbs
 
 LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0,
-            "madd": 0, "jadd": 0, "jdbl": 0}
+            "madd": 0, "jadd": 0, "jdbl": 0, "padd_scan": 0}
+# padd_scan's launches by what each call scanned: (mode, shape) -> launches,
+# mode one of scan_mode's names, shape the coordinates' (24, *batch, L).
+SCAN_LAUNCHES = {}
+
+# The lane scan's lanes a thread folds, and its most threads a block
+# (SCAN_MAX_THREADS in csrc/g1_kernels.cu).
+SCAN_RUN = 4
+SCAN_MAX_THREADS = 128
 
 _PTR = ctypes.c_void_p
 _CONFIGURED = False
@@ -64,6 +77,15 @@ _JAC_CONFIGURED = False
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SCAN_LAUNCHES.clear()
+
+
+def scan_mode(reverse=False, exclusive=False, total=False) -> str:
+    """A lane scan's mode by name: "total", or prefix/suffix and
+    inclusive/exclusive ("prefix exclusive", ...)."""
+    if total:
+        return "total"
+    return f"{'suffix' if reverse else 'prefix'} {'exclusive' if exclusive else 'inclusive'}"
 
 
 def _lib():
@@ -73,11 +95,13 @@ def _lib():
         lib.g1_pmadd_signed.argtypes = (
             [_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 5
             + [ctypes.c_longlong, ctypes.c_int, _PTR])
+        lib.g1_padd_scan.argtypes = (
+            [_PTR] * 15 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [_PTR])
         lib.g1_pmadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_padd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_pdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, _PTR]
         for fn in (lib.g1_pmadd_signed, lib.g1_pmadd, lib.g1_padd,
-                   lib.g1_pdbl):
+                   lib.g1_pdbl, lib.g1_padd_scan):
             fn.restype = ctypes.c_int
         _CONFIGURED = True
     return lib
@@ -120,6 +144,100 @@ def padd_plain(P, Q):
 
 def pdbl_plain(P):
     return pj.proj_double(FQ_PLAIN, P)
+
+
+def scan_threads(L: int, run: int = SCAN_RUN) -> int:
+    """Threads a block of the lane scan for L lanes at ``run`` a thread: a
+    power of two, as few as hold the lanes, at most SCAN_MAX_THREADS."""
+    need = -(-L // run)
+    return min(SCAN_MAX_THREADS, 1 << max(need - 1, 0).bit_length())
+
+
+def scan_geometry(L: int, run: int, threads: int):
+    """(blocks a row, threads of the carry pass, its run) of the lane scan."""
+    nblk = -(-L // (run * threads))
+    threads2 = min(SCAN_MAX_THREADS, 1 << max(nblk - 1, 0).bit_length())
+    return nblk, threads2, -(-nblk // threads2)
+
+
+def _lanes(P, idx):
+    return tuple(c[..., idx] for c in P)
+
+
+def _fold(P, valid):
+    """Fold the last axis from its first slot, ((p0 + p1) + p2) + ..., over
+    the slots ``valid`` (a mask of them) keeps; a fold of none is the
+    identity."""
+    ident = _identity_like(P, 1)
+    acc = pj.proj_cmov(FQ_PLAIN, valid[..., 0], _lanes(P, 0),
+                       tuple(c[..., 0] for c in ident))
+    for j in range(1, P[0].shape[-1]):
+        acc = pj.proj_cmov(FQ_PLAIN, valid[..., j], padd_plain(acc, _lanes(P, j)), acc)
+    return acc
+
+
+def _block_scan(P):
+    """Inclusive Hillis-Steele scan along the last axis: at step s, slot t
+    takes (slot t - s) + (slot t) of the step before."""
+    T = P[0].shape[-1]
+    s = 1
+    while s < T:
+        head = padd_plain(_lanes(P, slice(0, T - s)), _lanes(P, slice(s, T)))
+        P = tuple(torch.cat([c[..., :s], h], dim=-1) for c, h in zip(P, head))
+        s <<= 1
+    return P
+
+
+def _walk(acc, P, exclusive: bool):
+    """From ``acc``, add the last axis's slots in order; every slot's sum
+    (before its add where ``exclusive``) stacked on the last axis."""
+    outs = []
+    for j in range(P[0].shape[-1]):
+        nxt = padd_plain(acc, _lanes(P, j))
+        outs.append(acc if exclusive else nxt)
+        acc = nxt
+    return tuple(torch.stack([o[c] for o in outs], dim=-1) for c in range(3))
+
+
+def _identity_like(P, lanes: int):
+    return pj.proj_identity(FQ_PLAIN, tuple(P[0].shape[1:-1]) + (lanes,),
+                            P[0].device)
+
+
+def _pad_last(P, length: int):
+    pad = length - P[0].shape[-1]
+    if pad == 0:
+        return P
+    return tuple(torch.cat([c, i], dim=-1)
+                 for c, i in zip(P, _identity_like(P, pad)))
+
+
+def padd_scan_plain(P, *, reverse=False, exclusive=False, total=False,
+                    run=SCAN_RUN, threads=None):
+    """The lane scan of ``padd_scan`` in the kernel's association: the same
+    runs, blocks and carries (``csrc/g1.cuh``), over plain additions."""
+    L = P[0].shape[-1]
+    threads = threads or scan_threads(L, run)
+    nblk, threads2, run2 = scan_geometry(L, run, threads)
+    x = tuple(c.flip(-1) for c in P) if reverse else P
+    x = _pad_last(x, nblk * threads * run)
+    x = tuple(c.unflatten(-1, (nblk, threads, run)) for c in x)
+    lane = torch.arange(nblk * threads * run, device=P[0].device)
+    v = _block_scan(_fold(x, (lane < L).reshape(nblk, threads, run)))   # up: (.., nblk, T)
+    tot = _pad_last(_lanes(v, threads - 1), threads2 * run2)   # carry
+    tot = tuple(c.unflatten(-1, (threads2, run2)) for c in tot)
+    block = torch.arange(threads2 * run2, device=P[0].device)
+    w = _block_scan(_fold(tot, (block < nblk).reshape(threads2, run2)))
+    if total:
+        return _lanes(w, threads2 - 1)
+    before = lambda T: tuple(torch.cat([i, c[..., :-1]], dim=-1)
+                             for i, c in zip(_identity_like(T, 1), T))
+    carry = tuple(c.flatten(-2)[..., :nblk] for c in _walk(before(w), tot, True))
+    v_before = before(v)
+    cin = padd_plain(tuple(c.unsqueeze(-1).expand(t.shape).contiguous()
+                           for c, t in zip(carry, v_before)), v_before)
+    out = tuple(c.flatten(-3)[..., :L] for c in _walk(cin, x, exclusive))
+    return tuple((c.flip(-1) if reverse else c).contiguous() for c in out)
 
 
 def madd_plain(P, A):
@@ -274,6 +392,54 @@ def padd(P, Q):
             P[0].numel() // K, stream_ptr(dev))
     check_launch(code, "g1_padd")
     LAUNCHES["padd"] += 1
+    return tuple(out)
+
+
+def padd_scan(P, *, reverse=False, exclusive=False, total=False,
+              run=SCAN_RUN, threads=None):
+    """Scan of complete projective additions along the last axis.
+
+    ``P``: coordinates (24, *batch, L), the batch rows independent.  Prefix
+    sums, or suffix sums with ``reverse``; inclusive, or exclusive (slot i
+    without lane i itself, the first slot the identity).  ``total``: only the
+    row sums, coordinates (24, *batch).  ``run`` lanes a thread, ``threads``
+    a block (None: ``scan_threads``).  Results are the sums by value; their
+    limbs are those of ``padd_scan_plain`` with the same run and threads.
+    Three launches (two for a total), whatever L is.
+    """
+    _check_coords(list(P), "padd_scan")
+    shape = tuple(P[0].shape)
+    if len(shape) < 2 or shape[-1] < 1:
+        raise ValueError(f"padd_scan: need (24, *batch, L) with L >= 1, got {shape}")
+    L = shape[-1]
+    rows = math.prod(shape[1:-1])
+    threads = threads or scan_threads(L, run)
+    if run < 1 or threads & (threads - 1) or not 1 <= threads <= SCAN_MAX_THREADS:
+        raise ValueError(f"padd_scan: run {run} must be >= 1 and threads {threads} "
+                         f"a power of two up to {SCAN_MAX_THREADS}")
+    if not P[0].is_cuda:
+        return padd_scan_plain(P, reverse=reverse, exclusive=exclusive, total=total,
+                               run=run, threads=threads)
+    nblk, threads2, _ = scan_geometry(L, run, threads)
+    if rows > 65535 or rows * nblk * threads * run >= 1 << 31:
+        raise ValueError(f"padd_scan: {rows} rows of {L} lanes, the kernel takes at "
+                         f"most 65535 rows and 2^31 lanes")
+    dev = P[0].device
+    new = lambda *dims: [torch.empty((K,) + dims, dtype=torch.int32, device=dev)
+                         for _ in range(3)]
+    V, C = new(rows, nblk * threads), new(rows, nblk)
+    out = new(*shape[1:-1]) if total else [torch.empty_like(P[0]) for _ in range(3)]
+    O, S = ([None] * 3, out) if total else (out, [None] * 3)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = _lib().g1_padd_scan(
+            *[ptr(t) for t in (*P, *O, *S, *V, *C)], rows, L, run, threads,
+            threads2, int(reverse), int(exclusive), stream_ptr(dev))
+    check_launch(code, "g1_padd_scan")
+    n = 2 if total else 3
+    LAUNCHES["padd_scan"] += n
+    key = (scan_mode(reverse, exclusive, total), shape)
+    SCAN_LAUNCHES[key] = SCAN_LAUNCHES.get(key, 0) + n
     return tuple(out)
 
 

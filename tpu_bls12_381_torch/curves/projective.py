@@ -23,7 +23,9 @@ adapter's layout (``(24, *batch)`` for Fq, ``(24, 2, *batch)`` for Fq2, see
 The plain functions here are also the plain versions of the fused CUDA
 kernels in ``curves/cuda_g1.py`` and ``curves/cuda_g2.py``; the ``*_fast``
 routers send CUDA tensors to those kernels and CPU tensors to the plain
-functions.
+functions.  The lane scans (``proj_lane_scan``) are the MSM tail's: the JAX
+package's Hillis-Steele steps, except for G1 on the card, where one scan
+kernel takes them (``proj_lane_scan_fast``, ``proj_lane_sum_fast``).
 """
 
 from __future__ import annotations
@@ -253,6 +255,29 @@ def proj_double(F, P):
     return (X3, Y3, st.at(prod, 1))
 
 
+def _lane_shift(F, P, d: int, toward_end: bool):
+    """Shift a lane-batched point by d along the last axis, toward its end
+    (slot l takes slot l - d) or its start, the vacated slots the identity
+    (roll + mask)."""
+    L = P[0].shape[-1]
+    idx = torch.arange(L, device=P[0].device)
+    ident = proj_identity(F, F.batch_shape(P[0]), P[0].device)
+    rolled = tuple(torch.roll(c, d if toward_end else -d, dims=-1) for c in P)
+    mask = idx >= d if toward_end else idx < (L - d)
+    return proj_cmov(F, mask, rolled, ident)
+
+
+def proj_lane_scan(F, P, *, reverse: bool = False, exclusive: bool = False):
+    """Prefix (suffix: ``reverse``) point sums along the last axis, inclusive
+    or exclusive, by Hillis-Steele steps: log2 L additions over all lanes.
+    The JAX package's lane scans (its ``msm/pippenger.py``) in its order."""
+    L = P[0].shape[-1]
+    acc = P
+    for i in range(max(L - 1, 1).bit_length() if L > 1 else 0):
+        acc = proj_add_fast(F, acc, _lane_shift(F, acc, 1 << i, not reverse))
+    return _lane_shift(F, acc, 1, not reverse) if exclusive else acc
+
+
 def proj_scan_rows(F, x_rows, y_rows, sign_rows, inf_rows):
     """Row scan by R signed mixed adds from the identity: coordinates
     (R, *elem, *lanes), masks (R, *lanes); returns the R inclusive prefix
@@ -337,6 +362,39 @@ def proj_scan_rows_fast(F, x_rows, y_rows, sign_rows, inf_rows):
         return proj_scan_rows(F, x_rows, y_rows, sign_rows, inf_rows)
     return mod.pmadd_signed_rows(x_rows, y_rows, sign_rows.contiguous(),
                                  inf_rows.contiguous())
+
+
+def lane_scan_kernel(F, device):
+    """The lane-scan wrapper that serves adapter ``F`` on ``device``
+    (``cuda_g1.padd_scan``: G1 on the card), else None (the Hillis-Steele
+    steps).  The routers below and ``msm_geometry``'s launch plan both ask it."""
+    if torch.device(device).type != "cuda" or F is not FQ_ADAPTER:
+        return None
+    from . import cuda_g1
+
+    return cuda_g1.padd_scan
+
+
+def proj_lane_scan_fast(F, P, *, reverse: bool = False, exclusive: bool = False):
+    """``proj_lane_scan`` by value: a G1 point tensor on the card goes to the
+    scan kernel (``cuda_g1.padd_scan``, some 2L additions in 3 launches, in
+    another association, so other limbs), anything else to the Hillis-Steele
+    steps in the JAX package's order."""
+    scan = lane_scan_kernel(F, P[0].device)
+    if scan is None:
+        return proj_lane_scan(F, P, reverse=reverse, exclusive=exclusive)
+    c, _ = _laid_out(list(P), F=F)
+    return scan(tuple(c), reverse=reverse, exclusive=exclusive)
+
+
+def proj_lane_sum_fast(F, P):
+    """Point sum along the last axis: on the card for G1 the scan kernel's
+    total (2 launches), else slot 0 of the Hillis-Steele suffix scan."""
+    scan = lane_scan_kernel(F, P[0].device)
+    if scan is None:
+        return tuple(c[..., 0] for c in proj_lane_scan(F, P, reverse=True))
+    c, _ = _laid_out(list(P), F=F)
+    return scan(tuple(c), total=True)
 
 
 def proj_double_fast(F, P):

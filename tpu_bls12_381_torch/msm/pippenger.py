@@ -15,8 +15,8 @@ scalar distribution:
    element-major point table).
 3. **Prefix-sum bucket extraction**: the sorted points are laid column-major
    into an (R, L) tile; one scan down the R rows (the hot loop, N signed mixed
-   adds in all) gives per-column inclusive prefix sums; a log2(L) lane scan
-   stitches the column carries.  Because the curve is a group, each bucket
+   adds in all) gives per-column inclusive prefix sums; a lane scan stitches
+   the column carries.  Because the curve is a group, each bucket
    sum is S[end_b] - S[start_b - 1].
 4. **Weighted triangle reduction** sum_b b * bucket_b by suffix scans over an
    (Rb, Lb) bucket tile.
@@ -38,8 +38,11 @@ On CUDA tensors the group-law calls (the scan's signed mixed adds, ``g_add``,
 ``curves/cuda_g1.py``, ``curves/cuda_g2.py`` and ``fields/cuda_ops.py``; sort,
 gather, searchsorted, rolls and selects are plain PyTorch.  The scan is ONE
 launch per window: each thread owns a column and walks its R rows.  The
-stitch, boundary, triangle and Horner stages call the add and the doubling
-many times on few lanes; that part is bound by launch latency and is left so.
+tail's lane scans (stitch, triangle) are, for G1 on the card, the scan kernel
+``padd_scan`` (``projective.proj_lane_scan_fast``: 12 launches a window); on
+the CPU and for G2 they are the JAX package's Hillis-Steele steps.  The
+boundary, the triangle combine and Horner call the add and the doubling on
+few lanes; that part is bound by launch latency.
 
 Not ported: ``msm_chunked`` and ``msm_traceable`` (the JAX package's
 pmap/trace forms).
@@ -76,6 +79,13 @@ GLV_HALF_BITS_STATIC = 128
 
 _KEY_DTYPE = torch.int64
 
+# A window's tail on the card for G1: the stitch (a scan, 3 launches), the
+# triangle's column and row sums (totals, 2 each), its suffix scan (3) and
+# the sum of that (2); two adds at the boundary, one in the weighted sum,
+# two in the combine.
+TAIL_SCAN_LAUNCHES = 12
+TAIL_ADDS = 5
+
 
 def window_bits_for(n: int, F=None, device=None) -> int:
     """Window size heuristic: push w as high as the profile's cap allows
@@ -103,13 +113,20 @@ def triangle_lb(nb: int) -> int:
 def lane_tile_for(n: int, F=None, device=None) -> int:
     """Lane width L for the bucket-accumulation tile (R = ceil(n/L) rows).
 
-    The row scan is R dependent mixed adds per lane, the column stitch is
-    log2(L) lane adds: L ~ sqrt(256 n), within the profile's cap."""
+    The row scan is R dependent mixed adds per lane, the column stitch a lane
+    scan: L ~ sqrt(256 n), within the profile's cap.  G1 takes at least
+    2^msm_g1_lane_tile_log_min lanes while that leaves 16 rows: on the card
+    the scan needs that many lanes in flight, and its stitch costs some 2L
+    adds, not L log2 L."""
     ln = max(4, n).bit_length() - 1
-    cap = chip_profile(device).msm_lane_tile_log_cap
+    prof = chip_profile(device)
+    lo, cap = 3, prof.msm_lane_tile_log_cap
     if F is not None and getattr(F, "limb_planes", 1) > 1:
         cap -= 1
-    return 1 << int(np.clip((ln + 8) // 2, 3, cap))
+    else:
+        lo = max(lo, min(prof.msm_g1_lane_tile_log_min, ln - 4))
+        cap = max(cap, lo)
+    return 1 << int(np.clip((ln + 8) // 2, lo, cap))
 
 
 def num_windows(w: int, num_bits: int = FR_BITS) -> int:
@@ -203,48 +220,6 @@ def _coord_rows(F, t, off: int):
     return t[:, off:off + _coord_planes(F)].unflatten(1, F.elem_shape)
 
 
-def _shift_dyn(F, P, d: int, direction: str):
-    """Shift a lane-batched point by d along the last axis, filling vacated
-    slots with the identity (roll + mask)."""
-    L = P[0].shape[-1]
-    idx = torch.arange(L, device=P[0].device)
-    ident = g_identity(F, F.batch_shape(P[0]), P[0].device)
-    if direction == "right":  # element l takes value from l-d
-        rolled = tuple(torch.roll(c, d, dims=-1) for c in P)
-        mask = idx >= d
-    else:  # element l takes value from l+d
-        rolled = tuple(torch.roll(c, -d, dims=-1) for c in P)
-        mask = idx < (L - d)
-    return g_cmov(F, mask, rolled, ident)
-
-
-def _scan_steps(L: int) -> int:
-    return max(L - 1, 1).bit_length() if L > 1 else 0
-
-
-def _lane_prefix_exclusive(F, P):
-    """Exclusive prefix point-sums along the last axis (Hillis-Steele)."""
-    L = P[0].shape[-1]
-    acc = P
-    for i in range(_scan_steps(L)):
-        acc = g_add(F, acc, _shift_dyn(F, acc, 1 << i, "right"))
-    return _shift_dyn(F, acc, 1, "right")
-
-
-def _lane_suffix_inclusive(F, P):
-    L = P[0].shape[-1]
-    acc = P
-    for i in range(_scan_steps(L)):
-        acc = g_add(F, acc, _shift_dyn(F, acc, 1 << i, "left"))
-    return acc
-
-
-def _sum_last_axis(F, P):
-    """Point sum along the last axis (suffix scan, take slot 0)."""
-    S = _lane_suffix_inclusive(F, P)
-    return tuple(c[..., 0] for c in S)
-
-
 def _indexed_axes_last(t, k: int):
     """Move the first k axes of ``t`` behind the others (the axes an indexed
     gather puts in front go back to where the batch axes belong)."""
@@ -252,13 +227,13 @@ def _indexed_axes_last(t, k: int):
 
 
 def _weighted_index_sum(F, P):
-    """sum_j j * P[j] over the last axis via suffix sums (log depth).
+    """sum_j j * P[j] over the last axis via suffix sums.
 
     sum_j j*P_j = sum_{k>=1} S_k where S_k = sum_{j>=k} P_j.
     Returns (weighted_sum, plain_sum): the plain sum (= S_0) falls out free.
     """
-    S = _lane_suffix_inclusive(F, P)
-    total_tail = _sum_last_axis(F, S)  # sum_k S_k  (k >= 0)
+    S = pj.proj_lane_scan_fast(F, P, reverse=True)
+    total_tail = pj.proj_lane_sum_fast(F, S)  # sum_k S_k  (k >= 0)
     S0 = tuple(c[..., 0] for c in S)
     return g_add(F, total_tail, g_neg(F, S0)), S0
 
@@ -347,8 +322,8 @@ def _stage_scan(F, x_rows, y_rows, sign_rows, inf_rows):
 
 
 def _stage_stitch(F, col_total):
-    """Exclusive prefix point-sums of column totals (log-depth lane scan)."""
-    return _lane_prefix_exclusive(F, col_total)
+    """Exclusive prefix point-sums of column totals (one lane scan)."""
+    return pj.proj_lane_scan_fast(F, col_total, exclusive=True)
 
 
 def _boundary_core(F, key_sorted, col_carry, nb: int, prefix_rows):
@@ -404,8 +379,8 @@ def _stage_triangle_scans(F, buckets, nb: int):
 
     # Col_l = sum_r P[r,l]; Row_r = sum_l P[r,l]
     ct = tuple(c.transpose(-1, -2) for c in tiled)  # (K, Lb, Rb)
-    col_l = _sum_last_axis(F, ct)        # (K, Lb)
-    row_sum = _sum_last_axis(F, tiled)   # (K, Rb)
+    col_l = pj.proj_lane_sum_fast(F, ct)        # (K, Lb)
+    row_sum = pj.proj_lane_sum_fast(F, tiled)   # (K, Rb)
     # pad rows to Lb lanes and batch both weighted sums in one pass
     if Lb > Rb:
         lead = F.batch_shape(buckets[0])[:-1]     # () or (B,)
@@ -603,7 +578,11 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     ``per`` points each (counted along the axis that is sliced), ``groups``
     sequential batch groups of ``per_group`` scalar sets, and
     ``scan_launches``, the scan launches of the whole call (one a window, a
-    piece and a group).
+    piece and a group), and ``tail_launches``: where the lane scans take the
+    scan kernel (``projective.lane_scan_kernel``: G1 on the card), the
+    ``padd_scan`` and ``padd`` launches of the call (a window's tail makes 12
+    scan launches and 5 adds; each piece after the first of a group adds its
+    window sums in once; Horner adds T - 1 times), else None.
     """
     from ..device import resolve_device
 
@@ -661,10 +640,15 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
             per_group = -(-batch // groups)
             groups = -(-batch // per_group)
         n_run = per * factor
+    runs = T * pieces * groups
+    tail = None
+    if pj.lane_scan_kernel(F, device) is not None:
+        tail = {"padd_scan": TAIL_SCAN_LAUNCHES * runs,
+                "padd": TAIL_ADDS * runs + groups * (pieces - 1) + T - 1}
     return {"glv": glv, "T": T, **_tile_plan(F, n_run, w, device),
             "factor": factor, "batch": batch, "pieces": pieces, "per": per,
             "groups": groups, "per_group": per_group,
-            "scan_launches": T * pieces * groups,
+            "scan_launches": runs, "tail_launches": tail,
             "budget_bytes": budget, "bytes_per_point": bpp}
 
 
