@@ -5,7 +5,10 @@
 
 Builds the CUDA kernels from ``tpu_bls12_381_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (integer arithmetic, canonical
-results: the tolerance is zero, ``torch.equal``), runs the golden n = 4096 G1
+results: the tolerance is zero, ``torch.equal``; the doubling chain ``pdbl``
+at every count a path gives it, the batch inversion's three kernels at 2^16
+with zeros planted), sweeps the chains at the paths' widths (``chain_sweep``:
+one doubling on 2^20 lanes, the batch inversion's columns), runs the golden n = 4096 G1
 MSM vector with GLV off and on, and drives the ported paths once each at
 full width: ``msm_g1`` on 2^20 points, checked against one host scalar
 multiplication, its tail's launches against the plan, then the tail's lane
@@ -36,6 +39,14 @@ each kernel at each shape a driven path gives it (``path`` names the path,
 the kernel's own time on the card, read from a ``torch.profiler`` trace of
 the timed launches; ``call_ms`` beside it is what one wrapper call costs
 back to back (host checks, allocation and launch included), by CUDA events.
+A ``pdbl`` row carries its chain's ``times`` (its bound counts that many
+doublings, the bytes once); a ``batch_inverse`` row its three phases' ms
+and the whole call's seconds beside those of the launch-a-step route that
+the kernels replace (``vecops.batch_inverse_loop`` on the field kernels).
+Every MSM path's ``pdbl`` launches and doublings are asserted against its
+plan (``doubling_chains``, and the launches by chain length), an upload's
+against its slices and factor, and a batch inversion's against its three
+kernels.
 ``bound_ms`` counts the bytes the function needs (2 for a 16-bit limb);
 ``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in; for
 ``madd`` and ``jadd``, whose every lane also computes a doubling that only
@@ -143,6 +154,32 @@ def measure(fn, symbol: str, reps: int) -> dict:
                 "other_launches": sum(e.count for e in events) - count}
     return {"ms": call_ms, "ms_from": "events", "call_ms": call_ms,
             "traced_launches": 0, "other_launches": 0}
+
+
+def ms_by_kernel(fn, symbols, reps: int) -> dict:
+    """Mean device milliseconds of one launch of the kernel whose name holds
+    each of ``symbols`` (a profiler trace of ``reps`` calls of ``fn``, which
+    launches each once, after a warm one); "not measured" where the trace
+    holds none of its launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    out = {}
+    for s in symbols:
+        own = [e for e in events if s in e.key]
+        count = sum(e.count for e in own)
+        out[s] = (sum(e.self_device_time_total for e in own) / 1e3 / count if count
+                  else "not measured")
+    return out
 
 
 def mul_mads(words: int) -> int:
@@ -331,10 +368,18 @@ def main() -> int:
             mod.reset_launches()
 
     def counts():
+        """Launches by kernel since the counts were set to 0, and
+        ``pdbl_doublings``, the doublings of those ``pdbl`` launches."""
         out = {}
         for mod in modules:
             out.update(mod.LAUNCHES)
+        out["pdbl_doublings"] = sum(t * k for t, k in cuda_g1.CHAIN_LAUNCHES.items())
         return out
+
+    def chain_counts():
+        """``pdbl``'s launches since the counts were set to 0, by the
+        doublings each made: times -> launches."""
+        return dict(cuda_g1.CHAIN_LAUNCHES)
 
     def set_budget_mb(mb):
         """What MIDNIGHT_MSM_HBM_BUDGET_MB would say, for the calls that follow."""
@@ -348,14 +393,42 @@ def main() -> int:
         mode and shape of each call."""
         return dict(cuda_g1.SCAN_LAUNCHES)
 
-    def check_tail(what, launches_, plan):
+    def check_tail(what, launches_, plan, chains_):
         """The tail's lane scans and adds of one call are the plan's: every
         G1 lane scan went through ``padd_scan``, no Hillis-Steele step is
-        left (each would be one more ``padd``)."""
+        left (each would be one more ``padd``); and every chain of doublings
+        (a window's triangle combine of lb_bits, a Horner step of w) was one
+        ``pdbl`` launch with the chain's doublings: ``chains_``, the call's
+        ``chain_counts()``, is the plan's split."""
         got = {k: launches_.get(k, 0) for k in plan["tail_launches"]}
         if got != plan["tail_launches"]:
             raise AssertionError(f"{what}: tail launches {got}, the plan has "
                                  f"{plan['tail_launches']}")
+        chains = (launches_.get("pdbl", 0), launches_.get("pdbl_doublings", 0))
+        if chains != (plan["doubling_chains"], plan["doublings"]):
+            raise AssertionError(f"{what}: {chains[0]} pdbl launches for {chains[1]} "
+                                 f"doublings, the plan has {plan['doubling_chains']} "
+                                 f"chains of {plan['doublings']}")
+        want = {}
+        for k, d in ((plan["scan_launches"], plan["lb_bits"]), (plan["T"] - 1, plan["w"])):
+            if k > 0 and d > 0:
+                want[d] = want.get(d, 0) + k
+        if chains_ != want or sum(chains_.values()) != launches_.get("pdbl", 0):
+            raise AssertionError(f"{what}: pdbl launches by doublings {chains_}, the "
+                                 f"plan has {want}")
+
+    def check_upload(what, launches_, slices, factor, span):
+        """An upload of ``slices`` point slices at ``factor``: one ``pdbl``
+        launch of ``span`` doublings and one batch inversion (3 launches, no
+        ``mont_sqr``) a slice and a block past the first."""
+        chains = slices * (factor - 1)
+        got = (launches_.get("pdbl", 0), launches_.get("pdbl_doublings", 0),
+               launches_.get("batch_inverse_fq", 0), launches_.get("mont_sqr_fq", 0))
+        if got != (chains, chains * span, 3 * chains, 0):
+            raise AssertionError(
+                f"{what}: (pdbl, doublings, batch_inverse_fq, mont_sqr_fq) launches "
+                f"{got}, an upload of {slices} slices at factor {factor} makes "
+                f"{(chains, chains * span, 3 * chains, 0)}")
 
     # ----------------------------------------------------------------- kernels
     N = 1 << 16
@@ -509,6 +582,29 @@ def main() -> int:
     check("pdbl", "pdbl_kernel", N, cuda_g1.pdbl(P), cuda_g1.pdbl_plain(P),
           lambda: cuda_g1.pdbl(P), lambda: cuda_g1.pdbl_plain(P),
           lambda: cuda_g1.LAUNCHES["pdbl"])
+    # The doubling chain at each count a path gives it (the triangle's 7,
+    # Horner's 15, the factor-4 and factor-2 uploads' 48 and 80 on 2^20
+    # lanes), on the same lanes: torch.equal to as many plain doublings.
+    pdbl_equal = {}
+    for times in (7, 15, 48, 80):
+        got = cuda_g1.pdbl(P, times)
+        torch.cuda.synchronize()
+        pdbl_equal[times] = trees_equal(got, cuda_g1.pdbl_plain(P, times))
+        if not pdbl_equal[times]:
+            raise AssertionError(f"pdbl times={times}: kernel and plain version differ")
+        if not bool(ops.is_zero(FQ, got[2][:, [0, 4]]).all()):
+            raise AssertionError(f"pdbl times={times}: 2^k * identity is not the identity")
+    emit({"phase": "kernels", "name": "pdbl chains", "N": N, "equal": pdbl_equal})
+
+    def chain_equal(times):
+        """``pdbl(P, times)`` equals ``pdbl_plain(P, times)`` on the 2^16 edge
+        lanes (checked once a count)."""
+        if times not in pdbl_equal:
+            pdbl_equal[times] = trees_equal(cuda_g1.pdbl(P_edge, times),
+                                            cuda_g1.pdbl_plain(P_edge, times))
+            if not pdbl_equal[times]:
+                raise AssertionError(f"pdbl times={times}: kernel and plain version differ")
+        return pdbl_equal[times]
 
     # Signed mixed add, elementwise (R = 1, accumulator passed in).
     Pm = [c.clone() for c in P]
@@ -574,6 +670,7 @@ def main() -> int:
           lambda: cuda_g1.padd_scan(Ps, exclusive=True),
           lambda: cuda_g1.padd_scan_plain(Ps, exclusive=True),
           lambda: cuda_g1.LAUNCHES["padd_scan"], reps=3)
+    P_edge = P                             # the chains' edge lanes, for the rows below
     del P, Q, Pm, A, Ai, Aproj, tile, xr, yr, got, want, negP, ident, Ps, Po
 
     # The same edge lanes over Fq2, coordinates (24, 2, N).  Lanes 10..12 of
@@ -658,6 +755,58 @@ def main() -> int:
           lambda: cuda_g1.jdbl(Pj), lambda: cuda_g1.jdbl_plain(Pj),
           lambda: cuda_g1.LAUNCHES["jdbl"])
     del Pj, Qj, Aj, got
+
+    # Montgomery's batch inversion (three kernels) against the plain loop, with
+    # zeros planted (among them lane 0, and the last lane), at 2^16 (a tile of
+    # R x L = 4 x 2^14 on the card's profile) and at 2^16 - 3 (the last row
+    # padded with ones).
+    binv_equal = {}
+    for spec, sfx in ((FR, "fr"), (FQ, "fq")):
+        xb = rand_field(spec, N)
+        xb[:, [0, 5, 4097, N - 1]] = 0
+        for n_ in (N, N - 3):
+            xn = xb[:, :n_].contiguous()
+            got = vecops.batch_inverse(spec, xn)
+            torch.cuda.synchronize()
+            binv_equal[f"{sfx} {n_}"] = torch.equal(got, vecops.batch_inverse_plain(spec, xn))
+            if not binv_equal[f"{sfx} {n_}"]:
+                raise AssertionError(f"batch_inverse {sfx} at {n_}: kernels and plain differ")
+        check(f"batch_inverse_{sfx}", "binv_", N, [vecops.batch_inverse(spec, xb)],
+              [vecops.batch_inverse_plain(spec, xb)],
+              lambda: vecops.batch_inverse(spec, xb),
+              lambda: vecops.batch_inverse_plain(spec, xb),
+              lambda: cuda_ops.LAUNCHES[f"batch_inverse_{sfx}"])
+    emit({"phase": "kernels", "name": "batch_inverse", "equal": binv_equal})
+    del xb, xn, got
+
+    # The chains' sweep at the paths' widths: one doubling on the upload's
+    # 2^20 lanes (the pdbl[upload] row has its 80), and the batch
+    # inversion's columns L on the upload's (24, 2^20) and the vecops
+    # phase's (16, 2^22).  Kernel times from the trace; every tile against
+    # the first.
+    chain_sweep = []
+    Pu = contig(pj.affine_to_proj(FQ_PLAIN, tiled_affine(1 << LOG_N)))
+    t_ = measure(lambda: cuda_g1.pdbl(Pu, 1), "pdbl_kernel", 5)
+    chain_sweep.append({"kernel": "pdbl", "shape": [24, 1 << LOG_N], "times": 1,
+                        "ms": t_["ms"], "ms_from": t_["ms_from"]})
+    del Pu
+    phases = ("binv_prefix", "binv_columns", "binv_unwind")
+    for spec, log_n in ((FQ, LOG_N), (FR, NTT_LOG_N)):
+        xs_ = rand_field(spec, 1 << log_n)
+        ref = None
+        for log_l in (12, 13, 14, 15, 16):
+            out_ = cuda_ops.batch_inverse(spec, xs_, 1 << log_l)
+            ref = out_ if ref is None else ref
+            same = torch.equal(out_, ref)
+            ph = ms_by_kernel(lambda: cuda_ops.batch_inverse(spec, xs_, 1 << log_l), phases, 3)
+            chain_sweep.append({"kernel": "batch_inverse", "shape": [spec.num_limbs, 1 << log_n],
+                                "L": 1 << log_l, "R": -(-(1 << log_n) >> log_l),
+                                "phase_ms": ph, "equal": same})
+            if not same:
+                raise AssertionError(f"batch_inverse at L = 2^{log_l}: the tiles differ")
+        del xs_, ref, out_
+    torch.cuda.empty_cache()
+    emit({"phase": "chain_sweep", "rows": chain_sweep, "card": smi})
     if args.upto == "kernels":
         return stop_early()
 
@@ -729,6 +878,7 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = counts()
     scans = scan_counts()
+    chains = chain_counts()
     peak = torch.cuda.max_memory_allocated()
     got = g1.jacobian_to_ints(tuple(c[:, None] for c in Pj))[0]
     ok = got == expected and all(tuple(c.shape) == (24,) for c in Pj)
@@ -745,7 +895,8 @@ def main() -> int:
           "g1_msm_2e20_points_per_s": n / med, "seconds_median_of_3": med,
           "seconds_each": secs, "seconds_first_call": first_s,
           **{k: geo[k] for k in ("glv", "w", "T", "L", "R", "nb", "tail_launches")},
-          "launches": launches, "peak_bytes_allocated": peak,
+          "launches": launches, "pdbl_launches_by_doublings": chains,
+          "peak_bytes_allocated": peak,
           "stages_ms": {k: round(v, 3) for k, v in stages.items()},
           "host_points_seconds": round(host_points_s, 2), "card": smi})
     if not ok:
@@ -759,7 +910,7 @@ def main() -> int:
         raise AssertionError(
             f"msm_2e20: {launches['pmadd_signed']} scan launches, the plan has "
             f"{geo['T']} windows")
-    check_tail("msm_2e20", launches, geo)
+    check_tail("msm_2e20", launches, geo, chains)
     if args.profile:
         # Kernel times come from the trace; the wall time does not (tracing
         # slows the host), so the busy share is taken against the untraced
@@ -830,6 +981,52 @@ def main() -> int:
 
     FIELD_SRC = "tpu_bls12_381_torch/csrc/field_kernels.cu"
     G1_SRC = "tpu_bls12_381_torch/csrc/g1_kernels.cu"
+    BINV_SRC = "tpu_bls12_381_torch/csrc/batch_inverse.cu"
+    dbl_mads = 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ)     # one doubling, 6M + 2S
+
+    def seconds_median(fn, reps=3):
+        """Median host seconds of ``fn()`` to a synchronised end."""
+        fn()
+        each = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            each.append(time.perf_counter() - t0_)
+        return statistics.median(each)
+
+    def binv_row(name, spec, x_, n_launches, path):
+        """The batch inversion on ``x_`` as a path gives it: the three
+        kernels' ms, the bound of 3 products an element against 2 K limbs
+        moved (x read, the inverses written; ``limbs_moved_by_design`` has
+        the kernels' 5 K, the prefixes written and read back and x read
+        twice), and the whole call's seconds beside those of the route
+        before the kernels (a mont_mul or mont_sqr launch a step, counted)."""
+        K_, n_ = spec.num_limbs, x_.shape[-1]
+        pr6 = lambda: vecops.batch_inverse_loop(spec, x_, fast.mont_mul, fast.mont_sqr)
+        reset_counts()
+        by_step = pr6()
+        pr6_launches = {k: v for k, v in counts().items() if v}
+        if not torch.equal(by_step, vecops.batch_inverse(spec, x_)):
+            raise AssertionError(f"{name}: the kernels and the launch-a-step route differ")
+        del by_step
+        tile = vecops.batch_inverse_tile(n_)
+        phase_ms = ms_by_kernel(lambda: vecops.batch_inverse(spec, x_),
+                                ("binv_prefix", "binv_columns", "binv_unwind"), 5)
+        measured = all(isinstance(v, float) for v in phase_ms.values())
+        kernel_row(name, "binv_", BINV_SRC,
+                   "tpu_bls12_381/fields/pallas_ops.py:381 and :391 (as vecops.batch_inverse runs them)",
+                   [K_, n_], lambda: vecops.batch_inverse(spec, x_),
+                   lambda: vecops.batch_inverse_plain(spec, x_),
+                   2 * K_ * n_, 0, 3 * n_ * mul_mads(K_ // 2), 5, n_launches=n_launches,
+                   path=path, kernels_per_call=3, tile_R_L=list(tile), phase_ms=phase_ms,
+                   limbs_moved_by_design=5 * K_ * n_,
+                   **({"ms": sum(phase_ms.values()),
+                       "ms_from": "profiler: the three phases' means"} if measured else {}),
+                   call_s=seconds_median(lambda: vecops.batch_inverse(spec, x_)),
+                   call_s_launch_a_step=seconds_median(pr6),
+                   launches_launch_a_step=pr6_launches)
     a16, b16 = rand_field(FR, n), rand_field(FR, n).flip(1).contiguous()
     kernel_row("mont_mul_fr", "mont_mul_kernel", FIELD_SRC,
                "tpu_bls12_381/fields/pallas_ops.py:381",
@@ -971,13 +1168,22 @@ def main() -> int:
                lambda: cuda_g1.padd_plain(Pl, Ql),
                9 * 24 * nl, 0, nl * 12 * mul_mads(W_FQ), 20,
                path="msm_2e20: msm_g1")
-    # pdbl on one lane, as the triangle combine and the Horner ladder call it.
+    # pdbl on one lane, as the triangle combine (lb_bits doublings, a chain a
+    # window) and the Horner ladder (w doublings, a chain a step) call it;
+    # each row's launches are the single shot's launches of that many
+    # doublings (check_tail asserted that they are all of its pdbl launches).
     P1 = tuple(c[:, 7].contiguous() for c in Pl)
-    kernel_row("pdbl", "pdbl_kernel", G1_SRC,
-               "tpu_bls12_381/curves/pallas_g1.py:478",
-               [24, 1], lambda: cuda_g1.pdbl(P1), lambda: cuda_g1.pdbl_plain(P1),
-               6 * 24, 0, 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ), 50,
-               path="msm_2e20: msm_g1")
+    if geo["lb_bits"] == geo["w"]:
+        raise AssertionError("msm_2e20: the triangle's and Horner's chains are of one "
+                             "length, their launches cannot be told apart")
+    for tag, times in (("triangle", geo["lb_bits"]), ("horner", geo["w"])):
+        kernel_row(f"pdbl[{tag}]", "pdbl_kernel", G1_SRC,
+                   "tpu_bls12_381/curves/pallas_g1.py:478",
+                   [24, 1], lambda: cuda_g1.pdbl(P1, times),
+                   lambda: cuda_g1.pdbl_plain(P1, times),
+                   6 * 24, 0, times * dbl_mads, 50, n_launches=chains.get(times, 0),
+                   path="msm_2e20: msm_g1", times=times,
+                   equal_at_2e16=chain_equal(times))
 
     del Al, Pl, Ql, P1, z1
     torch.cuda.empty_cache()
@@ -1101,6 +1307,11 @@ def main() -> int:
     launches_up = counts()
     geo_c = msm_geometry(n, bases.glv, F1, dev, bases.window_bits,
                          factor=bases.factor, cached=True)
+    expand_cap = 1 << int(os.environ.get("MIDNIGHT_EXPAND_CHUNK_LOG", "20"))
+    m_up = int(bases.A[2].shape[-1]) // bases.factor   # points of one block
+    slices_up = -(-m_up // expand_cap)
+    span_up = geo_c["T"] * geo_c["w"]                  # doublings between blocks
+    check_upload("msm_ctx_2e20: upload_bases", launches_up, slices_up, bases.factor, span_up)
     t0 = time.perf_counter()
     ctx1.msm_with_bases(s_mont, bases)              # warm call
     first_c = time.perf_counter() - t0
@@ -1108,6 +1319,7 @@ def main() -> int:
     Pc = ctx1.msm_with_bases(s_mont, bases)         # the main path
     launches_ctx = counts()
     scans_ctx = scan_counts()
+    chains_ctx = chain_counts()
     got_c = g1_ints(Pc)
     secs_c = [tracing.timed_reps(1, lambda: ctx1.msm_with_bases(s_mont, bases))
               for _ in range(3)]
@@ -1136,6 +1348,7 @@ def main() -> int:
     batch4_s = time.perf_counter() - t0
     launches_b4 = counts()
     scans_b4 = scan_counts()
+    chains_b4 = chain_counts()
     ok_b = [g1_ints(P_) for P_ in batch4] == singles4 and singles4[0] == expected
     del batch4, sets4
 
@@ -1153,6 +1366,7 @@ def main() -> int:
         pieces4_s = time.perf_counter() - t0
         launches_p4 = counts()
         scans_p4 = scan_counts()
+        chains_p4 = chain_counts()
     finally:
         set_budget_mb(None)
     ok_4 = (g1_ints(P4) == expected and geo_4["pieces"] == 4
@@ -1176,6 +1390,7 @@ def main() -> int:
                                                   "scan_launches", "tail_launches")},
           "launches": launches_ctx, "launches_batch4": launches_b4,
           "launches_4_pieces": launches_p4, "launches_upload": launches_up,
+          "upload_slices": slices_up, "upload_span": span_up,
           "peak_bytes_allocated": peak_c,
           "stages_ms": {k: round(v, 3) for k, v in stages_c.items()}, "card": smi})
     if not (ok_c and ok_b and ok_4):
@@ -1183,14 +1398,13 @@ def main() -> int:
     for k in ("mont_mul_fr", "pmadd_signed", "padd", "pdbl", "padd_scan"):
         if launches_ctx[k] < 1:
             raise AssertionError(f"msm_ctx_2e20: {k} never launched on the path")
-    check_tail("msm_ctx_2e20", launches_ctx, geo_c)
-    check_tail("msm_ctx_2e20 batch of 4", launches_b4, geo_b)
-    check_tail("msm_ctx_2e20 in 4 pieces", launches_p4, geo_4)
+    check_tail("msm_ctx_2e20", launches_ctx, geo_c, chains_ctx)
+    check_tail("msm_ctx_2e20 batch of 4", launches_b4, geo_b, chains_b4)
+    check_tail("msm_ctx_2e20 in 4 pieces", launches_p4, geo_4, chains_p4)
     if geo_b["groups"] != 1 or launches_b4["pmadd_signed"] != geo_b["scan_launches"]:
         raise AssertionError(f"msm_ctx_2e20: the batch of 4 made "
                              f"{launches_b4['pmadd_signed']} scan launches, the "
                              f"plan has {geo_b}")
-    m_up = int(bases.A[2].shape[-1]) // bases.factor   # points of one block
     del bases, Pc, P4, A, singles4
     torch.cuda.empty_cache()
 
@@ -1229,15 +1443,20 @@ def main() -> int:
                n_launches=launches_p4["padd"],
                path="msm_ctx_2e20: msm_with_bases in 4 pieces")
     del Alc, Plc, Qlc
-    expand_cap = 1 << int(os.environ.get("MIDNIGHT_EXPAND_CHUNK_LOG", "20"))
     nup = min(m_up, expand_cap)
     Pup = contig(pj.affine_to_proj(FQ_PLAIN, tiled_affine(nup)))
     kernel_row("pdbl[upload]", "pdbl_kernel", G1_SRC,
                "tpu_bls12_381/curves/pallas_g1.py:478", [24, nup],
-               lambda: cuda_g1.pdbl(Pup), lambda: cuda_g1.pdbl_plain(Pup),
-               6 * 24 * nup, 0, nup * (6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ)), 10,
-               n_launches=launches_up["pdbl"], path="msm_ctx_2e20: upload_bases")
+               lambda: cuda_g1.pdbl(Pup, span_up), lambda: cuda_g1.pdbl_plain(Pup, span_up),
+               6 * 24 * nup, 0, nup * span_up * dbl_mads, 3,
+               n_launches=launches_up["pdbl"], path="msm_ctx_2e20: upload_bases",
+               times=span_up, equal_at_2e16=chain_equal(span_up))
     del Pup
+    # the upload's inversion: the Z coordinates of one slice's block
+    xu = rand_field(FQ, nup)
+    binv_row("batch_inverse[upload]", FQ, xu, launches_up["batch_inverse_fq"],
+             "msm_ctx_2e20: upload_bases")
+    del xu
     torch.cuda.empty_cache()
     if args.upto == "msm_ctx_2e20":
         return stop_early()
@@ -1332,7 +1551,14 @@ def main() -> int:
                8 * 24 * n_v, n_v, n_v * 11 * mul_mads(W_FQ), 50,
                n_launches=launches_glv["pmadd"],
                path="msm_ctx_small: scalar_mul_glv")
-    del Ak, Pk
+    Pk1 = tuple(c.contiguous() for c in pj.affine_to_proj(FQ_PLAIN, Ak))
+    kernel_row("pdbl[glv]", "pdbl_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:478", [24, n_v],
+               lambda: cuda_g1.pdbl(Pk1), lambda: cuda_g1.pdbl_plain(Pk1),
+               6 * 24 * n_v, 0, n_v * dbl_mads, 50,
+               n_launches=launches_glv["pdbl"], path="msm_ctx_small: scalar_mul_glv",
+               times=1, equal_at_2e16=chain_equal(1))
+    del Ak, Pk, Pk1
     L2, R2, nb2 = geo2["L"], geo2["R"], geo2["nb"]
 
     def scan_row_g2(name, path, R_, L_, n_launches):
@@ -1683,7 +1909,13 @@ def main() -> int:
         raise AssertionError("vecops: a check failed (see the line above)")
     if launches_v["add_fr"] < 1 or launches_v["sub_fr"] < 1:
         raise AssertionError(f"vecops: add/sub kernels never launched: {launches_v}")
-    del inv, prod, want, xz
+    binv_launched = {k: v for k, v in launches_inv_v.items() if v}
+    if binv_launched != {"batch_inverse_fr": 3}:
+        raise AssertionError(f"vecops: batch_inverse launched {binv_launched}, not its "
+                             f"three kernels alone")
+    del inv, prod, want
+    binv_row("batch_inverse[vecops]", FR, xz, launches_inv_v["batch_inverse_fr"], "vecops")
+    del xz
     for op, symbol, line in (("add", "field_add_kernel", 401),
                              ("sub", "field_sub_kernel", 411)):
         kern, plain = getattr(cuda_ops, op), getattr(cuda_ops, f"{op}_plain")
@@ -1938,9 +2170,14 @@ def main() -> int:
             lambda: acc.g1.upload_bases(A_valid, precompute_factor=4))
         geo4 = msm_geometry(n, bases4.glv, F1, dev, bases4.window_bits,
                             factor=bases4.factor, cached=True)
+        m_up4 = int(bases4.A[2].shape[-1]) // bases4.factor
+        span_up4 = geo4["T"] * geo4["w"]
+        check_upload("entry: upload_bases, factor 4", launches_up4,
+                     -(-m_up4 // expand_cap), bases4.factor, span_up4)
         P_e, call4_s, launches_e4 = timed(
             lambda: acc.g1.msm_with_bases(s_entry, bases4, scalars_montgomery=False))
         scans_e4 = scan_counts()
+        chains_e4 = chain_counts()
         handle = acc.g1.msm_with_bases_async(s_entry, bases4, scalars_montgomery=False)
         P_async = handle.wait()
         secs4 = [tracing.timed_reps(1, lambda: acc.g1.msm_with_bases(
@@ -2031,7 +2268,7 @@ def main() -> int:
           "peak_bytes_allocated": peak_e, "spans": spans[:12], "card": smi})
     if not entry_ok:
         raise AssertionError("entry: a check failed (see the line above)")
-    check_tail("entry: msm_with_bases, factor 4", launches_e4, geo4)
+    check_tail("entry: msm_with_bases, factor 4", launches_e4, geo4, chains_e4)
     if launches_dc:
         raise AssertionError(f"entry: the host route launched kernels: {launches_dc}")
     if not (launches_d16.get("pmadd_signed") and launches_d15.get("pmadd2")):
@@ -2054,6 +2291,16 @@ def main() -> int:
                9 * 24 * nl4, 0, nl4 * 12 * mul_mads(W_FQ), 20,
                n_launches=launches_e4["padd"], path="entry: msm_with_bases, factor 4")
     del Al4, Pl4, Ql4
+    nup4 = min(m_up4, expand_cap)
+    Pup4 = contig(pj.affine_to_proj(FQ_PLAIN, tiled_affine(nup4)))
+    kernel_row("pdbl[upload factor4]", "pdbl_kernel", G1_SRC,
+               "tpu_bls12_381/curves/pallas_g1.py:478", [24, nup4],
+               lambda: cuda_g1.pdbl(Pup4, span_up4),
+               lambda: cuda_g1.pdbl_plain(Pup4, span_up4),
+               6 * 24 * nup4, 0, nup4 * span_up4 * dbl_mads, 3,
+               n_launches=launches_up4["pdbl"], path="entry: upload_bases, factor 4",
+               times=span_up4, equal_at_2e16=chain_equal(span_up4))
+    del Pup4
     torch.cuda.empty_cache()
 
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})

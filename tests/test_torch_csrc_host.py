@@ -188,7 +188,7 @@ def test_padd_and_pdbl(lib, points):
     want = cuda_g1.padd_plain(P, Q)
     assert all(torch.equal(o, w) for o, w in zip(out, want))
     assert not out[2][:, 3:5].any()            # identity: Z = 0
-    lib.g1_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    lib.g1_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N), ctypes.c_int(1))
     want = cuda_g1.pdbl_plain(P)
     assert all(torch.equal(o, w) for o, w in zip(out, want))
 

@@ -27,14 +27,19 @@
 #include <stddef.h>
 #include <stdint.h>
 
+// ROLLED keeps a loop of dependent steps (group operations, products down a
+// column) rolled: unrolled, the compiler overlaps two iterations' registers
+// and spills for no gain.
 #ifdef __CUDACC__
 #define DEV __device__ __forceinline__
 #define DEV_CONST __device__ __constant__
 #define UNROLL _Pragma("unroll")
+#define ROLLED _Pragma("unroll 1")
 #else
 #define DEV inline
 #define DEV_CONST static const
 #define UNROLL
+#define ROLLED
 #endif
 
 // p, R mod p and -p^-1 mod 2^32 as little-endian 32-bit words.
@@ -113,6 +118,14 @@ DEV El<F> fp_one() {
     UNROLL
     for (int j = 0; j < F::W; ++j) r.v[j] = F::one(j);
     return r;
+}
+
+template <class F>
+DEV bool fp_is_zero(const El<F>& a) {
+    uint32_t acc = 0u;
+    UNROLL
+    for (int j = 0; j < F::W; ++j) acc |= a.v[j];
+    return acc == 0u;
 }
 
 // a where take else b

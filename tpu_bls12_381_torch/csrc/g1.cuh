@@ -6,23 +6,17 @@
 // so that with canonical field results the coordinates written back equal
 // the plain PyTorch versions in curves/projective.py limb for limb.  The
 // complete addition takes the carry-chain Fq product of field_carry.cuh; the
-// mixed addition takes its product as a parameter, field.cuh's (FieldMul, for
-// pmadd) or the carry-chain one (CarryMul, for pmadd_signed).  Both are
-// canonical, so the limbs are the same either way.
+// mixed addition takes its product as a parameter, field.cuh's (FieldMul,
+// for pmadd) or the carry-chain one (CarryMul, for pmadd_signed); the
+// doubling takes its product and square the same way and runs on CarryMul
+// (pdbl).  Both products are canonical, so the limbs are the same either
+// way.
 
 #pragma once
 
 #include "field_carry.cuh"
 
 typedef El<Fq> fq;
-
-// A loop of dependent group operations is kept rolled: unrolled, the compiler
-// overlaps two iterations' registers and spills for no gain.
-#ifdef __CUDACC__
-#define ROLLED _Pragma("unroll 1")
-#else
-#define ROLLED
-#endif
 
 struct G1Proj {
     fq X, Y, Z;
@@ -33,8 +27,10 @@ DEV fq fq_mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
 struct FieldMul {
     static DEV fq mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
 };
+// The square as the product a*a: a canonical product is unique.
 struct CarryMul {
     static DEV fq mul(const fq& a, const fq& b) { return fq_mul_cc(a, b); }
+    static DEV fq sqr(const fq& a) { return fq_mul_cc(a, a); }
 };
 DEV fq fq_sqr(const fq& a) { return fp_sqr<Fq>(a); }
 DEV fq fq_add(const fq& a, const fq& b) { return fp_add<Fq>(a, b); }
@@ -104,21 +100,22 @@ DEV G1Proj g1_proj_madd(const G1Proj& P, const fq& x2, const fq& y2, bool inf2) 
 }
 
 // Algorithm 9: complete doubling, 6M + 2S + mul12.
+template <class M>
 DEV G1Proj g1_proj_dbl(const G1Proj& P) {
-    fq t0 = fq_sqr(P.Y);
+    fq t0 = M::sqr(P.Y);
     fq Z3 = fq_add(t0, t0);
     Z3 = fq_add(Z3, Z3);
     Z3 = fq_add(Z3, Z3);                       // 8 Y^2
-    fq t1 = fq_mul(P.Y, P.Z);
-    fq t2 = fq_mul12(fq_sqr(P.Z));             // 3b Z^2
-    fq X3 = fq_mul(t2, Z3);
+    fq t1 = M::mul(P.Y, P.Z);
+    fq t2 = fq_mul12(M::sqr(P.Z));             // 3b Z^2
+    fq X3 = M::mul(t2, Z3);
     fq Y3 = fq_add(t0, t2);
     G1Proj R;
-    R.Z = fq_mul(t1, Z3);
+    R.Z = M::mul(t1, Z3);
     t2 = fq_add(fq_add(t2, t2), t2);           // 9b Z^2
     t0 = fq_sub(t0, t2);
-    R.Y = fq_add(fq_mul(t0, Y3), X3);
-    fq t = fq_mul(t0, fq_mul(P.X, P.Y));
+    R.Y = fq_add(M::mul(t0, Y3), X3);
+    fq t = M::mul(t0, M::mul(P.X, P.Y));
     R.X = fq_add(t, t);
     return R;
 }
@@ -187,10 +184,15 @@ DEV void g1_padd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1
     g1_store(X3, Y3, Z3, n, idx, g1_proj_add(P, Q));
 }
 
+// The doubling chain: the lane loaded once, doubled `times` times in
+// registers, stored once (times = 1: the elementwise doubling).
 DEV void g1_pdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
-                      size_t idx) {
-    g1_store(X3, Y3, Z3, n, idx, g1_proj_dbl(g1_load(X1, Y1, Z1, n, idx)));
+                      size_t idx, int times) {
+    G1Proj P = g1_load(X1, Y1, Z1, n, idx);
+    ROLLED
+    for (int k = 0; k < times; ++k) P = g1_proj_dbl<CarryMul>(P);
+    g1_store(X3, Y3, Z3, n, idx, P);
 }
 
 // ---------------------------------------------------------------------------

@@ -25,12 +25,7 @@ struct G1Jac {
     fq X, Y, Z;
 };
 
-DEV bool fq_is_zero(const fq& a) {
-    uint32_t acc = 0u;
-    UNROLL
-    for (int j = 0; j < Fq::W; ++j) acc |= a.v[j];
-    return acc == 0u;
-}
+DEV bool fq_is_zero(const fq& a) { return fp_is_zero<Fq>(a); }
 
 DEV G1Jac g1_jac_cmov(bool take, const G1Jac& a, const G1Jac& b) {
     G1Jac r;

@@ -16,10 +16,10 @@
 // (5 * 96 = 480 bytes per lane and row in the looped form) and does 11 Fq
 // products of 300 wide multiply-adds each, so the integer pipe binds (the
 // reckoning is in PERF.md).  What the design does about it:
-//  * pmadd_signed, padd and padd_scan take the carry-chain product of
+//  * pmadd_signed, padd, padd_scan and pdbl take the carry-chain product of
 //    field_carry.cuh: two independent mad.lo.cc / madc.hi.cc chains a row
 //    instead of one 64-bit multiply-add chain, fewer instructions a product
-//    and two streams for the scheduler.  pmadd, pdbl keep field.cuh's.
+//    and two streams for the scheduler.  pmadd keeps field.cuh's.
 //  * Occupancy: a thread walks R dependent adds, so the card needs enough
 //    warps in flight to hide the chain's latency.  At one 128-thread block an
 //    SM (2^14 lanes on 132 SMs) each scheduler had one warp; the MSM's G1
@@ -27,6 +27,13 @@
 //    blocks an SM at 248 registers.  Three blocks an SM, and loading row
 //    r + 1 during row r, spill and were not kept (PERF.md has their times).
 //  * padd runs two blocks an SM (212 registers, no spill).
+//  * pdbl carries a count `times`, as pmadd_signed carries R: every caller
+//    doubles a point many times in a row (the MSM's triangle combine and
+//    Horner ladder, 7 or 15 times on one lane; expand_bases, 48 to 80 times
+//    on 2^20 lanes), which the JAX package runs as a fori_loop of launches.
+//    Here the thread loads its lane once, doubles `times` times in
+//    registers and stores once: one launch a chain, 6 * 24 limbs moved for
+//    times * (6M + 2S).
 //  * padd_scan replaces the log2(L) Hillis-Steele steps of the MSM's tail
 //    (each a padd over all L lanes plus rolls and selects) with a
 //    reduce-then-scan: a thread folds a run of lanes in registers, a block
@@ -92,13 +99,17 @@ padd_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
     g1_padd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, idx);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The doubling chain, built for three blocks an SM: 168 registers, no spill.
+// Builds for at least one and two blocks an SM (165 registers each) ran
+// 2.5 to 3.6% slower at the upload's shape on an H100 (PERF.md).
+__global__ void __launch_bounds__(THREADS, 3)
 pdbl_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
             const uint32_t* __restrict__ Z1, uint32_t* __restrict__ X3,
-            uint32_t* __restrict__ Y3, uint32_t* __restrict__ Z3, size_t n) {
+            uint32_t* __restrict__ Y3, uint32_t* __restrict__ Z3, size_t n,
+            int times) {
     size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= n) return;
-    g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, idx);
+    g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, idx, times);
 }
 
 // ---------------------------------------------------------------------------
@@ -240,12 +251,14 @@ int g1_padd(const void* X1, const void* Y1, const void* Z1,
     return (int)cudaGetLastError();
 }
 
+// `times` doublings of every lane (times >= 1).
 int g1_pdbl(const void* X1, const void* Y1, const void* Z1,
-            void* X3, void* Y3, void* Z3, long long n, void* stream) {
+            void* X3, void* Y3, void* Z3, long long n, int times, void* stream) {
+    if (times < 1) return (int)cudaErrorInvalidValue;
     if (n > 0) {
         pdbl_kernel<<<blocks_for((size_t)n), THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)X1, (const uint32_t*)Y1, (const uint32_t*)Z1,
-            (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, (size_t)n);
+            (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, (size_t)n, times);
     }
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Host build of the kernels' lane bodies: the same device code as the CUDA
-// kernels (field.cuh, field_carry.cuh, g1.cuh, g1_jac.cuh, g2.cuh, ntt.cuh),
+// kernels (field.cuh, field_carry.cuh, g1.cuh, g1_jac.cuh, g2.cuh, ntt.cuh,
+// batch_inverse.cuh),
 // compiled as plain C++ and run in a
 // loop over the lanes (for the NTT tile: over the blocks, and inside a block
 // over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
@@ -11,10 +12,40 @@
 
 #include <vector>
 
+#include "batch_inverse.cuh"
 #include "g1.cuh"
 #include "g1_jac.cuh"
 #include "g2.cuh"
 #include "ntt.cuh"
+
+// The batch inversion's three phases (batch_inverse.cu), phase 2's block of
+// `threads` with its two Hillis-Steele scans as host loops (at step s, value
+// t takes t - s of the prefix scan and t + s of the suffix scan of the step
+// before).  Arguments as batch_inverse.cu's, scratch included.
+template <class F>
+static void host_batch_inverse(const uint32_t* x, uint32_t* out, uint32_t* pre,
+                               uint32_t* col, uint32_t* colinv, size_t n, size_t L,
+                               int R, size_t threads) {
+    for (size_t l = 0; l < L; ++l) binv_prefix_lane<F>(x, pre, col, n, L, R, l);
+    const size_t T = threads;
+    std::vector<El<F>> p(T), q(T);
+    for (size_t t = 0; t < T; ++t) p[t] = q[t] = binv_fold_run<F>(col, colinv, L, T, t);
+    for (size_t s = 1; s < T; s <<= 1) {
+        std::vector<El<F>> p0 = p, q0 = q;
+        for (size_t t = 0; t < T; ++t) {
+            if (t >= s) p[t] = fp_mul_cc<F>(p0[t - s], p0[t]);
+            if (t + s < T) q[t] = fp_mul_cc<F>(q0[t], q0[t + s]);
+        }
+    }
+    El<F> g = fp_inv_fermat<F>(p[T - 1]);
+    for (size_t t = 0; t < T; ++t) {
+        El<F> iv = g;
+        if (t > 0) iv = fp_mul_cc<F>(iv, p[t - 1]);
+        if (t + 1 < T) iv = fp_mul_cc<F>(iv, q[t + 1]);
+        binv_walk_run<F>(iv, col, colinv, L, T, t);
+    }
+    for (size_t l = 0; l < L; ++l) binv_unwind_lane<F>(x, pre, colinv, out, n, L, R, l);
+}
 
 extern "C" {
 
@@ -87,6 +118,11 @@ void fq_mont_mul_carry(const uint32_t* a, const uint32_t* b, uint32_t* out, size
         fp_store<Fq>(out, n, i, fq_mul_cc(fp_load<Fq>(a, n, i), fp_load<Fq>(b, n, i)));
 }
 
+void fr_mont_mul_carry(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        fp_store<Fr>(out, n, i, fp_mul_cc<Fr>(fp_load<Fr>(a, n, i), fp_load<Fr>(b, n, i)));
+}
+
 void fq_add_sub(const uint32_t* a, const uint32_t* b, uint32_t* sum,
                 uint32_t* diff, size_t n) {
     for (size_t i = 0; i < n; ++i) {
@@ -119,9 +155,10 @@ void g1_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
         g1_padd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, i);
 }
 
+// The doubling chain of g1_kernels.cu's pdbl: `times` doublings a lane.
 void g1_pdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
-             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
-    for (size_t i = 0; i < n; ++i) g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n, int times) {
+    for (size_t i = 0; i < n; ++i) g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i, times);
 }
 
 void g1_jdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
@@ -193,6 +230,27 @@ void g1_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
                              X, Y, Z, OX, OY, OZ, L, n, b, (k * T + t) * run, run,
                              reverse != 0, exclusive != 0);
     }
+}
+
+void fr_batch_inverse(const uint32_t* x, uint32_t* out, uint32_t* pre, uint32_t* col,
+                      uint32_t* colinv, size_t n, size_t L, int R, size_t threads) {
+    host_batch_inverse<Fr>(x, out, pre, col, colinv, n, L, R, threads);
+}
+
+void fq_batch_inverse(const uint32_t* x, uint32_t* out, uint32_t* pre, uint32_t* col,
+                      uint32_t* colinv, size_t n, size_t L, int R, size_t threads) {
+    host_batch_inverse<Fq>(x, out, pre, col, colinv, n, L, R, threads);
+}
+
+// The Fermat inverse of phase 2 on its own, elementwise.
+void fr_inv_fermat(const uint32_t* a, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        fp_store<Fr>(out, n, i, fp_inv_fermat<Fr>(fp_load<Fr>(a, n, i)));
+}
+
+void fq_inv_fermat(const uint32_t* a, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        fp_store<Fq>(out, n, i, fp_inv_fermat<Fq>(fp_load<Fq>(a, n, i)));
 }
 
 // Fq2 products, squares and 12(1+u) multiples on (24, 2, n) batches.

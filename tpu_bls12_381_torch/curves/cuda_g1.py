@@ -13,7 +13,10 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
   last axis (the MSM tail's lane scans, which the JAX package runs as
   log2(L) Hillis-Steele steps of ``padd``);
 * ``pdbl`` takes the place of ``_pdbl_kernel`` / ``pdbl`` (``:478``, ``:519``):
-  RCB16 algorithm 9;
+  RCB16 algorithm 9, with a count ``times``: one launch doubles every lane
+  ``times`` times in registers, where the JAX package's ``_double_n`` runs a
+  ``fori_loop`` of launches (``projective.proj_double_n_fast`` routes the
+  MSM's doubling chains to it);
 * ``madd``, ``jadd`` and ``jdbl`` take the place of the Jacobian kernels
   ``_madd_kernel`` (``:180``), ``_add_kernel`` (``:252``) and ``_dbl_kernel``
   (``:156``) with their wrappers ``madd``, ``jadd``, ``jdbl``: madd-2007-bl,
@@ -25,8 +28,9 @@ The kernels are CUDA C++: the projective ones in ``csrc/g1_kernels.cu``
 (formulas in ``csrc/g1_jac.cuh``), field arithmetic in ``csrc/field.cuh``: one
 thread per lane, all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
 launch walks the R rows of a scan tile inside each thread and writes every
-prefix row, where the JAX package launches R times.  ``pmadd_signed``, ``padd``
-and ``padd_scan`` take the carry-chain Fq product of ``csrc/field_carry.cuh``.  On an H100 the integer
+prefix row, where the JAX package launches R times.  ``pmadd_signed``, ``padd``,
+``padd_scan`` and ``pdbl`` take the carry-chain Fq product of
+``csrc/field_carry.cuh``.  On an H100 the integer
 pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
 864 bytes); the many launches on few lanes are bound by launch latency
 (PERF.md has the numbers).
@@ -39,7 +43,8 @@ one shape, masks contiguous, and anything else raises (the ``*_fast`` routers
 of ``curves/projective.py`` and ``curves/points.py`` broadcast and lay out
 for them).  ``LAUNCHES``
 counts kernel launches, and nothing else; ``SCAN_LAUNCHES`` splits the lane
-scan's by mode and shape.
+scan's by mode and shape, ``CHAIN_LAUNCHES`` splits ``pdbl``'s by the
+doublings ``times`` a launch made.
 """
 
 from __future__ import annotations
@@ -63,6 +68,9 @@ LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0,
 # padd_scan's launches by what each call scanned: (mode, shape) -> launches,
 # mode one of scan_mode's names, shape the coordinates' (24, *batch, L).
 SCAN_LAUNCHES = {}
+# pdbl's launches by chain length: times -> launches (the doublings are
+# the sum of times * launches).
+CHAIN_LAUNCHES = {}
 
 # The lane scan's lanes a thread folds, and its most threads a block
 # (SCAN_MAX_THREADS in csrc/g1_kernels.cu).
@@ -78,6 +86,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     SCAN_LAUNCHES.clear()
+    CHAIN_LAUNCHES.clear()
 
 
 def scan_mode(reverse=False, exclusive=False, total=False) -> str:
@@ -99,7 +108,7 @@ def _lib():
             [_PTR] * 15 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [_PTR])
         lib.g1_pmadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_padd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
-        lib.g1_pdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, _PTR]
+        lib.g1_pdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, ctypes.c_int, _PTR]
         for fn in (lib.g1_pmadd_signed, lib.g1_pmadd, lib.g1_padd,
                    lib.g1_pdbl, lib.g1_padd_scan):
             fn.restype = ctypes.c_int
@@ -142,8 +151,11 @@ def padd_plain(P, Q):
     return pj.proj_add(FQ_PLAIN, P, Q)
 
 
-def pdbl_plain(P):
-    return pj.proj_double(FQ_PLAIN, P)
+def pdbl_plain(P, times: int = 1):
+    """``times`` plain doublings in a row."""
+    for _ in range(times):
+        P = pj.proj_double(FQ_PLAIN, P)
+    return P
 
 
 def scan_threads(L: int, run: int = SCAN_RUN) -> int:
@@ -443,20 +455,26 @@ def padd_scan(P, *, reverse=False, exclusive=False, total=False,
     return tuple(out)
 
 
-def pdbl(P):
-    """Complete projective doubling (``proj_double`` contract)."""
+def pdbl(P, times: int = 1):
+    """``times`` complete projective doublings of every lane, 2^times P
+    (``proj_double`` contract, applied ``times`` times): one launch, the
+    chain in registers."""
     coords = list(P)
     _check_coords(coords, "pdbl")
+    times = int(times)
+    if times < 1:
+        raise ValueError(f"pdbl: times must be >= 1, got {times}")
     if not P[0].is_cuda:
-        return pdbl_plain(P)
+        return pdbl_plain(P, times)
     dev = P[0].device
     out = [torch.empty_like(P[0]) for _ in range(3)]
     with torch.cuda.device(dev):
         code = _lib().g1_pdbl(
             *[t.data_ptr() for t in coords], *[o.data_ptr() for o in out],
-            P[0].numel() // K, stream_ptr(dev))
+            P[0].numel() // K, times, stream_ptr(dev))
     check_launch(code, "g1_pdbl")
     LAUNCHES["pdbl"] += 1
+    CHAIN_LAUNCHES[times] = CHAIN_LAUNCHES.get(times, 0) + 1
     return tuple(out)
 
 

@@ -403,3 +403,31 @@ def proj_double_fast(F, P):
         return proj_double(F, P)
     c, _ = _laid_out(list(P), F=F)
     return mod.pdbl(tuple(c))
+
+
+def doubling_chain_kernel(F, device):
+    """The wrapper that doubles a point many times in one launch for
+    adapter ``F`` on ``device`` (``cuda_g1.pdbl`` with ``times``: G1 on the
+    card), else None (a doubling at a time)."""
+    if torch.device(device).type != "cuda" or F is not FQ_ADAPTER:
+        return None
+    from . import cuda_g1
+
+    return cuda_g1.pdbl
+
+
+def proj_double_n_fast(F, P, times: int):
+    """2^times P: ``times`` doublings in a row.  A G1 point tensor on the card
+    goes to ONE launch of the doubling chain (``cuda_g1.pdbl`` with
+    ``times``); anything else doubles ``times`` times (``proj_double`` on the
+    CPU, a ``pdbl2`` launch each for G2 on the card).  Limb for limb the JAX
+    package's ``_double_n``: the same formula, step by step."""
+    if times <= 0:
+        return P
+    chain = doubling_chain_kernel(F, P[0].device)
+    if chain is not None:
+        c, _ = _laid_out(list(P), F=F)
+        return chain(tuple(c), times)
+    for _ in range(times):
+        P = proj_double_fast(F, P)
+    return P

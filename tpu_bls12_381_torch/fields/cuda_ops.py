@@ -13,7 +13,12 @@ Counterpart of the JAX package's ``fields/pallas_ops.py``:
   ``:453``).  ``butterfly`` is the TPU kernel's elementwise contract;
   ``butterfly_stage`` is one whole stage of the radix-2 ladder on the array
   where it lies, so the ladder needs no slices, broadcast twiddles or
-  concatenation around the kernel: one launch a stage and nothing else.
+  concatenation around the kernel: one launch a stage and nothing else;
+* ``batch_inverse`` launches the three kernels of ``csrc/batch_inverse.cu``,
+  Montgomery's batch inversion with the product and the square chained
+  inside each phase, where ``vecops.batch_inverse`` ran ``mont_mul`` and
+  ``mont_sqr`` launch by launch.  Its wrapper and plain version are
+  ``vecops.batch_inverse`` and ``vecops.batch_inverse_plain``.
 
 The kernels are CUDA C++ in ``csrc/field_kernels.cu`` (device code in
 ``csrc/field.cuh``): one thread per element, 32-bit words in registers, CIOS
@@ -31,7 +36,8 @@ the kernel or raises; there is no fallback.  The wrappers copy nothing:
 operands must be contiguous and of one shape, and anything else raises
 (``fields/fast.py`` broadcasts and lays out for them).  ``LAUNCHES`` counts
 kernel launches, and nothing else; both butterfly entries count under
-``butterfly_fr`` / ``butterfly_fq``.
+``butterfly_fr`` / ``butterfly_fq``, the batch inversion's three kernels
+under ``batch_inverse_fr`` / ``batch_inverse_fq``.
 """
 
 from __future__ import annotations
@@ -47,10 +53,12 @@ from .field import FieldSpec
 LAUNCHES = {"mont_mul_fr": 0, "mont_mul_fq": 0,
             "mont_sqr_fr": 0, "mont_sqr_fq": 0,
             "add_fr": 0, "add_fq": 0, "sub_fr": 0, "sub_fq": 0,
-            "butterfly_fr": 0, "butterfly_fq": 0}
+            "butterfly_fr": 0, "butterfly_fq": 0,
+            "batch_inverse_fr": 0, "batch_inverse_fq": 0}
 
 _PTR = ctypes.c_void_p
 _CONFIGURED = False
+_BINV_CONFIGURED = False
 
 
 def reset_launches() -> None:
@@ -79,6 +87,18 @@ def _lib():
             fn.argtypes = [_PTR, _PTR, ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
         _CONFIGURED = True
+    return lib
+
+
+def _binv_lib():
+    global _BINV_CONFIGURED
+    lib = _build.library("batch_inverse")
+    if not _BINV_CONFIGURED:
+        for name in ("fr_batch_inverse", "fq_batch_inverse"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_PTR] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int, _PTR]
+            fn.restype = ctypes.c_int
+        _BINV_CONFIGURED = True
     return lib
 
 
@@ -268,4 +288,35 @@ def butterfly_stage(spec: FieldSpec, x, tw, half: int):
             n, half, stream_ptr(x.device))
     check_launch(code, "fr_butterfly_stage")
     LAUNCHES["butterfly_fr"] += 1
+    return out
+
+
+def batch_inverse(spec: FieldSpec, x, lanes: int):
+    """The three batch-inversion kernels on CUDA limbs ``x`` (K, n),
+    contiguous: the elementwise Montgomery inverse, inv(0) = 0, on an
+    (R, lanes) tile with R = ceil(n / lanes).  Three launches; raises if one
+    fails.  ``vecops.batch_inverse`` is the wrapper that lays out for it and
+    takes the plain version on the CPU."""
+    K = spec.num_limbs
+    check_limbs(x, K, "batch_inverse: x")
+    if x.dim() != 2:
+        raise ValueError(f"batch_inverse: expected ({K}, n), got {tuple(x.shape)}")
+    if not x.is_cuda:
+        raise ValueError("batch_inverse: the kernels take CUDA tensors "
+                         "(vecops.batch_inverse_plain is the CPU's)")
+    n = x.shape[1]
+    L = min(int(lanes), n)
+    if L < 1:
+        return torch.empty_like(x)
+    R = -(-n // L)
+    sfx = _suffix(spec)
+    dev = x.device
+    new = lambda m: torch.empty((K, m), dtype=x.dtype, device=dev)
+    out, pre, col, colinv = new(n), new((R - 1) * L), new(L), new(L)
+    with torch.cuda.device(dev):
+        code = getattr(_binv_lib(), f"{sfx}_batch_inverse")(
+            x.data_ptr(), out.data_ptr(), pre.data_ptr(), col.data_ptr(),
+            colinv.data_ptr(), n, L, R, stream_ptr(dev))
+    check_launch(code, f"{sfx}_batch_inverse")
+    LAUNCHES[f"batch_inverse_{sfx}"] += 3
     return out

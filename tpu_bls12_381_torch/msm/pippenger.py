@@ -34,7 +34,7 @@ batch axis B between the element axes and the lanes; to the scan kernel B*L
 is one lane axis.
 
 On CUDA tensors the group-law calls (the scan's signed mixed adds, ``g_add``,
-``g_double``) and the field products go to the CUDA kernels of
+``_double_n``) and the field products go to the CUDA kernels of
 ``curves/cuda_g1.py``, ``curves/cuda_g2.py`` and ``fields/cuda_ops.py``; sort,
 gather, searchsorted, rolls and selects are plain PyTorch.  The scan is ONE
 launch per window: each thread owns a column and walks its R rows.  The
@@ -42,7 +42,9 @@ tail's lane scans (stitch, triangle) are, for G1 on the card, the scan kernel
 ``padd_scan`` (``projective.proj_lane_scan_fast``: 12 launches a window); on
 the CPU and for G2 they are the JAX package's Hillis-Steele steps.  The
 boundary, the triangle combine and Horner call the add and the doubling on
-few lanes; that part is bound by launch latency.
+few lanes; that part is bound by launch latency.  A chain of doublings
+(``_double_n``: the triangle combine's lb_bits, Horner's w, ``expand_bases``'
+span) is, for G1 on the card, one launch (``projective.proj_double_n_fast``).
 
 Not ported: ``msm_chunked`` and ``msm_traceable`` (the JAX package's
 pmap/trace forms).
@@ -70,7 +72,6 @@ g_identity = pj.proj_identity
 g_add = pj.proj_add_fast
 g_cmov = pj.proj_cmov
 g_neg = pj.proj_neg
-g_double = pj.proj_double_fast
 g_scan_rows = pj.proj_scan_rows_fast
 
 FR_BITS = 255
@@ -82,7 +83,7 @@ _KEY_DTYPE = torch.int64
 # A window's tail on the card for G1: the stitch (a scan, 3 launches), the
 # triangle's column and row sums (totals, 2 each), its suffix scan (3) and
 # the sum of that (2); two adds at the boundary, one in the weighted sum,
-# two in the combine.
+# two in the combine, whose lb_bits doublings are one pdbl launch.
 TAIL_SCAN_LAUNCHES = 12
 TAIL_ADDS = 5
 
@@ -239,9 +240,9 @@ def _weighted_index_sum(F, P):
 
 
 def _double_n(F, P, times: int):
-    for _ in range(times):
-        P = g_double(F, P)
-    return P
+    """2^times P, for G1 on the card one launch (the JAX package's
+    ``fori_loop`` of doublings)."""
+    return pj.proj_double_n_fast(F, P, times)
 
 
 # -----------------------------------------------------------------------------
@@ -583,6 +584,9 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     ``padd_scan`` and ``padd`` launches of the call (a window's tail makes 12
     scan launches and 5 adds; each piece after the first of a group adds its
     window sums in once; Horner adds T - 1 times), else None.
+    ``doubling_chains``: the call's chains of doublings (one a window's
+    triangle combine, one a Horner step; for G1 on the card each is one
+    ``pdbl`` launch) and ``doublings``, the doublings in them.
     """
     from ..device import resolve_device
 
@@ -645,7 +649,11 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     if pj.lane_scan_kernel(F, device) is not None:
         tail = {"padd_scan": TAIL_SCAN_LAUNCHES * runs,
                 "padd": TAIL_ADDS * runs + groups * (pieces - 1) + T - 1}
-    return {"glv": glv, "T": T, **_tile_plan(F, n_run, w, device),
+    plan = _tile_plan(F, n_run, w, device)
+    chains = [(runs, plan["lb_bits"]), (T - 1, w)]
+    return {"glv": glv, "T": T, **plan,
+            "doubling_chains": sum(k for k, d in chains if d > 0),
+            "doublings": sum(k * d for k, d in chains),
             "factor": factor, "batch": batch, "pieces": pieces, "per": per,
             "groups": groups, "per_group": per_group,
             "scan_launches": runs, "tail_launches": tail,

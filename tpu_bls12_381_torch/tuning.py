@@ -57,6 +57,15 @@ _CPU = ChipProfile("cpu", **_CAPS, msm_g1_lane_tile_log_min=3,
 # kernel over tiles of the same adds (PERF.md).
 _CUDA_G1_LANE_TILE_LOG_MIN = 15
 
+# log2 of the columns L of the batch inversion's (R, L) tile on the card
+# (vecops.batch_inverse_tile; the CPU's plain loop keeps the JAX package's
+# 4096): 2^14 threads for phases 1 and 3 (R = 64 rows at 2^20 elements)
+# against runs of 64 columns a thread in phase 2's one block of 256.
+# chip_smoke.py's chain_sweep times L = 2^12 .. 2^16: 2^14 is the fastest
+# for the upload's 2^20 Fq elements, 2^15 for 2^22 Fr by 0.35 ms (PERF.md);
+# one value serves both.
+CUDA_BATCH_INVERSE_LANES_LOG = 14
+
 
 @lru_cache(maxsize=None)
 def _cuda_profile(index: int) -> ChipProfile:

@@ -9,7 +9,11 @@ lies between them (slices, concatenations, gathers, selects) is plain torch.
 Batch inversion keeps the JAX package's three phases (inclusive prefix
 products down the rows of an (R, L) tiling, one Fermat inversion of the grand
 product with log-depth lane scans stitching the columns, the unwind back up
-the rows); its two ``lax.scan`` loops are Python loops over the R rows here.
+the rows).  On the card each phase is one kernel that keeps its chain of
+products in registers (``csrc/batch_inverse.cu``: three launches a call, the
+tile from the tuning profile); on the CPU the phases are Python loops over
+the rows of the plain product (``batch_inverse_plain``), the JAX package's
+two ``lax.scan`` loops written out.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fields import fast, ops
+from .fields import cuda_ops, fast, ops
 from .fields.field import FieldSpec
+from .tuning import CUDA_BATCH_INVERSE_LANES_LOG
 
 
 # -- elementwise wrappers (the public vecops surface) --------------------------
@@ -110,11 +115,41 @@ def bit_reverse(x, axis: int = -1):
 
 # -- batch inversion (Montgomery's trick) --------------------------------------
 
+def batch_inverse_tile(n: int) -> tuple[int, int]:
+    """The (R, L) tile of the batch-inversion kernels for n elements:
+    L = min(2^CUDA_BATCH_INVERSE_LANES_LOG, n) columns, R rows."""
+    L = max(1, min(1 << CUDA_BATCH_INVERSE_LANES_LOG, n))
+    return -(-n // L), L
+
+
 def batch_inverse(spec: FieldSpec, x):
     """Elementwise Montgomery-form inverse of x (K, ..., n) with ONE field
-    inversion.  inv(0) = 0: zeros are masked out and restored."""
+    inversion.  inv(0) = 0: zeros are taken as one and written back as 0.
+
+    On the card: the three kernels of ``csrc/batch_inverse.cu``, three
+    launches, raising if one fails.  On the CPU: ``batch_inverse_plain``.
+    Inverses are unique and canonical, so both give the same limbs."""
+    if not x.is_cuda:
+        return batch_inverse_plain(spec, x)
+    flat = x.reshape(spec.num_limbs, -1).contiguous()
+    _, L = batch_inverse_tile(flat.shape[-1])
+    return cuda_ops.batch_inverse(spec, flat, L).reshape(x.shape)
+
+
+def batch_inverse_plain(spec: FieldSpec, x):
+    """Plain version of the batch-inversion kernels: the three phases over
+    the plain product (``fields/ops.py``), on the JAX package's tile of 4096
+    columns."""
+    return batch_inverse_loop(spec, x, ops.mont_mul, ops.mont_sqr)
+
+
+def batch_inverse_loop(spec: FieldSpec, x, mul, sqr):
+    """The three phases as a loop of elementwise products ``mul`` and
+    squares ``sqr`` (the JAX package's ``batch_inverse``, its scans written
+    out).  With ``fields/fast.py``'s product and square on the card this is
+    one ``mont_mul`` or ``mont_sqr`` launch a step, the route of the port
+    before the kernels."""
     K = spec.num_limbs
-    mul = lambda a, b: fast.mont_mul(spec, a, b)
     flat = x.reshape(K, -1)
     n = flat.shape[-1]
     dev = flat.device
@@ -133,7 +168,7 @@ def batch_inverse(spec: FieldSpec, x):
     prefix = []
     carry = ops.one_mont(spec, (L,), dev)
     for row in rows:
-        carry = mul(carry, row)
+        carry = mul(spec, carry, row)
         prefix.append(carry)
     colprod = carry                                     # (K, L)
 
@@ -147,27 +182,28 @@ def batch_inverse(spec: FieldSpec, x):
                 shifted = torch.cat([acc[:, d:], ones], dim=-1)
             else:
                 shifted = torch.cat([ones, acc[:, :-d]], dim=-1)
-            acc = mul(acc, shifted)
+            acc = mul(spec, acc, shifted)
             d *= 2
         return acc
 
     pre_incl = lane_scan(colprod, reverse=False)
     suf_incl = lane_scan(colprod, reverse=True)
-    ginv = fast.inv_mont(spec, pre_incl[:, -1:])        # the one inversion
+    ginv = ops.pow_const(spec, pre_incl[:, -1:], spec.modulus - 2,
+                         mul=mul, sqr=sqr)              # the one inversion
 
     # inv(colprod[l]) = ginv * pre_excl[l] * suf_excl[l]
     one_col = ops.one_mont(spec, (1,), dev)
     pre_excl = torch.cat([one_col, pre_incl[:, :-1]], dim=-1)
     suf_excl = torch.cat([suf_incl[:, 1:], one_col], dim=-1)
-    iv = mul(mul(pre_excl, suf_excl), ginv)             # (K, L)
+    iv = mul(spec, mul(spec, pre_excl, suf_excl), ginv)    # (K, L)
 
     # Phase 3: unwind the rows backward.
     # inv(x[r]) = inv(prefix[r]) * prefix[r-1]; iv walks up: iv *= x[r]
     inv_rows = [None] * R
     for r in range(R - 1, -1, -1):
         pprev = prefix[r - 1] if r else ops.one_mont(spec, (L,), dev)
-        inv_rows[r] = mul(iv, pprev)
-        iv = mul(iv, rows[r])
+        inv_rows[r] = mul(spec, iv, pprev)
+        iv = mul(spec, iv, rows[r])
     invx = torch.stack(inv_rows, dim=1).reshape(K, R * L)[:, :n]
 
     out = ops.cmov(zero_mask, torch.zeros_like(invx), invx)
