@@ -5,10 +5,13 @@
 
 Builds the CUDA kernels from ``tpu_bls12_381_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (integer arithmetic, canonical
-results: the tolerance is zero, ``torch.equal``; the doubling chain ``pdbl``
-at every count a path gives it, the batch inversion's three kernels at 2^16
-with zeros planted), sweeps the chains at the paths' widths (``chain_sweep``:
-one doubling on 2^20 lanes, the batch inversion's columns), runs the golden n = 4096 G1
+results: the tolerance is zero, ``torch.equal``; the doubling chains ``pdbl``
+and ``pdbl2`` at every count a path gives them, ``madd`` with P == A planted
+in one lane, in a whole warp and in the last lane of a partial last warp, the
+batch inversion's three kernels at 2^16 with zeros planted), sweeps the chains
+at the paths' widths (``chain_sweep``: one doubling on 2^20 lanes, G1 and G2,
+``madd`` on 2^20 lanes against its build with the doubling in every lane,
+the batch inversion's columns), runs the golden n = 4096 G1
 MSM vector with GLV off and on, and drives the ported paths once each at
 full width: ``msm_g1`` on 2^20 points, checked against one host scalar
 multiplication, its tail's launches against the plan, then the tail's lane
@@ -39,18 +42,21 @@ each kernel at each shape a driven path gives it (``path`` names the path,
 the kernel's own time on the card, read from a ``torch.profiler`` trace of
 the timed launches; ``call_ms`` beside it is what one wrapper call costs
 back to back (host checks, allocation and launch included), by CUDA events.
-A ``pdbl`` row carries its chain's ``times`` (its bound counts that many
-doublings, the bytes once); a ``batch_inverse`` row its three phases' ms
+A ``pdbl`` or ``pdbl2`` row carries its chain's ``times`` (its bound counts
+that many doublings, the bytes once; its plain time is the plain chain's of as
+many doublings); a ``batch_inverse`` row its three phases' ms
 and the whole call's seconds beside those of the launch-a-step route that
 the kernels replace (``vecops.batch_inverse_loop`` on the field kernels).
-Every MSM path's ``pdbl`` launches and doublings are asserted against its
-plan (``doubling_chains``, and the launches by chain length), an upload's
-against its slices and factor, and a batch inversion's against its three
-kernels.
+Every MSM path's ``pdbl`` (G2: ``pdbl2``) launches and doublings are
+asserted against its plan (``doubling_chains``, and the launches by chain
+length), an upload's against its slices and factor, and a batch inversion's
+against its three kernels.
 ``bound_ms`` counts the bytes the function needs (2 for a 16-bit limb);
-``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in; for
-``madd`` and ``jadd``, whose every lane also computes a doubling that only
-the P == A lanes use, ``bound_ms_without_doubling`` is the add's alone.  A
+``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in.  ``madd``
+computes the doubling that only P == A lanes use in a warp that holds one,
+so its ``bound_ms`` is the add's alone and ``bound_ms_with_doubling`` that of
+the sum and the doubling; ``jadd`` computes it in every lane, and its
+``bound_ms_without_doubling`` is the add's alone.  A
 phase's line ends with ``seconds_since_start``.  Any failing phase raises,
 and the exit code is then not 0.  Without a CUDA device the script exits with
 code 2 and prints no result.
@@ -61,6 +67,8 @@ It imports only the port (``tpu_bls12_381_torch``), never JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -93,6 +101,7 @@ PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_ctx_small",
           "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
           "points_2e20", "entry"]
 G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
+PLAIN_ONCE_MS = 30_000  # a plain call this long is timed once (kernel_row)
 
 
 T_START = time.perf_counter()
@@ -179,6 +188,19 @@ def ms_by_kernel(fn, symbols, reps: int) -> dict:
         count = sum(e.count for e in own)
         out[s] = (sum(e.self_device_time_total for e in own) / 1e3 / count if count
                   else "not measured")
+    return out
+
+
+def ptxas_lines(log: str) -> dict:
+    """Registers and spills of each kernel in ``nvcc -Xptxas -v`` output."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln
+        elif "Used" in ln and "registers" in ln and fn:
+            out[fn] = ln.split("ptxas info    :")[-1].strip()
+        elif "spill" in ln and fn and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out[fn + " spills"] = ln.strip()
     return out
 
 
@@ -296,14 +318,7 @@ def main() -> int:
     native_thread.join()
     registers = {}
     for name in paths:
-        fn = None
-        for ln in _build.build_log(name).splitlines():
-            if "Compiling entry function" in ln:
-                fn = ln.split("'")[1] if "'" in ln else ln
-            elif "Used" in ln and "registers" in ln and fn:
-                registers[fn] = ln.split("ptxas info    :")[-1].strip()
-            elif "spill" in ln and fn and "0 bytes spill stores, 0 bytes spill loads" not in ln:
-                registers[fn + " spills"] = ln.strip()
+        registers.update(ptxas_lines(_build.build_log(name)))
     emit({"phase": "build", "seconds": round(build_s, 2),
           "native_host_library": native_build["available"],
           "seconds_native_build_beside": round(native_build["seconds"], 2),
@@ -311,6 +326,28 @@ def main() -> int:
           "ptxas": registers})
     if args.upto == "build":
         return stop_early()
+
+    # madd's other build, which chain_sweep times against the kept one:
+    # g1_jac_kernels.cu with the doubling computed in every lane (no warp
+    # branch, the constant-time select), compiled from a copy of the sources
+    # with that one statement changed, while the kernels phase runs.
+    madd_alt_src = (_build.CSRC_DIR / "g1_jac.cuh").read_text()
+    madd_branch = ("if (WARP_ANY(x_eq & y_eq))\n"
+                   "        R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);")
+    if madd_branch not in madd_alt_src:
+        raise AssertionError("build: madd's warp branch is not in g1_jac.cuh as expected")
+    madd_alt_dir = _build.BUILD_DIR / "madd_every_lane"
+    madd_alt_dir.mkdir(parents=True, exist_ok=True)
+    (madd_alt_dir / "g1_jac.cuh").write_text(madd_alt_src.replace(
+        madd_branch, "R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);"))
+    (madd_alt_dir / "g1_jac_kernels.cu").write_text(
+        (_build.CSRC_DIR / "g1_jac_kernels.cu").read_text())
+    madd_alt_lib = madd_alt_dir / "libg1_jac_kernels.so"
+    madd_alt_proc = subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+         str(madd_alt_lib), str(madd_alt_dir / "g1_jac_kernels.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: madd_alt_proc.poll() is None and madd_alt_proc.kill())
 
     # ------------------------------------------------------------ shared inputs
     rng = np.random.default_rng(SEED)
@@ -369,17 +406,19 @@ def main() -> int:
 
     def counts():
         """Launches by kernel since the counts were set to 0, and
-        ``pdbl_doublings``, the doublings of those ``pdbl`` launches."""
+        ``pdbl_doublings`` / ``pdbl2_doublings``, the doublings of those
+        ``pdbl`` / ``pdbl2`` launches."""
         out = {}
         for mod in modules:
             out.update(mod.LAUNCHES)
         out["pdbl_doublings"] = sum(t * k for t, k in cuda_g1.CHAIN_LAUNCHES.items())
+        out["pdbl2_doublings"] = sum(t * k for t, k in cuda_g2.CHAIN_LAUNCHES.items())
         return out
 
-    def chain_counts():
-        """``pdbl``'s launches since the counts were set to 0, by the
-        doublings each made: times -> launches."""
-        return dict(cuda_g1.CHAIN_LAUNCHES)
+    def chain_counts(mod=cuda_g1):
+        """``pdbl``'s (``mod`` = ``cuda_g2``: ``pdbl2``'s) launches since the
+        counts were set to 0, by the doublings each made: times -> launches."""
+        return dict(mod.CHAIN_LAUNCHES)
 
     def set_budget_mb(mb):
         """What MIDNIGHT_MSM_HBM_BUDGET_MB would say, for the calls that follow."""
@@ -393,46 +432,59 @@ def main() -> int:
         mode and shape of each call."""
         return dict(cuda_g1.SCAN_LAUNCHES)
 
-    def check_tail(what, launches_, plan, chains_):
+    def check_tail(what, launches_, plan, chains_, kernel="pdbl"):
         """The tail's lane scans and adds of one call are the plan's: every
         G1 lane scan went through ``padd_scan``, no Hillis-Steele step is
-        left (each would be one more ``padd``); and every chain of doublings
-        (a window's triangle combine of lb_bits, a Horner step of w) was one
-        ``pdbl`` launch with the chain's doublings: ``chains_``, the call's
-        ``chain_counts()``, is the plan's split."""
-        got = {k: launches_.get(k, 0) for k in plan["tail_launches"]}
-        if got != plan["tail_launches"]:
-            raise AssertionError(f"{what}: tail launches {got}, the plan has "
-                                 f"{plan['tail_launches']}")
-        chains = (launches_.get("pdbl", 0), launches_.get("pdbl_doublings", 0))
+        left (each would be one more ``padd``; G2, ``kernel="pdbl2"``, has
+        no such plan); and every chain of doublings (a window's triangle
+        combine of lb_bits, a Horner step of w) was one ``kernel`` launch
+        (``pdbl``, or ``pdbl2`` for G2) with the chain's doublings:
+        ``chains_``, the call's ``chain_counts()``, is the plan's split."""
+        if kernel != "pdbl2":
+            if plan["tail_launches"] is None:
+                raise AssertionError(f"{what}: the G1 plan has no tail launches")
+            got = {k: launches_.get(k, 0) for k in plan["tail_launches"]}
+            if got != plan["tail_launches"]:
+                raise AssertionError(f"{what}: tail launches {got}, the plan has "
+                                     f"{plan['tail_launches']}")
+        chains = (launches_.get(kernel, 0), launches_.get(f"{kernel}_doublings", 0))
         if chains != (plan["doubling_chains"], plan["doublings"]):
-            raise AssertionError(f"{what}: {chains[0]} pdbl launches for {chains[1]} "
+            raise AssertionError(f"{what}: {chains[0]} {kernel} launches for {chains[1]} "
                                  f"doublings, the plan has {plan['doubling_chains']} "
                                  f"chains of {plan['doublings']}")
         want = {}
         for k, d in ((plan["scan_launches"], plan["lb_bits"]), (plan["T"] - 1, plan["w"])):
             if k > 0 and d > 0:
                 want[d] = want.get(d, 0) + k
-        if chains_ != want or sum(chains_.values()) != launches_.get("pdbl", 0):
-            raise AssertionError(f"{what}: pdbl launches by doublings {chains_}, the "
+        if chains_ != want or sum(chains_.values()) != launches_.get(kernel, 0):
+            raise AssertionError(f"{what}: {kernel} launches by doublings {chains_}, the "
                                  f"plan has {want}")
 
-    def check_upload(what, launches_, slices, factor, span):
-        """An upload of ``slices`` point slices at ``factor``: one ``pdbl``
-        launch of ``span`` doublings and one batch inversion (3 launches, no
-        ``mont_sqr``) a slice and a block past the first."""
+    def check_upload(what, launches_, slices, factor, span, kernel="pdbl", sqr_each=0):
+        """An upload of ``slices`` point slices at ``factor``: one ``kernel``
+        launch (``pdbl``; ``pdbl2`` for G2) of ``span`` doublings and one
+        batch inversion (3 launches, and ``sqr_each`` ``mont_sqr``: none for
+        G1, the Fq2 norm's one for G2) a slice and a block past the first."""
         chains = slices * (factor - 1)
-        got = (launches_.get("pdbl", 0), launches_.get("pdbl_doublings", 0),
+        got = (launches_.get(kernel, 0), launches_.get(f"{kernel}_doublings", 0),
                launches_.get("batch_inverse_fq", 0), launches_.get("mont_sqr_fq", 0))
-        if got != (chains, chains * span, 3 * chains, 0):
+        want = (chains, chains * span, 3 * chains, sqr_each * chains)
+        if got != want:
             raise AssertionError(
-                f"{what}: (pdbl, doublings, batch_inverse_fq, mont_sqr_fq) launches "
-                f"{got}, an upload of {slices} slices at factor {factor} makes "
-                f"{(chains, chains * span, 3 * chains, 0)}")
+                f"{what}: ({kernel}, doublings, batch_inverse_fq, mont_sqr_fq) launches "
+                f"{got}, an upload of {slices} slices at factor {factor} makes {want}")
 
     # ----------------------------------------------------------------- kernels
     N = 1 << 16
     contig = lambda T: tuple(c.contiguous() for c in T)
+
+    def jac_scaled(T, v):
+        """(v^2 X, v^3 Y, v Z): the same Jacobian points with another Z."""
+        l = ops.broadcast_constant(FQ, int_to_limbs(FQ.to_mont(v), 24),
+                                   tuple(T[0].shape[1:]), dev)
+        l2 = FQ_PLAIN.sqr(l)
+        return (FQ_PLAIN.mul(T[0], l2), FQ_PLAIN.mul(T[1], FQ_PLAIN.mul(l2, l)),
+                FQ_PLAIN.mul(T[2], l))
 
     def jac_edge_cases(n):
         """Jacobian P, Q (Z != 1) and affine A on n tiled lanes, with the edge
@@ -440,18 +492,11 @@ def main() -> int:
         Q's Z 7 times P's; 4 both identities; 5 P identity with A's inf;
         6 P == A and 7 P == -A, P's Z = 5; A's inf also on a random eighth."""
         A_ = tiled_affine(n)
-        lam = lambda v: ops.broadcast_constant(FQ, int_to_limbs(FQ.to_mont(v), 24), (n,), dev)
-
-        def scaled(T, l):
-            l2 = FQ_PLAIN.sqr(l)
-            return (FQ_PLAIN.mul(T[0], l2), FQ_PLAIN.mul(T[1], FQ_PLAIN.mul(l2, l)),
-                    FQ_PLAIN.mul(T[2], l))
-
         P_ = list(pt.jac_double(FQ_PLAIN, pt.affine_to_jac(FQ_PLAIN, roll(A_, 1))))
         Q_ = list(pt.jac_add(FQ_PLAIN, pt.affine_to_jac(FQ_PLAIN, roll(A_, 2)), tuple(P_)))
         id_ = pt.jac_identity(FQ_PLAIN, (n,), dev)
-        Pq = scaled(tuple(P_), lam(7))
-        Aq = scaled(pt.affine_to_jac(FQ_PLAIN, A_), lam(5))
+        Pq = jac_scaled(tuple(P_), 7)
+        Aq = jac_scaled(pt.affine_to_jac(FQ_PLAIN, A_), 5)
         for c in range(3):
             P_[c][:, 0] = id_[c][:, 0]
             Q_[c][:, 1] = id_[c][:, 1]
@@ -596,15 +641,18 @@ def main() -> int:
             raise AssertionError(f"pdbl times={times}: 2^k * identity is not the identity")
     emit({"phase": "kernels", "name": "pdbl chains", "N": N, "equal": pdbl_equal})
 
-    def chain_equal(times):
-        """``pdbl(P, times)`` equals ``pdbl_plain(P, times)`` on the 2^16 edge
-        lanes (checked once a count)."""
-        if times not in pdbl_equal:
-            pdbl_equal[times] = trees_equal(cuda_g1.pdbl(P_edge, times),
-                                            cuda_g1.pdbl_plain(P_edge, times))
-            if not pdbl_equal[times]:
-                raise AssertionError(f"pdbl times={times}: kernel and plain version differ")
-        return pdbl_equal[times]
+    def chain_equal(times, curve="g1"):
+        """``pdbl(P, times)`` (``curve="g2"``: ``pdbl2``) equals its plain
+        version on the 2^16 edge lanes (checked once a count)."""
+        kern, plain, P_, seen = ((cuda_g2.pdbl2, cuda_g2.pdbl2_plain, P2_edge, pdbl2_equal)
+                                 if curve == "g2" else
+                                 (cuda_g1.pdbl, cuda_g1.pdbl_plain, P_edge, pdbl_equal))
+        if times not in seen:
+            seen[times] = trees_equal(kern(P_, times), plain(P_, times))
+            if not seen[times]:
+                raise AssertionError(f"{kern.__name__} times={times}: kernel and plain "
+                                     f"version differ")
+        return seen[times]
 
     # Signed mixed add, elementwise (R = 1, accumulator passed in).
     Pm = [c.clone() for c in P]
@@ -704,6 +752,19 @@ def main() -> int:
     check("pdbl2", "pdbl2_kernel", N, cuda_g2.pdbl2(P2), cuda_g2.pdbl2_plain(P2),
           lambda: cuda_g2.pdbl2(P2), lambda: cuda_g2.pdbl2_plain(P2),
           lambda: cuda_g2.LAUNCHES["pdbl2"])
+    # The G2 doubling chain at each count a path gives it (the triangle's 7,
+    # Horner's 14, the factor-2 upload's 140 on 2^20 lanes), on the same
+    # lanes, identities among them: torch.equal to as many plain doublings.
+    pdbl2_equal = {}
+    for times in (1, 7, 14, 140):
+        got = cuda_g2.pdbl2(P2, times)
+        torch.cuda.synchronize()
+        pdbl2_equal[times] = trees_equal(got, cuda_g2.pdbl2_plain(P2, times))
+        if not pdbl2_equal[times]:
+            raise AssertionError(f"pdbl2 times={times}: kernel and plain version differ")
+        if not bool(FQ2_PLAIN.is_zero(got[2][..., [0, 4]]).all()):
+            raise AssertionError(f"pdbl2 times={times}: 2^k * identity is not the identity")
+    emit({"phase": "kernels", "name": "pdbl2 chains", "N": N, "equal": pdbl2_equal})
 
     Pm2 = [c.clone() for c in P2]
     Aproj2 = pj.affine_to_proj(FQ2_PLAIN, A2)
@@ -734,6 +795,7 @@ def main() -> int:
           lambda: cuda_g2.pmadd2_rows(xr, yr, sr, ir),
           lambda: cuda_g2.pmadd2_rows_plain(xr, yr, sr, ir),
           lambda: cuda_g2.LAUNCHES["pmadd2"], reps=3)
+    P2_edge = P2                           # the G2 chains' edge lanes, for the rows below
     del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2
 
     # The Jacobian kernels on the edge lanes of points.jac_add_affine /
@@ -751,6 +813,34 @@ def main() -> int:
     check("madd", "madd_kernel", N, got, cuda_g1.madd_plain(Pj, Aj),
           lambda: cuda_g1.madd(Pj, Aj), lambda: cuda_g1.madd_plain(Pj, Aj),
           lambda: cuda_g1.LAUNCHES["madd"])
+    # madd computes the doubling only in a warp with a P == A lane.  Besides
+    # warp 0's lane 6 above: a whole warp of P == A lanes (warp 1), and a
+    # launch of 2^16 - 3 lanes whose last lane is P == A and the one before
+    # P == -A, so the last warp is partial and branches.
+    madd_equal = {}
+    Pw, inf_w = [c.clone() for c in Pj], Aj[2].clone()
+    n_odd = N - 3
+    eq_lanes, neg_lanes = list(range(32, 64)) + [n_odd - 1], [n_odd - 2]
+    inf_w[eq_lanes + neg_lanes] = False
+    Aw = (Aj[0], Aj[1], inf_w)
+    Aq = jac_scaled(pt.affine_to_jac(FQ_PLAIN, Aw), 5)
+    for c in range(3):
+        Pw[c][:, eq_lanes] = Aq[c][:, eq_lanes]
+        Pw[c][:, neg_lanes] = pt.jac_neg(FQ_PLAIN, Aq)[c][:, neg_lanes]
+    Pw = contig(Pw)
+    for what, P_, A_ in (("warp 1 all P == A", Pw, Aw),
+                         (f"{n_odd} lanes, the last P == A",
+                          tuple(c[:, :n_odd].contiguous() for c in Pw),
+                          tuple(c[..., :n_odd].contiguous() for c in Aw))):
+        got = cuda_g1.madd(P_, A_)
+        torch.cuda.synchronize()
+        madd_equal[what] = trees_equal(got, cuda_g1.madd_plain(P_, A_))
+        if not madd_equal[what]:
+            raise AssertionError(f"madd, {what}: kernel and plain version differ")
+        if not bool(ops.is_zero(FQ, got[2][:, neg_lanes]).all()):
+            raise AssertionError(f"madd, {what}: P + (-A) is not the identity")
+    emit({"phase": "kernels", "name": "madd planted", "N": N, "equal": madd_equal})
+    del Pw, Aw, Aq, inf_w
     check("jdbl", "jdbl_kernel", N, cuda_g1.jdbl(Pj), cuda_g1.jdbl_plain(Pj),
           lambda: cuda_g1.jdbl(Pj), lambda: cuda_g1.jdbl_plain(Pj),
           lambda: cuda_g1.LAUNCHES["jdbl"])
@@ -779,17 +869,49 @@ def main() -> int:
     emit({"phase": "kernels", "name": "batch_inverse", "equal": binv_equal})
     del xb, xn, got
 
-    # The chains' sweep at the paths' widths: one doubling on the upload's
-    # 2^20 lanes (the pdbl[upload] row has its 80), and the batch
-    # inversion's columns L on the upload's (24, 2^20) and the vecops
-    # phase's (16, 2^22).  Kernel times from the trace; every tile against
-    # the first.
+    # The chains' sweep at the paths' widths: one doubling on the uploads'
+    # 2^20 lanes, G1 and G2 (the pdbl[upload] and pdbl2[upload] rows have
+    # their 80 and 140), madd's two builds on the ladder's 2^20 lanes, and
+    # the batch inversion's columns L on the upload's
+    # (24, 2^20) and the vecops phase's (16, 2^22).  Kernel times from the
+    # trace; every tile against the first.
     chain_sweep = []
     Pu = contig(pj.affine_to_proj(FQ_PLAIN, tiled_affine(1 << LOG_N)))
     t_ = measure(lambda: cuda_g1.pdbl(Pu, 1), "pdbl_kernel", 5)
     chain_sweep.append({"kernel": "pdbl", "shape": [24, 1 << LOG_N], "times": 1,
                         "ms": t_["ms"], "ms_from": t_["ms_from"]})
     del Pu
+    Pu2 = contig(pj.affine_to_proj(FQ2_PLAIN, tiled_affine_g2(1 << LOG_N)))
+    t_ = measure(lambda: cuda_g2.pdbl2(Pu2, 1), "pdbl2_kernel", 5)
+    chain_sweep.append({"kernel": "pdbl2", "shape": [24, 2, 1 << LOG_N], "times": 1,
+                        "ms": t_["ms"], "ms_from": t_["ms_from"]})
+    del Pu2
+    # madd on the ladder's (24, 2^20) with no P == A lane (the accumulator
+    # 2A), the kept build (the doubling only in a warp that holds a P == A
+    # lane) and the build with the doubling in every lane, in turns kept,
+    # every lane, every lane, kept; both builds' outputs are held equal.
+    Au = tiled_affine(1 << LOG_N)
+    Pm = contig(cuda_g1.jdbl_plain(pt.affine_to_jac(FQ_PLAIN, Au)))
+    madd_alt_log, _ = madd_alt_proc.communicate()
+    if madd_alt_proc.returncode != 0:
+        raise AssertionError(f"chain_sweep: madd's every-lane build failed:\n{madd_alt_log}")
+    kept_jac_lib = cuda_g1._jac_lib
+    every_lane = ctypes.CDLL(str(madd_alt_lib))
+    every_lane.g1_madd.argtypes = kept_jac_lib().g1_madd.argtypes
+    ref = cuda_g1.madd(Pm, Au)
+    for build_ in ("kept", "every lane", "every lane", "kept"):
+        if build_ == "every lane":
+            cuda_g1._jac_lib = lambda: every_lane
+        try:
+            same = trees_equal(cuda_g1.madd(Pm, Au), ref)
+            t_ = measure(lambda: cuda_g1.madd(Pm, Au), "madd_kernel", 10)
+        finally:
+            cuda_g1._jac_lib = kept_jac_lib
+        chain_sweep.append({"kernel": "madd", "shape": [24, 1 << LOG_N], "build": build_,
+                            "ms": t_["ms"], "ms_from": t_["ms_from"], "equal": same})
+        if not same:
+            raise AssertionError(f"madd's {build_} build differs from the kept one")
+    del Au, Pm, ref
     phases = ("binv_prefix", "binv_columns", "binv_unwind")
     for spec, log_n in ((FQ, LOG_N), (FR, NTT_LOG_N)):
         xs_ = rand_field(spec, 1 << log_n)
@@ -806,7 +928,9 @@ def main() -> int:
                 raise AssertionError(f"batch_inverse at L = 2^{log_l}: the tiles differ")
         del xs_, ref, out_
     torch.cuda.empty_cache()
-    emit({"phase": "chain_sweep", "rows": chain_sweep, "card": smi})
+    emit({"phase": "chain_sweep", "rows": chain_sweep, "card": smi,
+          "ptxas_madd_every_lane": {k: v for k, v in ptxas_lines(madd_alt_log).items()
+                                    if "madd" in k}})
     if args.upto == "kernels":
         return stop_early()
 
@@ -950,15 +1074,30 @@ def main() -> int:
         driven path ``path`` gives it, with its launches in that path's run
         (a kernel that several paths run at different shapes has a row for
         each, named ``kernel[path]``).  ``kernel_fn`` launches the kernel
-        ``per_call`` times; ``plain_fn`` computes what its last launch does.
-        A function of several kernels (``kernels_per_call``, the lane scan's
+        ``per_call`` times; ``plain_fn`` computes what its last launch does,
+        and ``max_abs_err`` compares its output with the kernel's.
+        ``plain_ms`` is the time of a second plain call, since the first
+        call at a shape pays one-off costs (lazy module loading, allocation)
+        that can double a call of a few seconds; a first call of
+        ``PLAIN_ONCE_MS`` or more (the 140-doubling G2 chain) is not
+        repeated, and is the time (``plain_ms_of_call`` says which).  A
+        function of several kernels (``kernels_per_call``, the lane scan's
         passes) is timed whole: ``ms`` is the sum of its kernels' times."""
-        got, want = kernel_fn(), plain_fn()
+        got = kernel_fn()
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain_fn()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(got, want)
         del got, want
+        plain_call = 1 if plain_ms >= PLAIN_ONCE_MS else 2
+        if plain_call == 2:
+            plain_ms = time_ms(plain_fn, 1, warm=False)
         b_ms, b_by = bound(limbs_moved * LIMB_BYTES + mask_bytes, wide_mads)
         s_ms, s_by = bound(limbs_moved * LIMB_BYTES_STORED + mask_bytes, wide_mads)
         timed = measure(kernel_fn, symbol, reps)
@@ -971,7 +1110,7 @@ def main() -> int:
                "replaces": replaces,
                "launches": launches[name] if n_launches is None else n_launches,
                "max_abs_err": err, **timed,
-               "plain_ms": time_ms(plain_fn, 1, warm=False), "bound_ms": b_ms,
+               "plain_ms": plain_ms, "plain_ms_of_call": plain_call, "bound_ms": b_ms,
                "bound_by": b_by, "bound_ms_as_stored": s_ms,
                "bound_by_as_stored": s_by, "library_ms": None, "shape": shape,
                "path": path, **extra}
@@ -983,6 +1122,7 @@ def main() -> int:
     G1_SRC = "tpu_bls12_381_torch/csrc/g1_kernels.cu"
     BINV_SRC = "tpu_bls12_381_torch/csrc/batch_inverse.cu"
     dbl_mads = 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ)     # one doubling, 6M + 2S
+    dbl2_mads = 22 * mul_mads(W_FQ)                        # one G2 doubling, 22 Fq products
 
     def seconds_median(fn, reps=3):
         """Median host seconds of ``fn()`` to a synchronised end."""
@@ -1475,6 +1615,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_g2 = time.perf_counter() - t0
     launches_g2 = counts()
+    chains_g2 = chain_counts(cuda_g2)
     peak_g2 = torch.cuda.max_memory_allocated()
     ok_g2 = (g2_ints(Pg2) == expected_g2
              and all(tuple(c.shape) == (24, 2) for c in Pg2))
@@ -1486,7 +1627,9 @@ def main() -> int:
           "g2_msm_2e20_points_per_s": n / med_g2, "seconds_median_of_3": med_g2,
           "seconds_each": secs_g2, "seconds_first_call": first_g2,
           **{k: geo2[k] for k in ("glv", "w", "T", "L", "R", "nb", "pieces")},
-          "launches": launches_g2, "peak_bytes_allocated": peak_g2,
+          "launches": launches_g2, "pdbl2_launches_by_doublings": chains_g2,
+          "doubling_chains": geo2["doubling_chains"], "doublings": geo2["doublings"],
+          "peak_bytes_allocated": peak_g2,
           "stages_ms": {k: round(v, 3) for k, v in stages_g2.items()},
           "host_points_seconds": round(host_points2_s, 2), "card": smi})
     if not ok_g2:
@@ -1497,6 +1640,7 @@ def main() -> int:
     for k in ("padd2", "pdbl2", "mont_mul_fr"):
         if launches_g2[k] < 1:
             raise AssertionError(f"msm_g2_2e20: {k} never launched on the path")
+    check_tail("msm_g2_2e20", launches_g2, geo2, chains_g2, kernel="pdbl2")
     del Pg2
 
     # The same points as cached bases through g2_context(): factor 2 (no GLV
@@ -1509,8 +1653,14 @@ def main() -> int:
     torch.cuda.synchronize()
     upload2_s = time.perf_counter() - t0
     launches_up2 = counts()
+    chains_up2 = chain_counts(cuda_g2)
     geo2c = msm_geometry(n, bases2.glv, FQ2_ADAPTER, dev, bases2.window_bits,
                          factor=bases2.factor, cached=True)
+    m_up2 = int(bases2.A[2].shape[-1]) // bases2.factor
+    slices_up2 = -(-m_up2 // expand_cap)
+    span_up2 = geo2c["T"] * geo2c["w"]                # doublings between blocks
+    check_upload("msm_g2_2e20: g2_context upload_bases", launches_up2, slices_up2,
+                 bases2.factor, span_up2, kernel="pdbl2", sqr_each=1)
     t0 = time.perf_counter()
     ctx2.msm_with_bases(s_mont, bases2)             # warm call
     torch.cuda.synchronize()
@@ -1521,6 +1671,7 @@ def main() -> int:
     torch.cuda.synchronize()
     call_g2c = time.perf_counter() - t0
     launches_g2c = counts()
+    chains_g2c = chain_counts(cuda_g2)
     peak_g2c = torch.cuda.max_memory_allocated()
     ok_g2c = g2_ints(Pg2c) == expected_g2
     emit({"phase": "msm_g2_2e20", "what": "g2_context factor=2", "n": n,
@@ -1531,13 +1682,15 @@ def main() -> int:
           **{k: geo2c[k] for k in ("glv", "factor", "w", "T", "L", "R", "nb",
                                    "pieces", "scan_launches")},
           "launches": launches_g2c, "launches_upload": launches_up2,
+          "upload_slices": slices_up2, "upload_span": span_up2,
+          "pdbl2_launches_by_doublings": chains_g2c,
           "peak_bytes_allocated": peak_g2c, "card": smi})
     if not ok_g2c:
         raise AssertionError("msm_g2_2e20: the G2 context's result differs from the host's")
     if launches_g2c["pmadd2"] != geo2c["scan_launches"] or geo2c["pieces"] != 1:
         raise AssertionError(f"msm_g2_2e20: the G2 context made {launches_g2c['pmadd2']} "
                              f"scan launches, the plan has {geo2c}")
-    m_up2 = int(bases2.A[2].shape[-1]) // bases2.factor
+    check_tail("msm_g2_2e20 g2_context", launches_g2c, geo2c, chains_g2c, kernel="pdbl2")
     del Pg2c, bases2, s_mont
 
     # ----------------------- the new kernels at the shapes their paths give them
@@ -1591,21 +1744,35 @@ def main() -> int:
                9 * 48 * nl2, 0, nl2 * 36 * mul_mads(W_FQ), 20,
                n_launches=launches_g2["padd2"], path="msm_g2_2e20: msm_g2",
                note="the G2 context's boundary has the same 2*nb lanes")
+    # pdbl2 on one lane, as the triangle combine (lb_bits doublings, a chain
+    # a window) and the Horner ladder (w doublings, a chain a step) call it;
+    # each row's launches are msm_g2's launches of that many doublings
+    # (check_tail asserted that they are all of its pdbl2 launches).
     P12 = tuple(c[..., 7].contiguous() for c in Pl2)
-    kernel_row("pdbl2", "pdbl2_kernel", G2_SRC + "g2_pdbl.cu",
-               "tpu_bls12_381/curves/pallas_g2.py:219",
-               [24, 2, 1], lambda: cuda_g2.pdbl2(P12), lambda: cuda_g2.pdbl2_plain(P12),
-               6 * 48, 0, 22 * mul_mads(W_FQ), 50,
-               n_launches=launches_g2["pdbl2"], path="msm_g2_2e20: msm_g2")
+    if geo2["lb_bits"] == geo2["w"]:
+        raise AssertionError("msm_g2_2e20: the triangle's and Horner's chains are of one "
+                             "length, their launches cannot be told apart")
+    for tag, times in (("triangle", geo2["lb_bits"]), ("horner", geo2["w"])):
+        kernel_row(f"pdbl2[{tag}]", "pdbl2_kernel", G2_SRC + "g2_pdbl.cu",
+                   "tpu_bls12_381/curves/pallas_g2.py:219",
+                   [24, 2, 1], lambda: cuda_g2.pdbl2(P12, times),
+                   lambda: cuda_g2.pdbl2_plain(P12, times),
+                   6 * 48, 0, times * dbl2_mads, 50, n_launches=chains_g2.get(times, 0),
+                   path="msm_g2_2e20: msm_g2", times=times,
+                   equal_at_2e16=chain_equal(times, "g2"))
     del Al2, Pl2, Ql2, P12, A2
+    # The upload's chain of span_up2 doublings on a slice of 2^20 lanes,
+    # held to the plain chain of as many doublings (about a minute).
     nup2 = min(m_up2, expand_cap)
     Pup2 = contig(pj.affine_to_proj(FQ2_PLAIN, tiled_affine_g2(nup2)))
     kernel_row("pdbl2[upload]", "pdbl2_kernel", G2_SRC + "g2_pdbl.cu",
                "tpu_bls12_381/curves/pallas_g2.py:219", [24, 2, nup2],
-               lambda: cuda_g2.pdbl2(Pup2), lambda: cuda_g2.pdbl2_plain(Pup2),
-               6 * 48 * nup2, 0, nup2 * 22 * mul_mads(W_FQ), 10,
-               n_launches=launches_up2["pdbl2"],
-               path="msm_g2_2e20: g2_context upload_bases")
+               lambda: cuda_g2.pdbl2(Pup2, span_up2),
+               lambda: cuda_g2.pdbl2_plain(Pup2, span_up2),
+               6 * 48 * nup2, 0, nup2 * span_up2 * dbl2_mads, 3,
+               n_launches=chains_up2.get(span_up2, 0),
+               path="msm_g2_2e20: g2_context upload_bases", times=span_up2,
+               equal_at_2e16=chain_equal(span_up2, "g2"))
     del Pup2
     torch.cuda.empty_cache()
     if args.upto == "msm_g2_2e20":
@@ -2090,20 +2257,23 @@ def main() -> int:
     jdbl_mads = 2 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
     madd_mads = 9 * mul_mads(W_FQ) + 9 * sqr_mads(W_FQ)
     jadd_mads = 13 * mul_mads(W_FQ) + 10 * sqr_mads(W_FQ)
-    # The doubling inside madd and jadd serves only the P == A lanes; every
-    # lane computes it (constant time, as in JAX).  The bound of the add
-    # alone stands beside the row's bound.
+    # The doubling inside madd and jadd serves only the P == A lanes.  madd
+    # computes it only in a warp that holds such a lane, so its rows' bound
+    # is the add alone (7M + 4S: these inputs need no more), with the bound
+    # of the sum and the doubling (9M + 9S) beside it.  jadd computes it in
+    # every lane (constant time, as in JAX): the add alone stands beside its
+    # bound.
     madd_add_mads = 7 * mul_mads(W_FQ) + 4 * sqr_mads(W_FQ)
     jadd_add_mads = 11 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
-    madd_alone = lambda lanes: bound(8 * 24 * lanes * LIMB_BYTES + lanes,
-                                     lanes * madd_add_mads)[0]
+    madd_with = lambda lanes: bound(8 * 24 * lanes * LIMB_BYTES + lanes,
+                                    lanes * madd_mads)[0]
     jadd_alone = lambda lanes: bound(9 * 24 * lanes * LIMB_BYTES, lanes * jadd_add_mads)[0]
     Pj, Qj, Aj = jac_edge_cases(N)
     edge = "kernels: N = 2^16 with the edge lanes (launches: points_2e20's)"
     kernel_row("madd[edge]", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",
                [24, N], lambda: cuda_g1.madd(Pj, Aj), lambda: cuda_g1.madd_plain(Pj, Aj),
-               8 * 24 * N, N, N * madd_mads, 20, n_launches=launches_sub["madd"],
-               path=edge, equal=True, bound_ms_without_doubling=madd_alone(N))
+               8 * 24 * N, N, N * madd_add_mads, 20, n_launches=launches_sub["madd"],
+               path=edge, equal=True, bound_ms_with_doubling=madd_with(N))
     kernel_row("jadd[edge]", "jadd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:252",
                [24, N], lambda: cuda_g1.jadd(Pj, Qj), lambda: cuda_g1.jadd_plain(Pj, Qj),
                9 * 24 * N, 0, N * jadd_mads, 20, n_launches=launches_sum["jadd"],
@@ -2117,9 +2287,9 @@ def main() -> int:
     Pbig = contig(cuda_g1.jdbl_plain(pt.affine_to_jac(FQ_PLAIN, A)))
     kernel_row("madd", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",
                [24, n], lambda: cuda_g1.madd(Pbig, A), lambda: cuda_g1.madd_plain(Pbig, A),
-               8 * 24 * n, n, n * madd_mads, 10, n_launches=launches_sub["madd"],
+               8 * 24 * n, n, n * madd_add_mads, 10, n_launches=launches_sub["madd"],
                path="points_2e20: is_in_subgroup, one a bit", equal=True,
-               bound_ms_without_doubling=madd_alone(n))
+               bound_ms_with_doubling=madd_with(n))
     kernel_row("jdbl", "jdbl_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
                [24, n], lambda: cuda_g1.jdbl(Pbig), lambda: cuda_g1.jdbl_plain(Pbig),
                6 * 24 * n, 0, n * jdbl_mads, 10, n_launches=launches_sub["jdbl"],

@@ -1,6 +1,7 @@
-"""The chained kernels of the PyTorch/CUDA port, on the CPU: the doubling chain
-(``cuda_g1.pdbl`` with ``times``) and Montgomery's batch inversion in three
-kernels (``csrc/batch_inverse.cu``, ``vecops.batch_inverse``).
+"""The chained kernels of the PyTorch/CUDA port, on the CPU: the doubling chains
+(``cuda_g1.pdbl`` and ``cuda_g2.pdbl2`` with ``times``) and Montgomery's
+batch inversion in three kernels (``csrc/batch_inverse.cu``,
+``vecops.batch_inverse``).
 
 Both kernels keep a chain of dependent field work in registers, one launch a
 chain.  Their device code compiles as host C++ (``csrc/host_check.cpp``), so
@@ -8,7 +9,8 @@ the lane bodies run here in loops over the lanes, phase 2's block scans as
 host loops, and are held limb for limb against the plain versions and
 against the JAX package: ``pdbl`` against ``projective.proj_double`` applied
 ``times`` times (``tests/test_torch_pdbl_pallas.py`` holds it against the
-Pallas ``pdbl`` in interpret mode, whose compile takes over a minute), the
+Pallas ``pdbl`` in interpret mode, whose compile takes over a minute),
+``pdbl2`` against the package's ``_double_n`` over its Fq2 adapter, the
 batch inversion against ``tpu_bls12_381.vecops.batch_inverse``.
 The routers around them (``projective.proj_double_n_fast``,
 ``pippenger._double_n``, ``vecops.batch_inverse_tile``) and the plan's count
@@ -36,8 +38,9 @@ from tpu_bls12_381.fields import FQ as JFQ, FR as JFR
 from tpu_bls12_381.msm import pippenger as jpip
 
 from tpu_bls12_381_torch import convert, oracle, tuning, vecops
-from tpu_bls12_381_torch.curves import cuda_g1, g1, g2, projective as pj
-from tpu_bls12_381_torch.curves.field_adapters import FQ2_ADAPTER, FQ_ADAPTER, FQ_PLAIN
+from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2, projective as pj
+from tpu_bls12_381_torch.curves.field_adapters import (FQ2_ADAPTER, FQ2_PLAIN, FQ_ADAPTER,
+                                                       FQ_PLAIN)
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
 from tpu_bls12_381_torch.msm import msm_geometry, pippenger as pip
@@ -47,6 +50,7 @@ torch.set_num_threads(1)
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tpu_bls12_381_torch", "csrc")
 N = 96
+N2 = 32                # G2 lanes
 SZ = ctypes.c_size_t
 SPECS = {"fr": (FR, JFR), "fq": (FQ, JFQ)}
 
@@ -102,23 +106,59 @@ def points():
     return tuple(c.contiguous() for c in P)
 
 
+@pytest.fixture(scope="module")
+def points2():
+    """Projective G2 points with Z != 1 on N2 lanes; lane 0 the identity."""
+    rng = random.Random(12)
+    G = oracle.g2_generator()
+    base = [oracle.jac_to_affine(oracle.scalar_mul(rng.randrange(1, 1 << 40), G,
+                                                   oracle.FQ2_OPS), oracle.FQ2_OPS)
+            for _ in range(8)]
+    A = g2.affine_from_ints([base[i % 8] for i in range(N2)], device="cpu")
+    P = [c.clone() for c in pj.proj_double(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, A))]
+    ident = pj.proj_identity(FQ2_PLAIN, (N2,), "cpu")
+    for c in range(3):
+        P[c][..., 0] = ident[c][..., 0]
+    return tuple(c.contiguous() for c in P)
+
+
+def _fq2_same(got, want):
+    """A (24, 2, n) tensor against a JAX (c0, c1) pair, limb for limb."""
+    for g, w in zip(convert.fq2_to_numpy(got), want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
 # -----------------------------------------------------------------------------
-# The doubling chain
+# The doubling chains
 # -----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("times", [1, 2, 15])
-def test_pdbl_chain_host(lib, points, times):
-    """``g1_pdbl_lane`` with ``times`` (the kernel's body, on the carry-chain
-    product) against ``pdbl_plain(P, times)`` and the JAX package's
-    doubling applied ``times`` times, limb for limb."""
-    out = [torch.empty_like(points[0]) for _ in range(3)]
-    lib.g1_pdbl(*[_ptr(t) for t in (*points, *out)], SZ(N), ctypes.c_int(times))
-    want = cuda_g1.pdbl_plain(points, times)
+@pytest.mark.parametrize("curve,times", [
+    pytest.param("g1", 1, id="1"), pytest.param("g1", 2, id="2"),
+    pytest.param("g1", 15, id="15"), pytest.param("g2", 1, id="g2-1"),
+    pytest.param("g2", 2, id="g2-2"), pytest.param("g2", 14, id="g2-14"),
+])
+def test_pdbl_chain_host(lib, points, points2, curve, times):
+    """``g1_pdbl_lane`` / ``g2_pdbl_lane`` with ``times`` (the kernels'
+    bodies, on the carry-chain product) against ``pdbl_plain(P, times)`` /
+    ``pdbl2_plain(P, times)`` and the JAX package's doubling applied
+    ``times`` times (G2: its ``_double_n`` over the Fq2 adapter), limb for
+    limb, with an identity lane."""
+    P, n = (points, N) if curve == "g1" else (points2, N2)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    getattr(lib, f"{curve}_pdbl")(*[_ptr(t) for t in (*P, *out)], SZ(n),
+                                  ctypes.c_int(times))
+    plain = cuda_g1.pdbl_plain if curve == "g1" else cuda_g2.pdbl2_plain
+    want = plain(P, times)
     assert all(torch.equal(o, w) for o, w in zip(out, want))
-    assert not out[2][:, 0].any()                   # 2^k * identity = identity
+    assert not out[2][..., 0].any()                 # 2^k * identity = identity
+    if curve == "g2":
+        J = tuple(tuple(jnp.asarray(a) for a in convert.fq2_to_numpy(c)) for c in P)
+        for o, j in zip(out, jpip._double_n(JF2, J, times)):
+            _fq2_same(o, j)
+        return
     dbl = jax.jit(lambda P: jpj.proj_double(JF, P))
-    J = tuple(map(_jnp, points))
+    J = tuple(map(_jnp, P))
     for _ in range(times):
         J = dbl(J)
     for o, j in zip(out, J):
@@ -136,6 +176,20 @@ def test_pdbl_wrapper_on_the_cpu(points):
     assert cuda_g1.LAUNCHES == before and cuda_g1.CHAIN_LAUNCHES == chains
     with pytest.raises(ValueError, match="times"):
         cuda_g1.pdbl(points, 0)
+
+
+def test_pdbl2_wrapper_on_the_cpu(points2):
+    """On CPU tensors ``pdbl2`` is its plain version at any count and
+    launches nothing; a count below 1 raises."""
+    before, chains = dict(cuda_g2.LAUNCHES), dict(cuda_g2.CHAIN_LAUNCHES)
+    got = cuda_g2.pdbl2(points2, 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, cuda_g2.pdbl2_plain(points2, 3)))
+    want = pj.proj_double(FQ2_PLAIN, pj.proj_double(FQ2_PLAIN, pj.proj_double(
+        FQ2_PLAIN, points2)))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert cuda_g2.LAUNCHES == before and cuda_g2.CHAIN_LAUNCHES == chains
+    with pytest.raises(ValueError, match="times"):
+        cuda_g2.pdbl2(points2, 0)
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
@@ -169,19 +223,23 @@ def test_double_n_through_the_router_matches_jax(curve):
 
 
 def test_horner_and_triangle_take_one_chain_a_call(monkeypatch):
-    """With the G1 chain routed to the kernel wrapper (as on the card), the
-    triangle combine and Horner make one ``pdbl`` call a chain with the
-    chain's length, and the result is the looped doubling's."""
-    calls = []
-    real = cuda_g1.pdbl
+    """With the chains routed to the kernel wrappers (as on the card), the
+    triangle combine and Horner make one ``pdbl`` (G1) or ``pdbl2`` (G2)
+    call a chain with the chain's length, ``expand_bases`` one a block past
+    the first, and the result is the looped doubling's."""
+    calls = {"g1": [], "g2": []}
 
-    def counted(P, times=1):
-        calls.append(times)
-        return real(P, times)
+    def counted(curve, real):
+        def wrapper(P, times=1):
+            calls[curve].append(times)
+            return real(P, times)
+        return wrapper
 
-    monkeypatch.setattr(cuda_g1, "pdbl", counted)
+    g1_chain = counted("g1", cuda_g1.pdbl)
+    g2_chain = counted("g2", cuda_g2.pdbl2)
     monkeypatch.setattr(pj, "doubling_chain_kernel",
-                        lambda F, device: counted if F is FQ_ADAPTER else None)
+                        lambda F, device: {FQ_ADAPTER: g1_chain,
+                                           FQ2_ADAPTER: g2_chain}.get(F))
     rng = np.random.default_rng(8)
     pts = [oracle.jac_to_affine(oracle.scalar_mul(int(k), oracle.g1_generator(),
                                                   oracle.FQ_OPS), oracle.FQ_OPS)
@@ -189,19 +247,46 @@ def test_horner_and_triangle_take_one_chain_a_call(monkeypatch):
     W = tuple(c.T.contiguous() for c in pj.affine_to_proj(      # (T, 24): 3 windows
         FQ_ADAPTER, g1.affine_from_ints(pts, device="cpu")))
     got = pip._stage_horner(FQ_ADAPTER, W, 5)
-    assert calls == [5, 5]
+    assert calls["g1"] == [5, 5]
     want = tuple(c[2] for c in W)
     for t in (1, 0):
         want = pj.proj_add(FQ_PLAIN, cuda_g1.pdbl_plain(want, 5), tuple(c[t] for c in W))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    calls.clear()
+    calls["g1"].clear()
     one = tuple(c[0] for c in W)
     pip._stage_triangle_combine(FQ_ADAPTER, one, one, one, 7)
-    assert calls == [7]
-    calls.clear()
-    # G2 keeps a launch a doubling (row 13 is not chained): no pdbl call
-    assert pj.proj_double_n_fast(FQ2_ADAPTER, pj.proj_identity(FQ2_ADAPTER, (2,), "cpu"),
-                                 3) is not None and calls == []
+    assert calls["g1"] == [7]
+    calls["g1"].clear()
+
+    # G2 is chained too: one pdbl2 call a chain (it made a launch a doubling
+    # before the G2 chain kernel)
+    pts2 = [oracle.jac_to_affine(oracle.scalar_mul(int(k), oracle.g2_generator(),
+                                                   oracle.FQ2_OPS), oracle.FQ2_OPS)
+            for k in rng.integers(1, 1 << 30, size=3)]
+    A2 = g2.affine_from_ints(pts2, device="cpu")
+    W2 = tuple(c.permute(2, 0, 1).contiguous()                 # (T, 24, 2)
+               for c in pj.affine_to_proj(FQ2_ADAPTER, A2))
+    got = pip._stage_horner(FQ2_ADAPTER, W2, 3)
+    assert calls["g2"] == [3, 3]
+    want = tuple(c[2] for c in W2)
+    for t in (1, 0):
+        want = pj.proj_add(FQ2_PLAIN, cuda_g2.pdbl2_plain(want, 3), tuple(c[t] for c in W2))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    calls["g2"].clear()
+    one2 = tuple(c[0] for c in W2)
+    pip._stage_triangle_combine(FQ2_ADAPTER, one2, one2, one2, 7)
+    assert calls["g2"] == [7]
+    calls["g2"].clear()
+    # expand_bases at factor 3 over 8-bit scalars, w = 2: T' = 2, span 4
+    got = pip.expand_bases(FQ2_ADAPTER, A2, 2, 3, num_bits=8)
+    assert calls["g2"] == [4, 4] and calls["g1"] == []
+    cur = pj.affine_to_proj(FQ2_PLAIN, A2)
+    blocks = [A2]
+    for _ in range(2):
+        cur = cuda_g2.pdbl2_plain(cur, 4)
+        blocks.append(pj.proj_to_affine(FQ2_PLAIN, cur))
+    for c in range(3):
+        assert torch.equal(got[c], torch.cat([b[c] for b in blocks], dim=-1))
 
 
 def test_plan_counts_the_doubling_chains():
@@ -212,6 +297,19 @@ def test_plan_counts_the_doubling_chains():
     assert geo["doubling_chains"] == T + T - 1
     assert geo["doublings"] == T * lb + (T - 1) * w
     assert (T, lb, w, geo["doubling_chains"], geo["doublings"]) == (9, 7, 15, 17, 183)
+
+
+def test_plan_counts_the_g2_doubling_chains():
+    """The G2 single shot at 2^20 (w = 14, T = 20, lb_bits 7): T triangle
+    chains and T - 1 Horner chains, 39 ``pdbl2`` launches for 406
+    doublings; the cached call at factor 2 (T' = 10) 19 for 196."""
+    geo = msm_geometry(1 << 20, F=FQ2_ADAPTER, device="cpu")
+    T, lb, w = geo["T"], geo["lb_bits"], geo["w"]
+    assert geo["doubling_chains"] == T + T - 1
+    assert geo["doublings"] == T * lb + (T - 1) * w
+    assert (T, lb, w, geo["doubling_chains"], geo["doublings"]) == (20, 7, 14, 39, 406)
+    geo_c = msm_geometry(1 << 20, False, FQ2_ADAPTER, "cpu", 14, factor=2, cached=True)
+    assert (geo_c["T"], geo_c["doubling_chains"], geo_c["doublings"]) == (10, 19, 196)
 
 
 # -----------------------------------------------------------------------------

@@ -347,7 +347,7 @@ def test_padd2_and_pdbl2(lib, points2):
     want = cuda_g2.padd2_plain(P, Q)
     assert all(torch.equal(o, w) for o, w in zip(out, want))
     assert not out[2][..., 3:5].any()          # identity: Z = 0
-    lib.g2_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    lib.g2_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N), ctypes.c_int(1))
     want = cuda_g2.pdbl2_plain(P)
     assert all(torch.equal(o, w) for o, w in zip(out, want))
 
@@ -418,7 +418,7 @@ def test_host_compiled_g2_kernels_match_the_jax_package(lib, points2):
     for o, w in zip(out, jpj.proj_add(JF2, jp(P), jp(Q))):
         for got, want in zip(convert.fq2_to_numpy(o), w):
             np.testing.assert_array_equal(got, np.asarray(want))
-    lib.g2_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N))
+    lib.g2_pdbl(*[_ptr(t) for t in (*P, *out)], SZ(N), ctypes.c_int(1))
     for o, w in zip(out, jpj.proj_double(JF2, jp(P))):
         for got, want in zip(convert.fq2_to_numpy(o), w):
             np.testing.assert_array_equal(got, np.asarray(want))
@@ -490,6 +490,43 @@ def test_madd(lib, jac_points):
     assert torch.equal(out[0][:, 0], A[0][:, 0]) and torch.equal(out[2][:, 0], one)
     got = g1.jacobian_to_ints(tuple(out))
     assert got[6] == g1.jacobian_to_ints(pt.jac_double(FQ_PLAIN, P))[6]   # P + P = 2P
+
+
+@pytest.mark.parametrize("eq_lane,neg_lane", [(0, 1), (N // 2, N // 2 + 1), (N - 1, N - 2)],
+                         ids=["first", "middle", "last"])
+def test_madd_planted_lanes(lib, jac_points, eq_lane, neg_lane):
+    """``g1_madd_lane`` on the carry-chain product, with P == A planted at the
+    first, a middle or the last lane and P == -A beside it (on the card the
+    doubling runs only in a warp that holds a P == A lane; here each lane
+    runs alone, so every lane is such a warp or none): against
+    ``madd_plain`` and the JAX package's ``points.jac_add_affine``, limb for
+    limb."""
+    import jax.numpy as jnp
+
+    from tpu_bls12_381.curves import points as jpt
+    from tpu_bls12_381.curves.field_adapters import FQ_ADAPTER as JF
+
+    P, A = [c.clone() for c in jac_points["P"]], jac_points["A"]
+    inf2 = A[2].clone()
+    inf2[[eq_lane, neg_lane]] = False
+    A = (A[0], A[1], inf2)
+    Aj = _scaled(pt.affine_to_jac(FQ_PLAIN, A), 3)           # Z = 3
+    negAj = pt.jac_neg(FQ_PLAIN, Aj)
+    for c in range(3):
+        P[c][:, eq_lane] = Aj[c][:, eq_lane]
+        P[c][:, neg_lane] = negAj[c][:, neg_lane]
+    P = tuple(c.contiguous() for c in P)
+    out = [torch.empty_like(P[0]) for _ in range(3)]
+    lib.g1_madd(*[_ptr(t) for t in (*P, *A, *out)], SZ(N))
+    assert all(torch.equal(o, w) for o, w in zip(out, cuda_g1.madd_plain(P, A)))
+    assert not out[2][:, neg_lane].any()                     # P + (-P) = O
+    got = g1.jacobian_to_ints(tuple(out))[eq_lane]
+    assert got == g1.jacobian_to_ints(pt.jac_double(FQ_PLAIN, P))[eq_lane]
+    j = lambda t: jnp.asarray(t.numpy().astype(np.uint32) if t.dtype == torch.int32
+                              else t.numpy())
+    want = jpt.jac_add_affine(JF, tuple(map(j, P)), tuple(map(j, A)))
+    for o, w in zip(out, want):
+        np.testing.assert_array_equal(o.numpy().astype(np.uint32), np.asarray(w))
 
 
 def test_host_compiled_jacobian_kernels_match_the_jax_package(lib, jac_points):

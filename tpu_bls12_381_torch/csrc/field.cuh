@@ -30,16 +30,23 @@
 // ROLLED keeps a loop of dependent steps (group operations, products down a
 // column) rolled: unrolled, the compiler overlaps two iterations' registers
 // and spills for no gain.
+// WARP_ANY(p) is true in every lane of a warp where p holds in one of its
+// active lanes (a branch that only some lanes need is then taken by the
+// whole warp or skipped by it).  The mask is the active one, since a launch's
+// last warp may have lanes that returned early.  On the host a lane runs
+// alone: p itself.
 #ifdef __CUDACC__
 #define DEV __device__ __forceinline__
 #define DEV_CONST __device__ __constant__
 #define UNROLL _Pragma("unroll")
 #define ROLLED _Pragma("unroll 1")
+#define WARP_ANY(p) __any_sync(__activemask(), (p))
 #else
 #define DEV inline
 #define DEV_CONST static const
 #define UNROLL
 #define ROLLED
+#define WARP_ANY(p) (p)
 #endif
 
 // p, R mod p and -p^-1 mod 2^32 as little-endian 32-bit words.

@@ -10,7 +10,8 @@
 // for pmadd) or the carry-chain one (CarryMul, for pmadd_signed); the
 // doubling takes its product and square the same way and runs on CarryMul
 // (pdbl).  Both products are canonical, so the limbs are the same either
-// way.
+// way.  The policies (FieldMul, CarryMul: a product and a square) also serve
+// the Jacobian law of g1_jac.cuh and the Fq2 arithmetic of g2.cuh.
 
 #pragma once
 
@@ -26,6 +27,7 @@ DEV fq fq_mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
 
 struct FieldMul {
     static DEV fq mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
+    static DEV fq sqr(const fq& a) { return fp_sqr<Fq>(a); }
 };
 // The square as the product a*a: a canonical product is unique.
 struct CarryMul {

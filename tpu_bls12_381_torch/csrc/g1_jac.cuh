@@ -9,9 +9,20 @@
 // y = Y/Z^3; the identity is any point with Z = 0, and the canonical one
 // written here is (R mod p : R mod p : 0), the Montgomery one twice.
 //
-// Nothing branches on data.  The generic sum and the doubling are computed in
-// every lane, and the edge cases (P == A, P == -A, an identity operand) pick
-// between them with fp_cmov, as the JAX formulas do.
+// The doubling and the add take their Fq product and square as a parameter
+// (g1.cuh's policies): madd runs on the carry-chain product (CarryMul, its
+// squares the products a*a), jdbl and jadd on field.cuh's (FieldMul).  Both
+// products are canonical, so the limbs are the same either way.
+//
+// The edge cases (P == A, P == -A, an identity operand) pick between the
+// generic sum and the doubling with fp_cmov, as the JAX formulas do, in the
+// same order.  jadd and jdbl branch on no data.  madd computes the doubling
+// only in a warp that holds a P == A lane (WARP_ANY): every lane writes the
+// value it would write with the doubling computed everywhere, but a call's
+// time now depends on whether a warp holds such a lane.  Its one caller is
+// points.scalar_mul under is_in_subgroup, with the public scalar r and the
+// public points of an SRS; the MSM never reaches it (it runs the projective
+// pmadd_signed and pmadd of g1.cuh).
 //
 // fp_sub is canonical only for canonical operands.  Every operand here comes
 // from a kernel, from g1.affine_from_ints or from the plain versions, all of
@@ -45,49 +56,54 @@ DEV G1Jac g1_jac_identity() {
 }
 
 // dbl-2009-l (a = 0), 2M + 5S.  Complete for Z = 0: Z3 = 2YZ = 0.
+template <class M>
 DEV G1Jac g1_jac_dbl(const G1Jac& P) {
-    fq A = fq_sqr(P.X);
-    fq B = fq_sqr(P.Y);
-    fq C = fq_sqr(B);
-    fq D = fq_sub(fq_sub(fq_sqr(fq_add(P.X, B)), A), C);
+    fq A = M::sqr(P.X);
+    fq B = M::sqr(P.Y);
+    fq C = M::sqr(B);
+    fq D = fq_sub(fq_sub(M::sqr(fq_add(P.X, B)), A), C);
     D = fq_add(D, D);
     fq E = fq_add(fq_add(A, A), A);                 // 3A
-    fq G = fq_sqr(E);
+    fq G = M::sqr(E);
     G1Jac R;
     R.X = fq_sub(G, fq_add(D, D));
     fq C8 = fq_add(C, C);
     C8 = fq_add(C8, C8);
     C8 = fq_add(C8, C8);
-    R.Y = fq_sub(fq_mul(E, fq_sub(D, R.X)), C8);
-    R.Z = fq_mul(fq_add(P.Y, P.Y), P.Z);
+    R.Y = fq_sub(M::mul(E, fq_sub(D, R.X)), C8);
+    R.Z = M::mul(fq_add(P.Y, P.Y), P.Z);
     return R;
 }
 
-// madd-2007-bl (Z2 = 1), 7M + 4S, plus the doubling for P == A.  The affine
-// operand cannot hold the identity, so `inf2` passes P through.
+// madd-2007-bl (Z2 = 1), 7M + 4S, plus the doubling for P == A, computed only
+// where a lane of the warp needs it.  The affine operand cannot hold the
+// identity, so `inf2` passes P through.
+template <class M>
 DEV G1Jac g1_jac_madd(const G1Jac& P, const fq& x2, const fq& y2, bool inf2) {
-    fq Z1Z1 = fq_sqr(P.Z);
-    fq U2 = fq_mul(x2, Z1Z1);
-    fq S2 = fq_mul(fq_mul(y2, P.Z), Z1Z1);
+    fq Z1Z1 = M::sqr(P.Z);
+    fq U2 = M::mul(x2, Z1Z1);
+    fq S2 = M::mul(M::mul(y2, P.Z), Z1Z1);
     fq H = fq_sub(U2, P.X);
-    fq HH = fq_sqr(H);
+    fq HH = M::sqr(H);
     fq I = fq_add(HH, HH);
     I = fq_add(I, I);
-    fq J = fq_mul(H, I);
+    fq J = M::mul(H, I);
     fq rr = fq_sub(S2, P.Y);
     fq r = fq_add(rr, rr);
-    fq V = fq_mul(P.X, I);
+    fq V = M::mul(P.X, I);
     G1Jac R;
-    R.X = fq_sub(fq_sub(fq_sqr(r), J), fq_add(V, V));
-    fq YJ = fq_mul(P.Y, J);
-    R.Y = fq_sub(fq_mul(r, fq_sub(V, R.X)), fq_add(YJ, YJ));
-    R.Z = fq_sub(fq_sub(fq_sqr(fq_add(P.Z, H)), Z1Z1), HH);
+    R.X = fq_sub(fq_sub(M::sqr(r), J), fq_add(V, V));
+    fq YJ = M::mul(P.Y, J);
+    R.Y = fq_sub(M::mul(r, fq_sub(V, R.X)), fq_add(YJ, YJ));
+    R.Z = fq_sub(fq_sub(M::sqr(fq_add(P.Z, H)), Z1Z1), HH);
 
-    // the selections, in the order of points.jac_add_affine
+    // the selections, in the order of points.jac_add_affine; a warp with no
+    // P == A lane would select R everywhere, so it skips the doubling
     bool idP = fq_is_zero(P.Z);
     bool x_eq = fq_is_zero(H) & !idP & !inf2;
     bool y_eq = fq_is_zero(rr);
-    R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl(P), R);        // P == A
+    if (WARP_ANY(x_eq & y_eq))
+        R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);  // P == A
     R = g1_jac_cmov(x_eq & !y_eq, g1_jac_identity(), R);   // P == -A
     G1Jac promoted;                                        // identity + A
     promoted.X = x2;
@@ -122,7 +138,7 @@ DEV G1Jac g1_jac_add(const G1Jac& P, const G1Jac& Q) {
     bool idQ = fq_is_zero(Q.Z);
     bool x_eq = fq_is_zero(H) & !idP & !idQ;
     bool y_eq = fq_is_zero(rr);
-    R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl(P), R);        // P == Q
+    R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<FieldMul>(P), R);  // P == Q
     R = g1_jac_cmov(x_eq & !y_eq, g1_jac_identity(), R);   // P == -Q
     R = g1_jac_cmov(idP, Q, R);
     return g1_jac_cmov(idQ, P, R);
@@ -153,7 +169,8 @@ DEV void g1_jac_store(uint32_t* X, uint32_t* Y, uint32_t* Z, size_t n, size_t id
 DEV void g1_jdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
                       size_t idx) {
-    g1_jac_store(X3, Y3, Z3, n, idx, g1_jac_dbl(g1_jac_load(X1, Y1, Z1, n, idx)));
+    g1_jac_store(X3, Y3, Z3, n, idx,
+                 g1_jac_dbl<FieldMul>(g1_jac_load(X1, Y1, Z1, n, idx)));
 }
 
 DEV void g1_madd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
@@ -163,7 +180,7 @@ DEV void g1_madd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1
     G1Jac P = g1_jac_load(X1, Y1, Z1, n, idx);
     fq x = fp_load<Fq>(x2, n, idx);
     fq y = fp_load<Fq>(y2, n, idx);
-    g1_jac_store(X3, Y3, Z3, n, idx, g1_jac_madd(P, x, y, inf2[idx] != 0));
+    g1_jac_store(X3, Y3, Z3, n, idx, g1_jac_madd<CarryMul>(P, x, y, inf2[idx] != 0));
 }
 
 DEV void g1_jadd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,

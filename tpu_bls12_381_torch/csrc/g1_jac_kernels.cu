@@ -8,12 +8,25 @@
 // sum_reduce (one add a round).
 //
 // What bounds them on an H100: a doubling is 2 products and 5 squares against
-// 6 * 24 limbs a lane; the mixed add computes its sum and the doubling in every
-// lane (9 products, 9 squares against 8 * 24 limbs and a mask byte), the add
-// likewise (13 products, 10 squares against 9 * 24 limbs).  A product is 300
+// 6 * 24 limbs a lane; the mixed add's sum is 7 products and 4 squares against
+// 8 * 24 limbs and a mask byte, the add computes its sum and the doubling in
+// every lane (13 products, 10 squares against 9 * 24 limbs).  A product is 300
 // wide multiply-adds and a square 234, so the integer pipe binds on wide
 // launches; with few lanes (the last rounds of sum_reduce) a launch is bound
-// by its latency.  Nothing here is tuned.
+// by its latency.  What madd's design does about it (jdbl and jadd are as
+// first written):
+//  * it runs on the carry-chain product of field_carry.cuh (two
+//    mad.lo.cc / madc.hi.cc chains a row), its squares as products a*a;
+//  * it computes the doubling (2M + 5S) only in a warp where a lane has
+//    P == A, which no lane of a real SRS has on the is_in_subgroup ladder
+//    (the accumulator there is 2 * prefix * A; a member's last step meets
+//    P == -A, the identity selection, which needs no doubling).  The values
+//    are those of the doubling computed everywhere (g1_jac.cuh).
+// madd takes 254 registers.  Its build with the doubling in every lane (255
+// registers, 52 bytes of spill; chip_smoke.py's chain_sweep times the two)
+// takes about 1.57 times as long on an H100; builds for three blocks an SM
+// and builds without the doubling at all read within 5% of the kept one
+// (PERF.md): what is left of its time is the sum's.
 //
 // Plain C interface for ctypes: device pointers to int32 limb planes, the mask
 // as one byte per lane, `stream` a cudaStream_t, return value

@@ -7,7 +7,11 @@
 // products; _k2_sqr: complex squaring, two; _k2_mul12; _k2_proj_add,
 // _k2_proj_madd, _k2_proj_dbl), so that with canonical field results the
 // coordinates written back equal the plain PyTorch versions in
-// curves/projective.py over FQ2_PLAIN limb for limb.
+// curves/projective.py over FQ2_PLAIN limb for limb.  The Fq2 product and
+// square take their Fq product as a parameter (g1.cuh's policies): the
+// doubling runs on the carry-chain product (CarryMul, pdbl2), the two adds on
+// field.cuh's (FieldMul, pmadd2 and padd2).  Both products are canonical, so
+// the limbs are the same either way.
 //
 // Stored layout of an Fq2 batch: (24, 2, n) int32, limbs first, then the
 // component (c0, c1), then the lanes.  Limb k of component c of lane idx is
@@ -49,21 +53,23 @@ DEV fq2 fq2_neg(const fq2& a) {
 
 // Karatsuba: v0 = a0 b0, v1 = a1 b1; real = v0 - v1,
 // imaginary = (a0 + a1)(b0 + b1) - v0 - v1.
+template <class M>
 DEV fq2 fq2_mul(const fq2& a, const fq2& b) {
-    fq v0 = fq_mul(a.c0, b.c0);
-    fq v1 = fq_mul(a.c1, b.c1);
-    fq s = fq_mul(fq_add(a.c0, a.c1), fq_add(b.c0, b.c1));
+    fq v0 = M::mul(a.c0, b.c0);
+    fq v1 = M::mul(a.c1, b.c1);
+    fq s = M::mul(fq_add(a.c0, a.c1), fq_add(b.c0, b.c1));
     fq2 r;
     r.c0 = fq_sub(v0, v1);
     r.c1 = fq_sub(fq_sub(s, v0), v1);
     return r;
 }
 
-// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u.
+// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: two products, no Fq square.
+template <class M>
 DEV fq2 fq2_sqr(const fq2& a) {
     fq2 r;
-    r.c0 = fq_mul(fq_add(a.c0, a.c1), fq_sub(a.c0, a.c1));
-    fq m = fq_mul(a.c0, a.c1);
+    r.c0 = M::mul(fq_add(a.c0, a.c1), fq_sub(a.c0, a.c1));
+    fq m = M::mul(a.c0, a.c1);
     r.c1 = fq_add(m, m);
     return r;
 }
@@ -108,60 +114,72 @@ DEV G2Proj g2_identity() {
 
 // Algorithm 7: complete addition, 12 Fq2 products + 2 mul12.
 DEV G2Proj g2_proj_add(const G2Proj& P, const G2Proj& Q) {
-    fq2 t0 = fq2_mul(P.X, Q.X);
-    fq2 t1 = fq2_mul(P.Y, Q.Y);
-    fq2 t2 = fq2_mul(P.Z, Q.Z);
-    fq2 t3 = fq2_sub(fq2_mul(fq2_add(P.X, P.Y), fq2_add(Q.X, Q.Y)), fq2_add(t0, t1));
-    fq2 t4 = fq2_sub(fq2_mul(fq2_add(P.Y, P.Z), fq2_add(Q.Y, Q.Z)), fq2_add(t1, t2));
-    fq2 ty = fq2_sub(fq2_mul(fq2_add(P.X, P.Z), fq2_add(Q.X, Q.Z)), fq2_add(t0, t2));
+    fq2 t0 = fq2_mul<FieldMul>(P.X, Q.X);
+    fq2 t1 = fq2_mul<FieldMul>(P.Y, Q.Y);
+    fq2 t2 = fq2_mul<FieldMul>(P.Z, Q.Z);
+    fq2 t3 = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.X, P.Y), fq2_add(Q.X, Q.Y)),
+                     fq2_add(t0, t1));
+    fq2 t4 = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.Y, P.Z), fq2_add(Q.Y, Q.Z)),
+                     fq2_add(t1, t2));
+    fq2 ty = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.X, P.Z), fq2_add(Q.X, Q.Z)),
+                     fq2_add(t0, t2));
     fq2 t0_3 = fq2_add(fq2_add(t0, t0), t0);
     t2 = fq2_mul12(t2);
     fq2 Z3 = fq2_add(t1, t2);
     t1 = fq2_sub(t1, t2);
     fq2 Y3 = fq2_mul12(ty);
     G2Proj R;
-    R.X = fq2_sub(fq2_mul(t3, t1), fq2_mul(t4, Y3));
-    R.Y = fq2_add(fq2_mul(t1, Z3), fq2_mul(Y3, t0_3));
-    R.Z = fq2_add(fq2_mul(Z3, t4), fq2_mul(t0_3, t3));
+    R.X = fq2_sub(fq2_mul<FieldMul>(t3, t1), fq2_mul<FieldMul>(t4, Y3));
+    R.Y = fq2_add(fq2_mul<FieldMul>(t1, Z3), fq2_mul<FieldMul>(Y3, t0_3));
+    R.Z = fq2_add(fq2_mul<FieldMul>(Z3, t4), fq2_mul<FieldMul>(t0_3, t3));
     return R;
 }
 
 // Algorithm 8: complete mixed addition (Z2 = 1), 11 Fq2 products + 2 mul12.
 // The affine encoding cannot hold the identity, so `inf2` passes P through.
 DEV G2Proj g2_proj_madd(const G2Proj& P, const fq2& x2, const fq2& y2, bool inf2) {
-    fq2 t0 = fq2_mul(P.X, x2);
-    fq2 t1 = fq2_mul(P.Y, y2);
-    fq2 t3 = fq2_sub(fq2_mul(fq2_add(P.X, P.Y), fq2_add(x2, y2)), fq2_add(t0, t1));
-    fq2 t4 = fq2_add(fq2_mul(x2, P.Z), P.X);
-    fq2 t5 = fq2_add(fq2_mul(y2, P.Z), P.Y);
+    fq2 t0 = fq2_mul<FieldMul>(P.X, x2);
+    fq2 t1 = fq2_mul<FieldMul>(P.Y, y2);
+    fq2 t3 = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.X, P.Y), fq2_add(x2, y2)),
+                     fq2_add(t0, t1));
+    fq2 t4 = fq2_add(fq2_mul<FieldMul>(x2, P.Z), P.X);
+    fq2 t5 = fq2_add(fq2_mul<FieldMul>(y2, P.Z), P.Y);
     fq2 t0_3 = fq2_add(fq2_add(t0, t0), t0);
     fq2 t2 = fq2_mul12(P.Z);
     fq2 Z3 = fq2_add(t1, t2);
     t1 = fq2_sub(t1, t2);
     fq2 Y3 = fq2_mul12(t4);
     G2Proj R;
-    R.X = fq2_cmov(inf2, P.X, fq2_sub(fq2_mul(t3, t1), fq2_mul(t5, Y3)));
-    R.Y = fq2_cmov(inf2, P.Y, fq2_add(fq2_mul(t1, Z3), fq2_mul(Y3, t0_3)));
-    R.Z = fq2_cmov(inf2, P.Z, fq2_add(fq2_mul(Z3, t5), fq2_mul(t0_3, t3)));
+    R.X = fq2_cmov(inf2, P.X,
+                   fq2_sub(fq2_mul<FieldMul>(t3, t1), fq2_mul<FieldMul>(t5, Y3)));
+    R.Y = fq2_cmov(inf2, P.Y,
+                   fq2_add(fq2_mul<FieldMul>(t1, Z3), fq2_mul<FieldMul>(Y3, t0_3)));
+    R.Z = fq2_cmov(inf2, P.Z,
+                   fq2_add(fq2_mul<FieldMul>(Z3, t5), fq2_mul<FieldMul>(t0_3, t3)));
     return R;
 }
 
 // Algorithm 9: complete doubling, 6 Fq2 products + 2 complex squares + mul12.
+// X*Y is taken first: X is read nowhere else, so it dies at the top and the
+// live set through the rest is Y, Z and that product.  The products, their
+// operands and their association are the formula's, so the values are too.
+template <class M>
 DEV G2Proj g2_proj_dbl(const G2Proj& P) {
-    fq2 t0 = fq2_sqr(P.Y);
+    fq2 xy = fq2_mul<M>(P.X, P.Y);
+    fq2 t0 = fq2_sqr<M>(P.Y);
     fq2 Z3 = fq2_add(t0, t0);
     Z3 = fq2_add(Z3, Z3);
     Z3 = fq2_add(Z3, Z3);                          // 8 Y^2
-    fq2 t1 = fq2_mul(P.Y, P.Z);
-    fq2 t2 = fq2_mul12(fq2_sqr(P.Z));              // 3b' Z^2
-    fq2 X3 = fq2_mul(t2, Z3);
+    fq2 t1 = fq2_mul<M>(P.Y, P.Z);
+    fq2 t2 = fq2_mul12(fq2_sqr<M>(P.Z));           // 3b' Z^2
+    fq2 X3 = fq2_mul<M>(t2, Z3);
     fq2 Y3 = fq2_add(t0, t2);
     G2Proj R;
-    R.Z = fq2_mul(t1, Z3);
+    R.Z = fq2_mul<M>(t1, Z3);
     t2 = fq2_add(fq2_add(t2, t2), t2);             // 9b' Z^2
     t0 = fq2_sub(t0, t2);
-    R.Y = fq2_add(fq2_mul(t0, Y3), X3);
-    fq2 t = fq2_mul(t0, fq2_mul(P.X, P.Y));
+    R.Y = fq2_add(fq2_mul<M>(t0, Y3), X3);
+    fq2 t = fq2_mul<M>(t0, xy);
     R.X = fq2_add(t, t);
     return R;
 }
@@ -219,8 +237,14 @@ DEV void g2_padd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1
     g2_store(X3, Y3, Z3, n, idx, g2_proj_add(P, Q));
 }
 
+// The doubling chain: the lane loaded once, doubled `times` times in
+// registers on the carry-chain product, stored once (times = 1: the
+// elementwise doubling), as g1_pdbl_lane.
 DEV void g2_pdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
-                      size_t idx) {
-    g2_store(X3, Y3, Z3, n, idx, g2_proj_dbl(g2_load(X1, Y1, Z1, n, idx)));
+                      size_t idx, int times) {
+    G2Proj P = g2_load(X1, Y1, Z1, n, idx);
+    ROLLED
+    for (int k = 0; k < times; ++k) P = g2_proj_dbl<CarryMul>(P);
+    g2_store(X3, Y3, Z3, n, idx, P);
 }

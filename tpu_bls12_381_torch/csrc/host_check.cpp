@@ -258,8 +258,8 @@ void fq2_ops(const uint32_t* a, const uint32_t* b, uint32_t* prod,
              uint32_t* sqr, uint32_t* m12, size_t n) {
     for (size_t i = 0; i < n; ++i) {
         fq2 x = fq2_load(a, n, i), y = fq2_load(b, n, i);
-        fq2_store(prod, n, i, fq2_mul(x, y));
-        fq2_store(sqr, n, i, fq2_sqr(x));
+        fq2_store(prod, n, i, fq2_mul<FieldMul>(x, y));
+        fq2_store(sqr, n, i, fq2_sqr<FieldMul>(x));
         fq2_store(m12, n, i, fq2_mul12(x));
     }
 }
@@ -280,9 +280,10 @@ void g2_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
         g2_padd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, i);
 }
 
+// The doubling chain of g2_pdbl.cu's pdbl2: `times` doublings a lane.
 void g2_pdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
-             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
-    for (size_t i = 0; i < n; ++i) g2_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
+             uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n, int times) {
+    for (size_t i = 0; i < n; ++i) g2_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i, times);
 }
 
 }  // extern "C"

@@ -9,15 +9,20 @@ Counterpart of the JAX package's ``curves/pallas_g2.py``:
 * ``padd2`` takes the place of ``_padd2_kernel`` / ``padd2`` (``:201``,
   ``:315``): RCB16 algorithm 7 over Fq2;
 * ``pdbl2`` takes the place of ``_pdbl2_kernel`` / ``pdbl2`` (``:219``,
-  ``:327``): RCB16 algorithm 9 over Fq2 with complex squaring.
+  ``:327``): RCB16 algorithm 9 over Fq2 with complex squaring, with a count
+  ``times``: one launch doubles every lane ``times`` times in registers, where
+  the JAX package's ``_double_n`` runs a ``fori_loop`` of launches
+  (``projective.proj_double_n_fast`` routes the G2 MSM's doubling chains to
+  it), on the carry-chain Fq product of ``csrc/field_carry.cuh``.
 
 The kernels are CUDA C++ in ``csrc/g2_pmadd.cu``, ``csrc/g2_padd.cu`` and
 ``csrc/g2_pdbl.cu`` (formulas in ``csrc/g2.cuh``): one thread per lane.  ``pmadd2_rows`` is the looped form,
 as ``cuda_g1.pmadd_signed_rows``: one launch walks the R rows of a scan tile
 inside each thread and writes every prefix row.  On an H100 the integer pipe
 bounds the wide launches (33 to 36 Fq products a lane against 1,152 to 1,728
-bytes), the many launches on few lanes are bound by launch latency, and the
-two adds spill registers (PERF.md has the numbers).
+bytes, 22 a doubling against 576 bytes a chain), the launches on few lanes
+are bound by launch latency, and the two adds spill registers (PERF.md has
+the numbers).
 
 An Fq2 coordinate is one ``(24, 2, *batch)`` int32 tensor (limbs, then the
 component, then the batch: ``curves/field_adapters.py``).  The kernel gets
@@ -32,7 +37,8 @@ For CUDA tensors it launches the kernel or raises; there is no fallback.  The
 wrappers copy nothing: coordinates must be contiguous and of one shape, masks
 contiguous, and anything else raises (the ``*_fast`` routers of
 ``curves/projective.py`` broadcast and lay out for them).  ``LAUNCHES``
-counts kernel launches, and nothing else.
+counts kernel launches, and nothing else; ``CHAIN_LAUNCHES`` splits
+``pdbl2``'s by the doublings ``times`` a launch made.
 """
 
 from __future__ import annotations
@@ -51,13 +57,16 @@ from .field_adapters import FQ2_PLAIN
 K = FQ.num_limbs
 
 LAUNCHES = {"pmadd2": 0, "padd2": 0, "pdbl2": 0}
+# pdbl2's launches by chain length: times -> launches (the doublings are
+# the sum of times * launches).
+CHAIN_LAUNCHES = {}
 
 _PTR = ctypes.c_void_p
 _ARGTYPES = {
     "g2_pmadd": ([_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 5
                  + [ctypes.c_longlong, ctypes.c_int, _PTR]),
     "g2_padd": [_PTR] * 9 + [ctypes.c_longlong, _PTR],
-    "g2_pdbl": [_PTR] * 6 + [ctypes.c_longlong, _PTR],
+    "g2_pdbl": [_PTR] * 6 + [ctypes.c_longlong, ctypes.c_int, _PTR],
 }
 _ENTRIES: dict = {}
 
@@ -65,6 +74,7 @@ _ENTRIES: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CHAIN_LAUNCHES.clear()
 
 
 def _entry(name: str):
@@ -99,8 +109,11 @@ def padd2_plain(P, Q):
     return pj.proj_add(FQ2_PLAIN, P, Q)
 
 
-def pdbl2_plain(P):
-    return pj.proj_double(FQ2_PLAIN, P)
+def pdbl2_plain(P, times: int = 1):
+    """``times`` plain doublings in a row."""
+    for _ in range(times):
+        P = pj.proj_double(FQ2_PLAIN, P)
+    return P
 
 
 # -----------------------------------------------------------------------------
@@ -222,20 +235,26 @@ def padd2(P, Q):
     return tuple(out)
 
 
-def pdbl2(P):
-    """Complete projective doubling over Fq2."""
+def pdbl2(P, times: int = 1):
+    """``times`` complete projective doublings over Fq2 of every lane,
+    2^times P (``proj_double`` contract, applied ``times`` times): one
+    launch, the chain in registers."""
     coords = list(P)
     _check_coords(coords, "pdbl2")
+    times = int(times)
+    if times < 1:
+        raise ValueError(f"pdbl2: times must be >= 1, got {times}")
     if not P[0].is_cuda:
-        return pdbl2_plain(P)
+        return pdbl2_plain(P, times)
     dev = P[0].device
     out = [torch.empty_like(P[0]) for _ in range(3)]
     with torch.cuda.device(dev):
         code = _entry("g2_pdbl")(
             *[t.data_ptr() for t in coords], *[o.data_ptr() for o in out],
-            P[0].numel() // (2 * K), stream_ptr(dev))
+            P[0].numel() // (2 * K), times, stream_ptr(dev))
     check_launch(code, "g2_pdbl")
     LAUNCHES["pdbl2"] += 1
+    CHAIN_LAUNCHES[times] = CHAIN_LAUNCHES.get(times, 0) + 1
     return tuple(out)
 
 

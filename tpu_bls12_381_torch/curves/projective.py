@@ -407,21 +407,28 @@ def proj_double_fast(F, P):
 
 def doubling_chain_kernel(F, device):
     """The wrapper that doubles a point many times in one launch for
-    adapter ``F`` on ``device`` (``cuda_g1.pdbl`` with ``times``: G1 on the
-    card), else None (a doubling at a time)."""
-    if torch.device(device).type != "cuda" or F is not FQ_ADAPTER:
+    adapter ``F`` on ``device`` (with ``times``: ``cuda_g1.pdbl`` for G1,
+    ``cuda_g2.pdbl2`` for G2, on the card), else None (a doubling at a
+    time)."""
+    if torch.device(device).type != "cuda":
         return None
-    from . import cuda_g1
+    if F is FQ_ADAPTER:
+        from . import cuda_g1
 
-    return cuda_g1.pdbl
+        return cuda_g1.pdbl
+    if F is FQ2_ADAPTER:
+        from . import cuda_g2
+
+        return cuda_g2.pdbl2
+    return None
 
 
 def proj_double_n_fast(F, P, times: int):
-    """2^times P: ``times`` doublings in a row.  A G1 point tensor on the card
-    goes to ONE launch of the doubling chain (``cuda_g1.pdbl`` with
-    ``times``); anything else doubles ``times`` times (``proj_double`` on the
-    CPU, a ``pdbl2`` launch each for G2 on the card).  Limb for limb the JAX
-    package's ``_double_n``: the same formula, step by step."""
+    """2^times P: ``times`` doublings in a row.  A G1 or G2 point tensor on
+    the card goes to ONE launch of the doubling chain (``cuda_g1.pdbl`` or
+    ``cuda_g2.pdbl2`` with ``times``); anything else doubles ``times`` times
+    (``proj_double`` on the CPU).  Limb for limb the JAX package's
+    ``_double_n``: the same formula, step by step."""
     if times <= 0:
         return P
     chain = doubling_chain_kernel(F, P[0].device)

@@ -44,7 +44,8 @@ the CPU and for G2 they are the JAX package's Hillis-Steele steps.  The
 boundary, the triangle combine and Horner call the add and the doubling on
 few lanes; that part is bound by launch latency.  A chain of doublings
 (``_double_n``: the triangle combine's lb_bits, Horner's w, ``expand_bases``'
-span) is, for G1 on the card, one launch (``projective.proj_double_n_fast``).
+span) is, on the card, one launch (``projective.proj_double_n_fast``:
+``pdbl`` for G1, ``pdbl2`` for G2).
 
 Not ported: ``msm_chunked`` and ``msm_traceable`` (the JAX package's
 pmap/trace forms).
@@ -240,8 +241,8 @@ def _weighted_index_sum(F, P):
 
 
 def _double_n(F, P, times: int):
-    """2^times P, for G1 on the card one launch (the JAX package's
-    ``fori_loop`` of doublings)."""
+    """2^times P, on the card one launch (the JAX package's ``fori_loop``
+    of doublings)."""
     return pj.proj_double_n_fast(F, P, times)
 
 
@@ -585,8 +586,9 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     scan launches and 5 adds; each piece after the first of a group adds its
     window sums in once; Horner adds T - 1 times), else None.
     ``doubling_chains``: the call's chains of doublings (one a window's
-    triangle combine, one a Horner step; for G1 on the card each is one
-    ``pdbl`` launch) and ``doublings``, the doublings in them.
+    triangle combine, one a Horner step; on the card each is one ``pdbl``
+    launch for G1, one ``pdbl2`` launch for G2) and ``doublings``, the
+    doublings in them.
     """
     from ..device import resolve_device
 
