@@ -19,7 +19,12 @@ scan (``padd_scan``) at its shapes and the ``tile_sweep`` (the scan kernel
 over three tiles of one window's adds, ``padd`` at two widths); the cached-bases path a prover calls (``g1_context()``:
 ``upload_bases`` with precompute factor 2, ``msm_with_bases``, ``msm_batch``,
 an MSM forced into 4 pieces) on the same 2^20 points, and ``msm_g2`` and
-``g2_context()`` (factor 2) on 2^20 G2 points, each checked against the host; and the Fr NTT on 2^22 elements
+``g2_context()`` (factor 2) on 2^20 G2 points, each checked against the host,
+their tails' launches against the plan (the G2 lane scan ``padd2_scan``, held
+to its plain version in every mode on 2^16 - 3 and 3 x 1,001 lanes, then at
+each of the paths' shapes), then the ``tile_sweep_g2`` (the G2 scan kernel
+over four tiles of one window's adds, ``padd2`` at two widths); and the Fr NTT
+on 2^22 elements
 through ``NttContext`` (the four-step by default, the radix-2 ladder when
 asked), checked against host sums, round trips and each other; then the
 vector ops at 2^22.  Then SRS point validation (``points_2e20``): 2^20 G1
@@ -320,6 +325,7 @@ def main() -> int:
     for name in paths:
         registers.update(ptxas_lines(_build.build_log(name)))
     emit({"phase": "build", "seconds": round(build_s, 2),
+          "seconds_by_source": {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()},
           "native_host_library": native_build["available"],
           "seconds_native_build_beside": round(native_build["seconds"], 2),
           "libraries": sorted(p.name for p in paths.values()),
@@ -427,26 +433,26 @@ def main() -> int:
         else:
             os.environ["MIDNIGHT_MSM_HBM_BUDGET_MB"] = str(mb)
 
-    def scan_counts():
-        """``padd_scan``'s launches since the counts were set to 0, by the
-        mode and shape of each call."""
-        return dict(cuda_g1.SCAN_LAUNCHES)
+    def scan_counts(mod=cuda_g1):
+        """``padd_scan``'s (``mod`` = ``cuda_g2``: ``padd2_scan``'s) launches
+        since the counts were set to 0, by the mode and shape of each call."""
+        return dict(mod.SCAN_LAUNCHES)
 
     def check_tail(what, launches_, plan, chains_, kernel="pdbl"):
         """The tail's lane scans and adds of one call are the plan's: every
-        G1 lane scan went through ``padd_scan``, no Hillis-Steele step is
-        left (each would be one more ``padd``; G2, ``kernel="pdbl2"``, has
-        no such plan); and every chain of doublings (a window's triangle
-        combine of lb_bits, a Horner step of w) was one ``kernel`` launch
-        (``pdbl``, or ``pdbl2`` for G2) with the chain's doublings:
+        lane scan went through the scan kernel (``padd_scan``, or
+        ``padd2_scan`` for G2), no Hillis-Steele step is left (each would be
+        one more ``padd`` / ``padd2``): the plan's ``tail_launches``, keyed by
+        the curve's kernels; and every chain of doublings (a window's
+        triangle combine of lb_bits, a Horner step of w) was one ``kernel``
+        launch (``pdbl``, or ``pdbl2`` for G2) with the chain's doublings:
         ``chains_``, the call's ``chain_counts()``, is the plan's split."""
-        if kernel != "pdbl2":
-            if plan["tail_launches"] is None:
-                raise AssertionError(f"{what}: the G1 plan has no tail launches")
-            got = {k: launches_.get(k, 0) for k in plan["tail_launches"]}
-            if got != plan["tail_launches"]:
-                raise AssertionError(f"{what}: tail launches {got}, the plan has "
-                                     f"{plan['tail_launches']}")
+        if plan["tail_launches"] is None:
+            raise AssertionError(f"{what}: the plan has no tail launches")
+        got = {k: launches_.get(k, 0) for k in plan["tail_launches"]}
+        if got != plan["tail_launches"]:
+            raise AssertionError(f"{what}: tail launches {got}, the plan has "
+                                 f"{plan['tail_launches']}")
         chains = (launches_.get(kernel, 0), launches_.get(f"{kernel}_doublings", 0))
         if chains != (plan["doubling_chains"], plan["doublings"]):
             raise AssertionError(f"{what}: {chains[0]} {kernel} launches for {chains[1]} "
@@ -795,8 +801,52 @@ def main() -> int:
           lambda: cuda_g2.pmadd2_rows(xr, yr, sr, ir),
           lambda: cuda_g2.pmadd2_rows_plain(xr, yr, sr, ir),
           lambda: cuda_g2.LAUNCHES["pmadd2"], reps=3)
+    # The same rows on 1,001 lanes (the last block part empty), a column of
+    # identities among them.
+    tile_o = tile[..., :1001].contiguous()
+    xo, yo = tile_o[:, :48].unflatten(1, (24, 2)), tile_o[:, 48:].unflatten(1, (24, 2))
+    so, io = sr[:, :1001].contiguous(), ir[:, :1001].contiguous()
+    g2_odd_equal = {"pmadd2_rows 8 x 1001": trees_equal(
+        cuda_g2.pmadd2_rows(xo, yo, so, io), cuda_g2.pmadd2_rows_plain(xo, yo, so, io))}
+    # The elementwise kernels on 2^16 - 3 lanes (a partial last block), the
+    # edge lanes above among them: identities, P == A (lane 5), P == -A
+    # (lane 6), inf2 lanes (7, 9 and a random eighth), negated lanes.
+    n_odd2 = N - 3
+    cut = lambda T: tuple(c[..., :n_odd2].contiguous() for c in T)
+    Pm2o, A2o, sign_o = cut(Pm2), cut(A2), sign[:n_odd2].contiguous()
+    g2_odd_equal[f"pmadd2 {n_odd2}"] = trees_equal(
+        cuda_g2.pmadd2(Pm2o, A2o, sign_o), cuda_g2.pmadd2_plain(Pm2o, A2o, sign_o))
+    P2o, Q2o = cut(P2), cut(Q2)
+    g2_odd_equal[f"padd2 {n_odd2}"] = trees_equal(cuda_g2.padd2(P2o, Q2o),
+                                                   cuda_g2.padd2_plain(P2o, Q2o))
+    emit({"phase": "kernels", "name": "G2 adds on odd widths", "equal": g2_odd_equal})
+    for what_, ok_ in g2_odd_equal.items():
+        if not ok_:
+            raise AssertionError(f"{what_}: kernel and plain version differ")
+    del tile_o, xo, yo, so, io, Pm2o, A2o, sign_o, P2o, Q2o
+
+    # The G2 lane scan in every mode, on 2^16 - 3 lanes of one row (a
+    # partial last block) and on 3 rows of 1,001 lanes, with the edge lanes:
+    # identities (lanes 0 and 4 of P2), P and -P side by side (lanes 8 and
+    # 9: P2's lane 3 and Q2's, which is -P there).
+    Ps2 = tuple(torch.cat([p[..., :8], p[..., 3:4], q[..., 3:4], p[..., 10:n_odd2]],
+                          dim=-1).contiguous() for p, q in zip(P2, Q2))
+    Po2 = tuple(c[..., :3 * 1001].reshape(24, 2, 3, 1001).contiguous() for c in Ps2)
+    for operand, what in ((Ps2, f"{n_odd2}"), (Po2, "3 x 1001")):
+        for mode in modes:
+            if not trees_equal(cuda_g2.padd2_scan(operand, **mode),
+                               cuda_g2.padd2_scan_plain(operand, **mode)):
+                raise AssertionError(f"padd2_scan {what} {mode}: kernel and plain differ")
+    pair2 = tuple(c[..., 8:10].contiguous() for c in Ps2)
+    if not bool(FQ2_PLAIN.is_zero(cuda_g2.padd2_scan(pair2, total=True)[2]).all()):
+        raise AssertionError("padd2_scan: P + (-P) is not the identity")
+    check("padd2_scan", "padd_scan_", n_odd2, cuda_g2.padd2_scan(Ps2, exclusive=True),
+          cuda_g2.padd2_scan_plain(Ps2, exclusive=True),
+          lambda: cuda_g2.padd2_scan(Ps2, exclusive=True),
+          lambda: cuda_g2.padd2_scan_plain(Ps2, exclusive=True),
+          lambda: cuda_g2.LAUNCHES["padd2_scan"], reps=3)
     P2_edge = P2                           # the G2 chains' edge lanes, for the rows below
-    del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2
+    del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2, Ps2, Po2
 
     # The Jacobian kernels on the edge lanes of points.jac_add_affine /
     # jac_add / jac_double (operands from jac_edge_cases, below).
@@ -1211,46 +1261,61 @@ def main() -> int:
 
     scan_row_g1("pmadd_signed", "msm_2e20: msm_g1", R, L, launches["pmadd_signed"])
 
-    def proj_points(shape):
-        """Projective points with Z != 1 on the lanes of ``shape``."""
+    def proj_points(shape, curve="g1"):
+        """Projective points with Z != 1 on the lanes of ``shape`` (G1, or G2
+        for ``curve="g2"``)."""
         lanes = int(np.prod(shape))
-        P_ = pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, tiled_affine(lanes)))
-        return tuple(c.reshape((24,) + tuple(shape)).contiguous() for c in P_)
+        F_, elem, tiled = ((FQ2_PLAIN, (24, 2), tiled_affine_g2) if curve == "g2"
+                           else (FQ_PLAIN, (24,), tiled_affine))
+        P_ = pj.proj_double(F_, pj.affine_to_proj(F_, tiled(lanes)))
+        return tuple(c.reshape(elem + tuple(shape)).contiguous() for c in P_)
 
-    def scan_row(name, path, shape, n_launches, **mode):
+    # The lane scan of each curve: (wrapper, plain, source, the add it
+    # replaces, limbs a point, Fq products an add).
+    SCANS = {"g1": (cuda_g1.padd_scan, cuda_g1.padd_scan_plain, G1_SRC,
+                    "tpu_bls12_381/curves/pallas_g1.py:465", 24, 12),
+             "g2": (cuda_g2.padd2_scan, cuda_g2.padd2_scan_plain,
+                    "tpu_bls12_381_torch/csrc/g2_padd_scan.cu",
+                    "tpu_bls12_381/curves/pallas_g2.py:201", 48, 36)}
+
+    def scan_row(name, path, shape, n_launches, curve="g1", **mode):
         """The lane scan at one of the tail's shapes; its bound counts the
         L - 1 adds a row that any scan needs."""
-        P_ = proj_points(shape)
+        scan_, plain_, src_, replaces_, limbs_, prods_ = SCANS[curve]
+        P_ = proj_points(shape, curve)
         rows_, L_ = int(np.prod(shape[:-1])), shape[-1]
         total_ = mode.get("total", False)
-        kernel_row(name, "padd_scan_", G1_SRC, "tpu_bls12_381/curves/pallas_g1.py:465",
-                   [24, *shape], lambda: cuda_g1.padd_scan(P_, **mode),
-                   lambda: cuda_g1.padd_scan_plain(P_, **mode),
-                   3 * 24 * (rows_ * L_ + (rows_ if total_ else rows_ * L_)), 0,
-                   rows_ * (L_ - 1) * 12 * mul_mads(W_FQ), 5, n_launches=n_launches,
+        add_ = "padd2" if curve == "g2" else "padd"
+        kernel_row(name, "padd_scan_", src_, replaces_,
+                   [*P_[0].shape[:-len(shape)], *shape], lambda: scan_(P_, **mode),
+                   lambda: plain_(P_, **mode),
+                   3 * limbs_ * (rows_ * L_ + (rows_ if total_ else rows_ * L_)), 0,
+                   rows_ * (L_ - 1) * prods_ * mul_mads(W_FQ), 5, n_launches=n_launches,
                    path=path, kernels_per_call=2 if total_ else 3, mode=mode,
-                   note="replaces the log2(L) Hillis-Steele padd steps of the "
+                   note=f"replaces the log2(L) Hillis-Steele {add_} steps of the "
                         "JAX package's lane scans")
 
     scan_kw = {cuda_g1.scan_mode(**kw): kw
                for kw in [dict(total=True)] + [dict(reverse=r, exclusive=e)
                                                for r in (False, True) for e in (False, True)]}
 
-    def scan_rows(tag, path, by_shape, n_total):
-        """One ``padd_scan[tag: mode shape]`` row for each mode and shape at
-        which the driven path called the scan, with the launches counted at
-        it in that path's run (``cuda_g1.SCAN_LAUNCHES``); together they are
-        all of the path's ``padd_scan`` launches.  On the single shot: the
-        stitch (prefix exclusive, L lanes), the triangle's column and row
-        totals (Lb x Rb, Rb x Lb), its weighted suffix scan and that scan's
-        total (2 x Lb)."""
+    def scan_rows(tag, path, by_shape, n_total, curve="g1"):
+        """One ``padd_scan[tag: mode shape]`` (G2: ``padd2_scan[...]``) row
+        for each mode and shape at which the driven path called the scan,
+        with the launches counted at it in that path's run
+        (``cuda_g1.SCAN_LAUNCHES``, ``cuda_g2.SCAN_LAUNCHES``); together they
+        are all of the path's scan launches.  On the single shot: the stitch
+        (prefix exclusive, L lanes), the triangle's column and row totals
+        (Lb x Rb, Rb x Lb), its weighted suffix scan and that scan's total
+        (2 x Lb)."""
+        kernel_ = "padd2_scan" if curve == "g2" else "padd_scan"
         if sum(by_shape.values()) != n_total:
-            raise AssertionError(f"{path}: padd_scan launches by shape {by_shape} "
+            raise AssertionError(f"{path}: {kernel_} launches by shape {by_shape} "
                                  f"do not sum to the {n_total} counted")
         for (mode_name, shape_), n_ in sorted(by_shape.items()):
-            dims = list(shape_[1:])
-            scan_row(f"padd_scan[{tag}: {mode_name} {'x'.join(map(str, dims))}]",
-                     path, dims, n_, **scan_kw[mode_name])
+            dims = list(shape_[2 if curve == "g2" else 1:])
+            scan_row(f"{kernel_}[{tag}: {mode_name} {'x'.join(map(str, dims))}]",
+                     path, dims, n_, curve, **scan_kw[mode_name])
 
     scan_rows("single", "msm_2e20: msm_g1", scans, launches["padd_scan"])
 
@@ -1616,6 +1681,7 @@ def main() -> int:
     first_g2 = time.perf_counter() - t0
     launches_g2 = counts()
     chains_g2 = chain_counts(cuda_g2)
+    scans_g2 = scan_counts(cuda_g2)
     peak_g2 = torch.cuda.max_memory_allocated()
     ok_g2 = (g2_ints(Pg2) == expected_g2
              and all(tuple(c.shape) == (24, 2) for c in Pg2))
@@ -1626,7 +1692,8 @@ def main() -> int:
     emit({"phase": "msm_g2_2e20", "n": n, "equal": bool(ok_g2),
           "g2_msm_2e20_points_per_s": n / med_g2, "seconds_median_of_3": med_g2,
           "seconds_each": secs_g2, "seconds_first_call": first_g2,
-          **{k: geo2[k] for k in ("glv", "w", "T", "L", "R", "nb", "pieces")},
+          **{k: geo2[k] for k in ("glv", "w", "T", "L", "R", "nb", "pieces",
+                                  "tail_launches")},
           "launches": launches_g2, "pdbl2_launches_by_doublings": chains_g2,
           "doubling_chains": geo2["doubling_chains"], "doublings": geo2["doublings"],
           "peak_bytes_allocated": peak_g2,
@@ -1637,7 +1704,7 @@ def main() -> int:
     if launches_g2["pmadd2"] != geo2["T"] or geo2["pieces"] != 1:
         raise AssertionError(f"msm_g2_2e20: {launches_g2['pmadd2']} scan launches, "
                              f"the plan has {geo2['T']} windows")
-    for k in ("padd2", "pdbl2", "mont_mul_fr"):
+    for k in ("padd2", "padd2_scan", "pdbl2", "mont_mul_fr"):
         if launches_g2[k] < 1:
             raise AssertionError(f"msm_g2_2e20: {k} never launched on the path")
     check_tail("msm_g2_2e20", launches_g2, geo2, chains_g2, kernel="pdbl2")
@@ -1672,6 +1739,7 @@ def main() -> int:
     call_g2c = time.perf_counter() - t0
     launches_g2c = counts()
     chains_g2c = chain_counts(cuda_g2)
+    scans_g2c = scan_counts(cuda_g2)
     peak_g2c = torch.cuda.max_memory_allocated()
     ok_g2c = g2_ints(Pg2c) == expected_g2
     emit({"phase": "msm_g2_2e20", "what": "g2_context factor=2", "n": n,
@@ -1680,7 +1748,7 @@ def main() -> int:
           "g2_msm_cached_2e20_points_per_s": n / call_g2c,
           "pipeline_points": geo2c["n"],
           **{k: geo2c[k] for k in ("glv", "factor", "w", "T", "L", "R", "nb",
-                                   "pieces", "scan_launches")},
+                                   "pieces", "scan_launches", "tail_launches")},
           "launches": launches_g2c, "launches_upload": launches_up2,
           "upload_slices": slices_up2, "upload_span": span_up2,
           "pdbl2_launches_by_doublings": chains_g2c,
@@ -1742,8 +1810,23 @@ def main() -> int:
                [24, 2, nl2], lambda: cuda_g2.padd2(Pl2, Ql2),
                lambda: cuda_g2.padd2_plain(Pl2, Ql2),
                9 * 48 * nl2, 0, nl2 * 36 * mul_mads(W_FQ), 20,
-               n_launches=launches_g2["padd2"], path="msm_g2_2e20: msm_g2",
-               note="the G2 context's boundary has the same 2*nb lanes")
+               n_launches=launches_g2["padd2"], path="msm_g2_2e20: msm_g2")
+    nl2c = 2 * geo2c["nb"]
+    Al2c = tiled_affine_g2(nl2c)
+    Pl2c = contig(pj.proj_double(FQ2_PLAIN, pj.affine_to_proj(FQ2_PLAIN, Al2c)))
+    Ql2c = contig(pj.affine_to_proj(FQ2_PLAIN, roll(Al2c, 1)))
+    kernel_row("padd2[cached]", "padd2_kernel", G2_SRC + "g2_padd.cu",
+               "tpu_bls12_381/curves/pallas_g2.py:201",
+               [24, 2, nl2c], lambda: cuda_g2.padd2(Pl2c, Ql2c),
+               lambda: cuda_g2.padd2_plain(Pl2c, Ql2c),
+               9 * 48 * nl2c, 0, nl2c * 36 * mul_mads(W_FQ), 20,
+               n_launches=launches_g2c["padd2"],
+               path="msm_g2_2e20: g2_context msm_with_bases")
+    del Al2c, Pl2c, Ql2c
+    scan_rows("single", "msm_g2_2e20: msm_g2", scans_g2, launches_g2["padd2_scan"], "g2")
+    scan_rows("cached", "msm_g2_2e20: g2_context msm_with_bases", scans_g2c,
+              launches_g2c["padd2_scan"], "g2")
+    torch.cuda.empty_cache()
     # pdbl2 on one lane, as the triangle combine (lb_bits doublings, a chain
     # a window) and the Horner ladder (w doublings, a chain a step) call it;
     # each row's launches are msm_g2's launches of that many doublings
@@ -1775,6 +1858,56 @@ def main() -> int:
                equal_at_2e16=chain_equal(span_up2, "g2"))
     del Pup2
     torch.cuda.empty_cache()
+
+    # The G2 tile sweep: one window's 2^20 signed G2 adds as (R, L) tiles of
+    # 128 x 2^13, 64 x 2^14, 32 x 2^15 and 16 x 2^16 and back (each held to
+    # the plain rows on its first 2 rows), with the stitch's lane scan at each
+    # L; then padd2 at the boundary's 2*nb lanes and at 2^16.  Kernel times
+    # from the trace.
+    sweep2 = []
+    adds2 = 1 << LOG_N
+    At_ = tiled_affine_g2(adds2)
+    tile_all = torch.cat([At_[0].reshape(48, -1), At_[1].reshape(48, -1)], dim=0)
+    del At_
+    sign_all = torch.from_numpy(rng.integers(0, 2, size=adds2).astype(bool)).to(dev)
+    inf_all = torch.from_numpy(rng.integers(0, 16, size=adds2) == 0).to(dev)
+
+    def g2_tile(log_l):
+        Ls = 1 << log_l
+        Rs = adds2 // Ls
+        ts = tile_all.reshape(96, Rs, Ls).permute(1, 0, 2).contiguous()
+        return (ts[:, :48].unflatten(1, (24, 2)), ts[:, 48:].unflatten(1, (24, 2)),
+                sign_all.reshape(Rs, Ls), inf_all.reshape(Rs, Ls))
+
+    for log_l in (13, 14, 15, 16, 16, 15, 14, 13):
+        xs_, ys_, ss_, is_ = g2_tile(log_l)
+        rows_ = cuda_g2.pmadd2_rows(xs_, ys_, ss_, is_)
+        head = cuda_g2.pmadd2_rows_plain(xs_[:2], ys_[:2], ss_[:2], is_[:2])
+        if not trees_equal(tuple(c[:2] for c in rows_), head):
+            raise AssertionError(f"pmadd2 at {xs_.shape[0]} x 2^{log_l}: kernel and plain "
+                                 f"differ")
+        t_ = measure(lambda: cuda_g2.pmadd2_rows(xs_, ys_, ss_, is_), "pmadd2_kernel", 3)
+        sweep2.append({"kernel": "pmadd2", "tile": [xs_.shape[0], 1 << log_l],
+                       "ms": t_["ms"], "ms_from": t_["ms_from"]})
+        col = tuple(c[-1].contiguous() for c in rows_)
+        t_ = measure(lambda: cuda_g2.padd2_scan(col, exclusive=True), "padd_scan_", 5)
+        sweep2.append({"kernel": "padd2_scan", "shape": [24, 2, 1 << log_l],
+                       "what": "the stitch",
+                       "ms": t_["ms"] * (3 if t_["ms_from"] == "profiler" else 1),
+                       "ms_from": t_["ms_from"]})
+        del xs_, ys_, ss_, is_, rows_, head, col
+
+    for lanes_ in (nl2, 1 << 16):
+        Pw, Qw = proj_points([lanes_], "g2"), contig(pj.affine_to_proj(
+            FQ2_PLAIN, tiled_affine_g2(lanes_)))
+        if not trees_equal(cuda_g2.padd2(Pw, Qw), cuda_g2.padd2_plain(Pw, Qw)):
+            raise AssertionError(f"padd2 at {lanes_} lanes: kernel and plain differ")
+        t_ = measure(lambda: cuda_g2.padd2(Pw, Qw), "padd2_kernel", 20)
+        sweep2.append({"kernel": "padd2", "shape": [24, 2, lanes_], "ms": t_["ms"],
+                       "ms_from": t_["ms_from"]})
+    del tile_all, sign_all, inf_all, Pw, Qw
+    torch.cuda.empty_cache()
+    emit({"phase": "tile_sweep_g2", "adds": adds2, "rows": sweep2, "card": smi})
     if args.upto == "msm_g2_2e20":
         return stop_early()
 

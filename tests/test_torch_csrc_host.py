@@ -557,7 +557,8 @@ def test_host_compiled_jacobian_kernels_match_the_jax_package(lib, jac_points):
 
 
 # -----------------------------------------------------------------------------
-# The carry-chain product (field_carry.cuh) and the lane scan (padd_scan)
+# The carry-chain product (field_carry.cuh) and the lane scans (padd_scan,
+# padd2_scan)
 # -----------------------------------------------------------------------------
 
 def test_carry_chain_product(lib):
@@ -596,4 +597,30 @@ def test_padd_scan(lib, points, rows, L, run, threads, mode):
                      ctypes.c_int(mode.get("reverse", False)),
                      ctypes.c_int(mode.get("exclusive", False)))
     want = cuda_g1.padd_scan_plain(P, run=run, threads=threads, **mode)
+    assert all(torch.equal(o, w) for o, w in zip(S if total else O, want))
+
+
+@pytest.mark.parametrize("rows,L,run,threads,mode", [
+    (2, 19, 2, 4, dict()),                            # 3 blocks, the last part empty
+    (1, 64, 4, 4, dict(exclusive=True)),              # 4 blocks, the carry pass folds
+    (2, 7, 4, 2, dict(reverse=True)),                 # one block
+    (1, 20, 1, 4, dict(reverse=True, exclusive=True)),
+    (2, 19, 2, 4, dict(total=True)),
+])
+def test_padd2_scan(lib, points2, rows, L, run, threads, mode):
+    """The G2 lane scan (``g2_padd_scan``: lane_scan.cuh's passes on G2
+    points, the block scans as host loops) against ``padd2_scan_plain`` limb
+    for limb: the same association; identities among the lanes."""
+    P = tuple(c[..., :rows * L].reshape(24, 2, rows, L).contiguous() for c in points2["Q"])
+    nblk, threads2, _ = cuda_g1.scan_geometry(L, run, threads)
+    new = lambda *d: [torch.empty((24, 2) + d, dtype=torch.int32) for _ in range(3)]
+    V, C = new(rows, nblk * threads), new(rows, nblk)
+    total = mode.get("total", False)
+    O, S = ([None] * 3, new(rows)) if total else (new(rows, L), [None] * 3)
+    ptr = lambda t: None if t is None else _ptr(t)
+    lib.g2_padd_scan(*[ptr(t) for t in (*P, *O, *S, *V, *C)], SZ(rows), SZ(L),
+                     ctypes.c_int(run), ctypes.c_int(threads), ctypes.c_int(threads2),
+                     ctypes.c_int(mode.get("reverse", False)),
+                     ctypes.c_int(mode.get("exclusive", False)))
+    want = cuda_g2.padd2_scan_plain(P, run=run, threads=threads, **mode)
     assert all(torch.equal(o, w) for o, w in zip(S if total else O, want))

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from tpu_bls12_381_torch import oracle
-from tpu_bls12_381_torch.curves import cuda_g1, g1, projective as pj
+from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, projective as pj
 from tpu_bls12_381_torch.curves.field_adapters import FQ2_ADAPTER, FQ_ADAPTER, FQ_PLAIN
 from tpu_bls12_381_torch.fields import FR
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
@@ -260,9 +260,12 @@ def test_plan_counts_the_tail_only_on_the_scan_route(scan_on_the_cpu):
 
 
 def test_plan_has_no_tail_counts_for_the_hillis_steele_route():
+    """The CPU takes the Hillis-Steele steps for both curves, and its plan has
+    no tail counts; the card takes the scan kernel of each curve."""
     assert pj.lane_scan_kernel(FQ_ADAPTER, "cpu") is None
-    assert pj.lane_scan_kernel(FQ2_ADAPTER, "cuda") is None
+    assert pj.lane_scan_kernel(FQ2_ADAPTER, "cpu") is None
     assert pj.lane_scan_kernel(FQ_ADAPTER, "cuda") is cuda_g1.padd_scan
+    assert pj.lane_scan_kernel(FQ2_ADAPTER, "cuda") is cuda_g2.padd2_scan
     assert msm_geometry(1 << 12, False, device="cpu")["tail_launches"] is None
 
 

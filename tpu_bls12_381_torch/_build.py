@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
@@ -30,6 +32,9 @@ NVCC_FLAGS = [
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _PATHS: dict[str, Path] | None = None
+# Seconds from the start of this process's build to each source's end (the
+# sources compile side by side; empty where everything was built already).
+BUILD_SECONDS: dict[str, float] = {}
 
 
 class BuildError(RuntimeError):
@@ -73,6 +78,7 @@ def build() -> dict[str, Path]:
     todo = [name for name, p in paths.items() if not p.exists()]
     if todo:
         nvcc = find_nvcc()
+        t0 = time.perf_counter()
         procs = []
         for name in todo:
             tmp = paths[name].with_suffix(f".tmp{os.getpid()}.so")
@@ -81,9 +87,15 @@ def build() -> dict[str, Path]:
             procs.append((name, tmp, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
+        def wait(item):
+            out, _ = item[3].communicate()
+            return out, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            waited = list(pool.map(wait, procs))
         failures = []
-        for name, tmp, cmd, proc in procs:
-            out, _ = proc.communicate()
+        for (name, tmp, cmd, proc), (out, seconds) in zip(procs, waited):
+            BUILD_SECONDS[name] = seconds
             (BUILD_DIR / f"{name}_{tag}.log").write_text(out)
             if proc.returncode != 0:
                 failures.append(f"{' '.join(cmd)}\nexit code {proc.returncode}\n{out}")

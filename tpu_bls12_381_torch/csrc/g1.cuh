@@ -197,101 +197,36 @@ DEV void g1_pdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1
     g1_store(X3, Y3, Z3, n, idx, P);
 }
 
-// ---------------------------------------------------------------------------
-// The lane scan (padd_scan in g1_kernels.cu): RCB16 additions scanned along
-// the last axis of `rows` rows of L lanes, coordinates (24, rows, L).
-// Logical lane i of a row is physical lane i, or L - 1 - i for a suffix
-// scan.  Thread t of block k owns the run of `run` logical lanes from
-// (k * T + t) * run.  Three passes:
-//  up     each thread folds its run; the block scans the run totals
-//         (inclusive, in shared memory) and writes them to V (rows, nblk*T);
-//  carry  one block a row scans the block totals V[., k*T + T - 1] the same
-//         way (runs of run2) into exclusive block carries C (rows, nblk), and
-//         the row's total;
-//  down   each thread starts from C[k] + V[k*T + t - 1] (the identity for
-//         t = 0) and walks its run again, writing every lane.
-// A fold or a walk adds only what exists (lanes below L, blocks below nblk);
-// a run with nothing in it is the identity.
-// Every sum is the same association in curves/cuda_g1.py::padd_scan_plain.
-// The bodies below are the serial parts; the block scans are in the kernels
-// (and in host_check.cpp as a loop).
-// ---------------------------------------------------------------------------
-
-// The fold of a thread's run, in the up pass (lanes) and in the carry pass
-// (block totals): `count` points from slot p0 of planes n slots apart, `step`
-// slots apart (step 0xffffffff walks down), added in order; the identity for
-// a run past the end (count 0).  32-bit slots: the wrapper keeps
-// rows * nblk * T and rows * L below 2^31.
-DEV G1Proj g1_scan_fold(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
-                        uint32_t n, uint32_t p0, uint32_t step, uint32_t count) {
-    if (count == 0) return g1_identity();
-    G1Proj acc = g1_load(X, Y, Z, n, p0);
-    uint32_t p = p0;
-    ROLLED
-    for (uint32_t j = 1; j < count; ++j) {
-        p += step;
-        acc = g1_proj_add(acc, g1_load(X, Y, Z, n, p));
+// The point type of the lane scan (lane_scan.cuh: padd_scan in
+// g1_kernels.cu): 36 words a point, held in shared memory as 36 planes of T
+// words, so that the threads of a warp touch neighbouring banks.
+struct G1Curve {
+    typedef G1Proj P;
+    static constexpr int WORDS = 36;
+    static DEV P identity() { return g1_identity(); }
+    static DEV P add(const P& a, const P& b) { return g1_proj_add(a, b); }
+    static DEV P load(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                      size_t n, size_t idx) {
+        return g1_load(X, Y, Z, n, idx);
     }
-    return acc;
-}
-
-// The up pass's run of thread t of block k: lanes i0 = (k*T + t)*run on.
-DEV G1Proj g1_scan_fold_lanes(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
-                              uint32_t L, uint32_t rows, uint32_t b, uint32_t i0,
-                              uint32_t run, bool reverse) {
-    uint32_t count = i0 < L ? (L - i0 < run ? L - i0 : run) : 0u;
-    return g1_scan_fold(X, Y, Z, rows * L, b * L + (reverse ? L - 1u - i0 : i0),
-                        reverse ? 0xffffffffu : 1u, count);
-}
-
-// The carry pass's run of thread t: block totals q0 = t*run2 on, which lie
-// at V[., q*T + T - 1].
-DEV G1Proj g1_scan_fold_totals(const uint32_t* VX, const uint32_t* VY,
-                               const uint32_t* VZ, uint32_t rows, uint32_t nblk,
-                               uint32_t T, uint32_t b, uint32_t q0, uint32_t run2) {
-    uint32_t count = q0 < nblk ? (nblk - q0 < run2 ? nblk - q0 : run2) : 0u;
-    return g1_scan_fold(VX, VY, VZ, rows * nblk * T, (b * nblk + q0) * T + T - 1u, T,
-                        count);
-}
-
-// The down pass's walk of one run from its carry-in `acc`.
-DEV void g1_scan_walk(G1Proj acc, const uint32_t* X, const uint32_t* Y,
-                      const uint32_t* Z, uint32_t* OX, uint32_t* OY, uint32_t* OZ,
-                      size_t L, size_t n, size_t b, size_t i0, int run,
-                      bool reverse, bool exclusive) {
-    ROLLED
-    for (int j = 0; j < run; ++j) {
-        size_t i = i0 + j;
-        if (i >= L) break;
-        size_t p = b * L + (reverse ? L - 1 - i : i);
-        G1Proj x = g1_load(X, Y, Z, n, p);
-        if (exclusive) g1_store(OX, OY, OZ, n, p, acc);
-        acc = g1_proj_add(acc, x);
-        if (!exclusive) g1_store(OX, OY, OZ, n, p, acc);
+    static DEV void store(uint32_t* X, uint32_t* Y, uint32_t* Z, size_t n, size_t idx,
+                          const P& a) {
+        g1_store(X, Y, Z, n, idx, a);
     }
-}
-
-// The carry pass's walk: the exclusive carry of every block of the run.
-DEV void g1_scan_carry_walk(G1Proj acc, const uint32_t* VX, const uint32_t* VY,
-                            const uint32_t* VZ, uint32_t* CX, uint32_t* CY,
-                            uint32_t* CZ, size_t rows, size_t nblk, size_t T,
-                            size_t b, size_t q0, int run2) {
-    ROLLED
-    for (int j = 0; j < run2; ++j) {
-        size_t q = q0 + j;
-        if (q >= nblk) break;
-        g1_store(CX, CY, CZ, rows * nblk, b * nblk + q, acc);
-        acc = g1_proj_add(
-            acc, g1_load(VX, VY, VZ, rows * nblk * T, (b * nblk + q) * T + T - 1));
+    static DEV void put(uint32_t* sh, unsigned T, unsigned t, const P& a) {
+        for (int w = 0; w < 12; ++w) {
+            sh[w * T + t] = a.X.v[w];
+            sh[(12 + w) * T + t] = a.Y.v[w];
+            sh[(24 + w) * T + t] = a.Z.v[w];
+        }
     }
-}
-
-// The down pass's carry-in of thread t of block k.
-DEV G1Proj g1_scan_carry_in(const uint32_t* VX, const uint32_t* VY,
-                            const uint32_t* VZ, const uint32_t* CX,
-                            const uint32_t* CY, const uint32_t* CZ, size_t rows,
-                            size_t nblk, size_t T, size_t b, size_t k, size_t t) {
-    G1Proj before = t > 0 ? g1_load(VX, VY, VZ, rows * nblk * T, (b * nblk + k) * T + t - 1)
-                          : g1_identity();
-    return g1_proj_add(g1_load(CX, CY, CZ, rows * nblk, b * nblk + k), before);
-}
+    static DEV P get(const uint32_t* sh, unsigned T, unsigned t) {
+        P a;
+        for (int w = 0; w < 12; ++w) {
+            a.X.v[w] = sh[w * T + t];
+            a.Y.v[w] = sh[(12 + w) * T + t];
+            a.Z.v[w] = sh[(24 + w) * T + t];
+        }
+        return a;
+    }
+};

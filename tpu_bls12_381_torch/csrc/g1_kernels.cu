@@ -41,6 +41,7 @@
 //    totals, and a last pass walks the runs again from their carries: about
 //    2L + (L/run) log2(T) adds in 3 launches (2 for a total), whatever L is.
 //    On few lanes it is bound by the depth of dependent adds, not the pipe.
+//    The passes are lane_scan.cuh's, shared with G2's padd2_scan.
 //
 // Plain C interface for ctypes: device pointers to int32 limb planes, masks
 // as one byte per lane, `stream` a cudaStream_t, return value
@@ -49,11 +50,9 @@
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
+#include "lane_scan.cuh"
 
 #define THREADS 128
-// The lane scan's most threads a block (3 * 12 words a point of shared
-// memory each: 18 KB at 128).
-#define SCAN_MAX_THREADS 128
 
 // One thread per lane; the lane bodies (and the meaning of the arguments) are
 // in g1.cuh.  Built for one block an SM, ptxas takes 248 registers (two
@@ -110,100 +109,6 @@ pdbl_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
     size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= n) return;
     g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, idx, times);
-}
-
-// ---------------------------------------------------------------------------
-// padd_scan: the three passes of g1.cuh's lane scan.  A block's run totals
-// are scanned in shared memory by Hillis-Steele steps (log2 T of them), held
-// as 36 planes of T words so that the threads of a warp touch neighbouring
-// banks.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void sh_put(uint32_t* sh, unsigned T, unsigned t,
-                                       const G1Proj& P) {
-    for (int w = 0; w < 12; ++w) {
-        sh[w * T + t] = P.X.v[w];
-        sh[(12 + w) * T + t] = P.Y.v[w];
-        sh[(24 + w) * T + t] = P.Z.v[w];
-    }
-}
-
-__device__ __forceinline__ G1Proj sh_get(const uint32_t* sh, unsigned T, unsigned t) {
-    G1Proj P;
-    for (int w = 0; w < 12; ++w) {
-        P.X.v[w] = sh[w * T + t];
-        P.Y.v[w] = sh[(12 + w) * T + t];
-        P.Z.v[w] = sh[(24 + w) * T + t];
-    }
-    return P;
-}
-
-// Inclusive scan of the block's values v (one a thread); sh holds the
-// inclusive sums on return.  Both operands of a step's add are read from
-// sh, so no point stays in registers across the barriers.
-__device__ G1Proj block_scan(uint32_t* sh, const G1Proj& v) {
-    const unsigned T = blockDim.x, t = threadIdx.x;
-    sh_put(sh, T, t, v);
-    __syncthreads();
-    ROLLED
-    for (unsigned s = 1; s < T; s <<= 1) {
-        G1Proj sum;
-        if (t >= s) sum = g1_proj_add(sh_get(sh, T, t - s), sh_get(sh, T, t));
-        __syncthreads();
-        if (t >= s) sh_put(sh, T, t, sum);
-        __syncthreads();
-    }
-    return sh_get(sh, T, t);
-}
-
-// grid (nblk, rows), block T: the run totals' inclusive block scan into V.
-__global__ void __launch_bounds__(SCAN_MAX_THREADS)
-padd_scan_up_kernel(const uint32_t* __restrict__ X, const uint32_t* __restrict__ Y,
-                    const uint32_t* __restrict__ Z, uint32_t* __restrict__ VX,
-                    uint32_t* __restrict__ VY, uint32_t* __restrict__ VZ, size_t L,
-                    int run, int reverse) {
-    extern __shared__ uint32_t sh[];
-    const size_t T = blockDim.x, t = threadIdx.x, k = blockIdx.x, b = blockIdx.y;
-    const size_t rows = gridDim.y, nblk = gridDim.x;
-    G1Proj v = block_scan(
-        sh, g1_scan_fold_lanes(X, Y, Z, (uint32_t)L, (uint32_t)rows, (uint32_t)b,
-                               (uint32_t)((k * T + t) * run), (uint32_t)run, reverse != 0));
-    g1_store(VX, VY, VZ, rows * nblk * T, (b * nblk + k) * T + t, v);
-}
-
-// grid (1, rows), block T2: the block totals' exclusive carries into C and,
-// where SX is given, each row's total into S (rows).
-__global__ void __launch_bounds__(SCAN_MAX_THREADS)
-padd_scan_carry_kernel(const uint32_t* __restrict__ VX, const uint32_t* __restrict__ VY,
-                       const uint32_t* __restrict__ VZ, uint32_t* __restrict__ CX,
-                       uint32_t* __restrict__ CY, uint32_t* __restrict__ CZ,
-                       uint32_t* __restrict__ SX, uint32_t* __restrict__ SY,
-                       uint32_t* __restrict__ SZ, size_t nblk, size_t T1, int run2) {
-    extern __shared__ uint32_t sh[];
-    const size_t t = threadIdx.x, b = blockIdx.y, rows = gridDim.y;
-    G1Proj w = block_scan(sh, g1_scan_fold_totals(VX, VY, VZ, (uint32_t)rows,
-                                                  (uint32_t)nblk, (uint32_t)T1,
-                                                  (uint32_t)b, (uint32_t)(t * run2),
-                                                  (uint32_t)run2));
-    if (SX != nullptr && t == blockDim.x - 1) g1_store(SX, SY, SZ, rows, b, w);
-    G1Proj acc = t > 0 ? sh_get(sh, blockDim.x, t - 1) : g1_identity();
-    g1_scan_carry_walk(acc, VX, VY, VZ, CX, CY, CZ, rows, nblk, T1, b, t * run2, run2);
-}
-
-// grid (nblk, rows), block T: every lane from its thread's carry-in.
-__global__ void __launch_bounds__(SCAN_MAX_THREADS)
-padd_scan_down_kernel(const uint32_t* __restrict__ X, const uint32_t* __restrict__ Y,
-                      const uint32_t* __restrict__ Z, const uint32_t* __restrict__ VX,
-                      const uint32_t* __restrict__ VY, const uint32_t* __restrict__ VZ,
-                      const uint32_t* __restrict__ CX, const uint32_t* __restrict__ CY,
-                      const uint32_t* __restrict__ CZ, uint32_t* __restrict__ OX,
-                      uint32_t* __restrict__ OY, uint32_t* __restrict__ OZ, size_t L,
-                      int run, int reverse, int exclusive) {
-    const size_t T = blockDim.x, t = threadIdx.x, k = blockIdx.x, b = blockIdx.y;
-    const size_t rows = gridDim.y, nblk = gridDim.x;
-    G1Proj acc = g1_scan_carry_in(VX, VY, VZ, CX, CY, CZ, rows, nblk, T, b, k, t);
-    g1_scan_walk(acc, X, Y, Z, OX, OY, OZ, L, rows * L, b, (k * T + t) * run, run,
-                 reverse != 0, exclusive != 0);
 }
 
 static inline unsigned blocks_for(size_t n) {
@@ -263,46 +168,16 @@ int g1_pdbl(const void* X1, const void* Y1, const void* Z1,
     return (int)cudaGetLastError();
 }
 
-// The lane scan of (24, rows, L) coordinates X, Y, Z.  Scan mode: writes
-// OX, OY, OZ (same shape), 3 launches.  Total mode (OX null): writes the
-// row totals SX, SY, SZ (24, rows), 2 launches.  Scratch: V (24, rows,
-// nblk*threads) and C (24, rows, nblk), nblk = ceil(L / (run * threads));
-// threads and threads2 (the carry pass's) are powers of two up to
-// SCAN_MAX_THREADS, run2 = ceil(nblk / threads2).
+// The lane scan of (24, rows, L) coordinates: lane_scan.cuh's
+// padd_scan_launch for G1 (its arguments and scratch are described there).
 int g1_padd_scan(const void* X, const void* Y, const void* Z,
                  void* OX, void* OY, void* OZ, void* SX, void* SY, void* SZ,
                  void* VX, void* VY, void* VZ, void* CX, void* CY, void* CZ,
                  long long rows, long long L, int run, int threads, int threads2,
                  int reverse, int exclusive, void* stream) {
-    if (rows <= 0 || L <= 0) return (int)cudaSuccess;
-    if (run < 1 || threads < 1 || threads > SCAN_MAX_THREADS || threads2 < 1 ||
-        threads2 > SCAN_MAX_THREADS || rows > 65535)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    size_t per_block = (size_t)run * threads;
-    size_t nblk = ((size_t)L + per_block - 1) / per_block;
-    if ((size_t)rows * nblk * per_block >= ((size_t)1 << 31))   // 32-bit slots
-        return (int)cudaErrorInvalidValue;
-    int run2 = (int)((nblk + threads2 - 1) / threads2);
-    size_t sh1 = 36 * sizeof(uint32_t) * threads, sh2 = 36 * sizeof(uint32_t) * threads2;
-    dim3 grid((unsigned)nblk, (unsigned)rows);
-    padd_scan_up_kernel<<<grid, threads, sh1, st>>>(
-        (const uint32_t*)X, (const uint32_t*)Y, (const uint32_t*)Z,
-        (uint32_t*)VX, (uint32_t*)VY, (uint32_t*)VZ, (size_t)L, run, reverse);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    padd_scan_carry_kernel<<<dim3(1, (unsigned)rows), threads2, sh2, st>>>(
-        (const uint32_t*)VX, (const uint32_t*)VY, (const uint32_t*)VZ,
-        (uint32_t*)CX, (uint32_t*)CY, (uint32_t*)CZ,
-        (uint32_t*)SX, (uint32_t*)SY, (uint32_t*)SZ, nblk, (size_t)threads, run2);
-    err = (int)cudaGetLastError();
-    if (err || OX == nullptr) return err;
-    padd_scan_down_kernel<<<grid, threads, 0, st>>>(
-        (const uint32_t*)X, (const uint32_t*)Y, (const uint32_t*)Z,
-        (const uint32_t*)VX, (const uint32_t*)VY, (const uint32_t*)VZ,
-        (const uint32_t*)CX, (const uint32_t*)CY, (const uint32_t*)CZ,
-        (uint32_t*)OX, (uint32_t*)OY, (uint32_t*)OZ, (size_t)L, run, reverse, exclusive);
-    return (int)cudaGetLastError();
+    return padd_scan_launch<G1Curve>(X, Y, Z, OX, OY, OZ, SX, SY, SZ, VX, VY, VZ,
+                                     CX, CY, CZ, rows, L, run, threads, threads2,
+                                     reverse, exclusive, stream);
 }
 
 }  // extern "C"

@@ -1,17 +1,24 @@
 // Complete homogeneous-projective group law for G2 (y^2 = x^3 + 4(1+u) over
 // Fq2 = Fq[u]/(u^2+1)), Renes-Costello-Batina 2016, a = 0, 3b' = 12(1+u).
-// One point operation per thread.
+// One point operation per thread; the mixed add of the scan runs on two
+// threads a lane (g2_pair.cuh).
 //
-// Fq2 arithmetic and the three formulas follow the JAX package's
+// Fq2 arithmetic and the formulas follow the JAX package's
 // curves/pallas_g2.py operation by operation (_k2_mul: Karatsuba, three Fq
 // products; _k2_sqr: complex squaring, two; _k2_mul12; _k2_proj_add,
-// _k2_proj_madd, _k2_proj_dbl), so that with canonical field results the
-// coordinates written back equal the plain PyTorch versions in
-// curves/projective.py over FQ2_PLAIN limb for limb.  The Fq2 product and
-// square take their Fq product as a parameter (g1.cuh's policies): the
-// doubling runs on the carry-chain product (CarryMul, pdbl2), the two adds on
-// field.cuh's (FieldMul, pmadd2 and padd2).  Both products are canonical, so
-// the limbs are the same either way.
+// _k2_proj_dbl), so that with canonical field results the coordinates
+// written back equal the plain PyTorch versions in curves/projective.py over
+// FQ2_PLAIN limb for limb.  The Fq2 product and square and the formulas take
+// their Fq product as a parameter (g1.cuh's policies); the kernels run them
+// on the carry-chain product (CarryMul: padd2, padd2_scan, pdbl2).  Both
+// products are canonical, so the limbs are the same either way.
+//
+// A G2 point is 72 words, and a formula holds several Fq2 temporaries beside
+// it, so at 255 registers a thread the order of the products decides what
+// spills.  Each formula takes its products so that operands die early: the
+// products of one coordinate together, the others after.  Every value is the
+// formula's (field results are canonical, so the order of additions does not
+// change a limb).
 //
 // Stored layout of an Fq2 batch: (24, 2, n) int32, limbs first, then the
 // component (c0, c1), then the lanes.  Limb k of component c of lane idx is
@@ -41,13 +48,6 @@ DEV fq2 fq2_sub(const fq2& a, const fq2& b) {
     fq2 r;
     r.c0 = fq_sub(a.c0, b.c0);
     r.c1 = fq_sub(a.c1, b.c1);
-    return r;
-}
-
-DEV fq2 fq2_neg(const fq2& a) {
-    fq2 r;
-    r.c0 = fq_neg(a.c0);
-    r.c1 = fq_neg(a.c1);
     return r;
 }
 
@@ -82,13 +82,6 @@ DEV fq2 fq2_mul12(const fq2& a) {
     return r;
 }
 
-DEV fq2 fq2_cmov(bool take, const fq2& a, const fq2& b) {
-    fq2 r;
-    r.c0 = fp_cmov<Fq>(take, a.c0, b.c0);
-    r.c1 = fp_cmov<Fq>(take, a.c1, b.c1);
-    return r;
-}
-
 DEV fq2 fq2_load(const uint32_t* base, size_t n, size_t idx) {
     fq2 r;
     r.c0 = fp_load<Fq>(base, 2 * n, idx);
@@ -112,50 +105,29 @@ DEV G2Proj g2_identity() {
     return P;
 }
 
-// Algorithm 7: complete addition, 12 Fq2 products + 2 mul12.
+// Algorithm 7: complete addition, 12 Fq2 products + 2 mul12.  X's three
+// products first, then Y's, then Z's (as g1_proj_add): a coordinate pair
+// dies with its third product.
+template <class M>
 DEV G2Proj g2_proj_add(const G2Proj& P, const G2Proj& Q) {
-    fq2 t0 = fq2_mul<FieldMul>(P.X, Q.X);
-    fq2 t1 = fq2_mul<FieldMul>(P.Y, Q.Y);
-    fq2 t2 = fq2_mul<FieldMul>(P.Z, Q.Z);
-    fq2 t3 = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.X, P.Y), fq2_add(Q.X, Q.Y)),
-                     fq2_add(t0, t1));
-    fq2 t4 = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.Y, P.Z), fq2_add(Q.Y, Q.Z)),
-                     fq2_add(t1, t2));
-    fq2 ty = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.X, P.Z), fq2_add(Q.X, Q.Z)),
-                     fq2_add(t0, t2));
+    fq2 t0 = fq2_mul<M>(P.X, Q.X);
+    fq2 m3 = fq2_mul<M>(fq2_add(P.X, P.Y), fq2_add(Q.X, Q.Y));   // (X1+Y1)(X2+Y2)
+    fq2 my = fq2_mul<M>(fq2_add(P.X, P.Z), fq2_add(Q.X, Q.Z));   // (X1+Z1)(X2+Z2)
+    fq2 m4 = fq2_mul<M>(fq2_add(P.Y, P.Z), fq2_add(Q.Y, Q.Z));   // (Y1+Z1)(Y2+Z2)
+    fq2 t1 = fq2_mul<M>(P.Y, Q.Y);
+    fq2 t3 = fq2_sub(m3, fq2_add(t0, t1));
+    fq2 t2 = fq2_mul<M>(P.Z, Q.Z);
+    fq2 t4 = fq2_sub(m4, fq2_add(t1, t2));
+    fq2 ty = fq2_sub(my, fq2_add(t0, t2));
     fq2 t0_3 = fq2_add(fq2_add(t0, t0), t0);
     t2 = fq2_mul12(t2);
     fq2 Z3 = fq2_add(t1, t2);
     t1 = fq2_sub(t1, t2);
     fq2 Y3 = fq2_mul12(ty);
     G2Proj R;
-    R.X = fq2_sub(fq2_mul<FieldMul>(t3, t1), fq2_mul<FieldMul>(t4, Y3));
-    R.Y = fq2_add(fq2_mul<FieldMul>(t1, Z3), fq2_mul<FieldMul>(Y3, t0_3));
-    R.Z = fq2_add(fq2_mul<FieldMul>(Z3, t4), fq2_mul<FieldMul>(t0_3, t3));
-    return R;
-}
-
-// Algorithm 8: complete mixed addition (Z2 = 1), 11 Fq2 products + 2 mul12.
-// The affine encoding cannot hold the identity, so `inf2` passes P through.
-DEV G2Proj g2_proj_madd(const G2Proj& P, const fq2& x2, const fq2& y2, bool inf2) {
-    fq2 t0 = fq2_mul<FieldMul>(P.X, x2);
-    fq2 t1 = fq2_mul<FieldMul>(P.Y, y2);
-    fq2 t3 = fq2_sub(fq2_mul<FieldMul>(fq2_add(P.X, P.Y), fq2_add(x2, y2)),
-                     fq2_add(t0, t1));
-    fq2 t4 = fq2_add(fq2_mul<FieldMul>(x2, P.Z), P.X);
-    fq2 t5 = fq2_add(fq2_mul<FieldMul>(y2, P.Z), P.Y);
-    fq2 t0_3 = fq2_add(fq2_add(t0, t0), t0);
-    fq2 t2 = fq2_mul12(P.Z);
-    fq2 Z3 = fq2_add(t1, t2);
-    t1 = fq2_sub(t1, t2);
-    fq2 Y3 = fq2_mul12(t4);
-    G2Proj R;
-    R.X = fq2_cmov(inf2, P.X,
-                   fq2_sub(fq2_mul<FieldMul>(t3, t1), fq2_mul<FieldMul>(t5, Y3)));
-    R.Y = fq2_cmov(inf2, P.Y,
-                   fq2_add(fq2_mul<FieldMul>(t1, Z3), fq2_mul<FieldMul>(Y3, t0_3)));
-    R.Z = fq2_cmov(inf2, P.Z,
-                   fq2_add(fq2_mul<FieldMul>(Z3, t5), fq2_mul<FieldMul>(t0_3, t3)));
+    R.X = fq2_sub(fq2_mul<M>(t3, t1), fq2_mul<M>(t4, Y3));
+    R.Y = fq2_add(fq2_mul<M>(t1, Z3), fq2_mul<M>(Y3, t0_3));
+    R.Z = fq2_add(fq2_mul<M>(Z3, t4), fq2_mul<M>(t0_3, t3));
     return R;
 }
 
@@ -204,37 +176,13 @@ DEV void g2_store(uint32_t* X, uint32_t* Y, uint32_t* Z, size_t n, size_t idx,
 // Lane bodies: what one thread does (see g1.cuh).
 // ---------------------------------------------------------------------------
 
-// acc_* may be null: the accumulator then starts at the identity (0 : 1 : 0).
-// x2/y2 rows are `row_stride` slots apart (two halves of one (R, 96, L)
-// tile); a row is a (24, 2, L) block.  The outputs are contiguous
-// (R, 24, 2, L).
-DEV void g2_pmadd_lane(const uint32_t* accX, const uint32_t* accY,
-                       const uint32_t* accZ, const uint32_t* x2,
-                       const uint32_t* y2, size_t row_stride,
-                       const uint8_t* inf2, const uint8_t* sign,
-                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3,
-                       size_t L, int R, size_t idx) {
-    G2Proj acc = accX ? g2_load(accX, accY, accZ, L, idx) : g2_identity();
-    const size_t out_stride = (size_t)2 * Fq::K * L;
-    for (int r = 0; r < R; ++r) {
-        fq2 x = fq2_load(x2 + (size_t)r * row_stride, L, idx);
-        fq2 y = fq2_load(y2 + (size_t)r * row_stride, L, idx);
-        bool is_inf = inf2[(size_t)r * L + idx] != 0;
-        bool is_neg = sign[(size_t)r * L + idx] != 0;
-        y = fq2_cmov(is_neg, fq2_neg(y), y);
-        acc = g2_proj_madd(acc, x, y, is_inf);
-        g2_store(X3 + (size_t)r * out_stride, Y3 + (size_t)r * out_stride,
-                 Z3 + (size_t)r * out_stride, L, idx, acc);
-    }
-}
-
 DEV void g2_padd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
                       const uint32_t* X2, const uint32_t* Y2, const uint32_t* Z2,
                       uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
                       size_t idx) {
     G2Proj P = g2_load(X1, Y1, Z1, n, idx);
     G2Proj Q = g2_load(X2, Y2, Z2, n, idx);
-    g2_store(X3, Y3, Z3, n, idx, g2_proj_add(P, Q));
+    g2_store(X3, Y3, Z3, n, idx, g2_proj_add<CarryMul>(P, Q));
 }
 
 // The doubling chain: the lane loaded once, doubled `times` times in
@@ -248,3 +196,49 @@ DEV void g2_pdbl_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1
     for (int k = 0; k < times; ++k) P = g2_proj_dbl<CarryMul>(P);
     g2_store(X3, Y3, Z3, n, idx, P);
 }
+
+// The point type of the lane scan (lane_scan.cuh: padd2_scan in g2_padd_scan.cu),
+// as G1Curve in g1.cuh: 72 words a point, held in shared memory as 72
+// planes of T words.
+struct G2Curve {
+    typedef G2Proj P;
+    static constexpr int WORDS = 72;
+    static DEV P identity() { return g2_identity(); }
+    static DEV P add(const P& a, const P& b) { return g2_proj_add<CarryMul>(a, b); }
+    static DEV P load(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                      size_t n, size_t idx) {
+        return g2_load(X, Y, Z, n, idx);
+    }
+    static DEV void store(uint32_t* X, uint32_t* Y, uint32_t* Z, size_t n, size_t idx,
+                          const P& a) {
+        g2_store(X, Y, Z, n, idx, a);
+    }
+    static DEV void put_fq(uint32_t* sh, unsigned T, unsigned t, int k, const fq& a) {
+        UNROLL
+        for (int w = 0; w < 12; ++w) sh[(12 * k + w) * T + t] = a.v[w];
+    }
+    static DEV fq get_fq(const uint32_t* sh, unsigned T, unsigned t, int k) {
+        fq a;
+        UNROLL
+        for (int w = 0; w < 12; ++w) a.v[w] = sh[(12 * k + w) * T + t];
+        return a;
+    }
+    static DEV void put(uint32_t* sh, unsigned T, unsigned t, const P& a) {
+        put_fq(sh, T, t, 0, a.X.c0);
+        put_fq(sh, T, t, 1, a.X.c1);
+        put_fq(sh, T, t, 2, a.Y.c0);
+        put_fq(sh, T, t, 3, a.Y.c1);
+        put_fq(sh, T, t, 4, a.Z.c0);
+        put_fq(sh, T, t, 5, a.Z.c1);
+    }
+    static DEV P get(const uint32_t* sh, unsigned T, unsigned t) {
+        P a;
+        a.X.c0 = get_fq(sh, T, t, 0);
+        a.X.c1 = get_fq(sh, T, t, 1);
+        a.Y.c0 = get_fq(sh, T, t, 2);
+        a.Y.c1 = get_fq(sh, T, t, 3);
+        a.Z.c0 = get_fq(sh, T, t, 4);
+        a.Z.c1 = get_fq(sh, T, t, 5);
+        return a;
+    }
+};

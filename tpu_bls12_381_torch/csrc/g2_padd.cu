@@ -2,18 +2,24 @@
 //
 // Takes the place of the JAX package's curves/pallas_g2.py kernel
 // _padd2_kernel.  One thread owns one lane (one point addition over Fq2,
-// RCB16 algorithm 7); the formula is in g2.cuh.
+// RCB16 algorithm 7; the formula is in g2.cuh).  The same addition scanned
+// along the last axis, the G2 MSM tail's lane scans, is padd2_scan
+// (g2_padd_scan.cu).
 //
 // What bounds it on an H100: 12 Karatsuba products = 36 Fq products of 300
 // wide multiply-adds each against 9 * 96 * 2 bytes a lane, so the integer
-// pipe binds on wide launches; at 255 registers a thread it spills to local
-// memory (the build prints how much), which is left as it is here.  With few
-// lanes a launch is bound by its latency instead.  Nothing is tuned.
+// pipe binds on wide launches; with few lanes a launch is bound by its
+// latency.  It runs on the carry-chain product of field_carry.cuh (two
+// mad.lo.cc / madc.hi.cc chains a row), with the addition's products taken
+// X's three first, then Y's, then Z's, so that operands die early: a thread
+// holding two 72-word points spills 880 / 1,060 bytes at 255 registers
+// where the first form spilled 1,624 / 1,924 (PERF.md has the times).
 //
 // Plain C interface for ctypes: device pointers to int32 limb planes in the
 // (24, 2, n) layout of g2.cuh, `stream` a cudaStream_t, return value
-// cudaGetLastError() after the launch.  A source of its own, so that the
-// three G2 kernels compile side by side.
+// cudaGetLastError() after the launch.  Each G2 source (g2_pmadd.cu,
+// g2_padd.cu, g2_padd_scan.cu, g2_pdbl.cu) is apart, so that they compile
+// side by side.
 
 #include <cuda_runtime.h>
 
@@ -21,7 +27,7 @@
 
 #define THREADS 128
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 padd2_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
              const uint32_t* __restrict__ Z1, const uint32_t* __restrict__ X2,
              const uint32_t* __restrict__ Y2, const uint32_t* __restrict__ Z2,

@@ -1,6 +1,6 @@
 // Host build of the kernels' lane bodies: the same device code as the CUDA
-// kernels (field.cuh, field_carry.cuh, g1.cuh, g1_jac.cuh, g2.cuh, ntt.cuh,
-// batch_inverse.cuh),
+// kernels (field.cuh, field_carry.cuh, g1.cuh, g1_jac.cuh, g2.cuh,
+// g2_pair.cuh, ntt.cuh, batch_inverse.cuh, lane_scan.cuh),
 // compiled as plain C++ and run in a
 // loop over the lanes (for the NTT tile: over the blocks, and inside a block
 // over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
@@ -15,7 +15,8 @@
 #include "batch_inverse.cuh"
 #include "g1.cuh"
 #include "g1_jac.cuh"
-#include "g2.cuh"
+#include "g2_pair.cuh"
+#include "lane_scan.cuh"
 #include "ntt.cuh"
 
 // The batch inversion's three phases (batch_inverse.cu), phase 2's block of
@@ -45,6 +46,61 @@ static void host_batch_inverse(const uint32_t* x, uint32_t* out, uint32_t* pre,
         binv_walk_run<F>(iv, col, colinv, L, T, t);
     }
     for (size_t l = 0; l < L; ++l) binv_unwind_lane<F>(x, pre, colinv, out, n, L, R, l);
+}
+
+// The lane scan's three passes (lane_scan.cuh: padd_scan, padd2_scan),
+// block by block, with the shared-memory block scan as a loop over the
+// block's values (the same Hillis-Steele steps: at step s, value t takes
+// value t - s of the step before).  Arguments as g1_kernels.cu's
+// g1_padd_scan and g2_padd_scan.cu's g2_padd_scan.
+template <class C>
+static void host_block_scan(std::vector<typename C::P>& v) {
+    for (size_t s = 1; s < v.size(); s <<= 1) {
+        std::vector<typename C::P> before = v;
+        for (size_t t = s; t < v.size(); ++t) v[t] = C::add(before[t - s], before[t]);
+    }
+}
+
+template <class C>
+static void host_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                           uint32_t* OX, uint32_t* OY, uint32_t* OZ,
+                           uint32_t* SX, uint32_t* SY, uint32_t* SZ,
+                           uint32_t* VX, uint32_t* VY, uint32_t* VZ,
+                           uint32_t* CX, uint32_t* CY, uint32_t* CZ,
+                           size_t rows, size_t L, int run, int threads, int threads2,
+                           int reverse, int exclusive) {
+    typedef typename C::P P;
+    size_t T = threads, T2 = threads2, n = rows * L;   // n: the walk's planes
+    size_t nblk = (L + (size_t)run * T - 1) / ((size_t)run * T);
+    int run2 = (int)((nblk + T2 - 1) / T2);
+    for (size_t b = 0; b < rows; ++b) {
+        for (size_t k = 0; k < nblk; ++k) {                        // up
+            std::vector<P> v(T);
+            for (size_t t = 0; t < T; ++t)
+                v[t] = scan_fold_lanes<C>(X, Y, Z, (uint32_t)L, (uint32_t)rows,
+                                          (uint32_t)b, (uint32_t)((k * T + t) * run),
+                                          (uint32_t)run, reverse != 0);
+            host_block_scan<C>(v);
+            for (size_t t = 0; t < T; ++t)
+                C::store(VX, VY, VZ, rows * nblk * T, (b * nblk + k) * T + t, v[t]);
+        }
+        std::vector<P> w(T2);                                      // carry
+        for (size_t t = 0; t < T2; ++t)
+            w[t] = scan_fold_totals<C>(VX, VY, VZ, (uint32_t)rows, (uint32_t)nblk,
+                                       (uint32_t)T, (uint32_t)b, (uint32_t)(t * run2),
+                                       (uint32_t)run2);
+        host_block_scan<C>(w);
+        if (SX != nullptr) C::store(SX, SY, SZ, rows, b, w[T2 - 1]);
+        for (size_t t = 0; t < T2; ++t)
+            scan_carry_walk<C>(t > 0 ? w[t - 1] : C::identity(), VX, VY, VZ, CX, CY, CZ,
+                               rows, nblk, T, b, t * run2, run2);
+        if (OX == nullptr) continue;
+        for (size_t k = 0; k < nblk; ++k)                          // down
+            for (size_t t = 0; t < T; ++t)
+                scan_walk<C>(scan_carry_in<C>(VX, VY, VZ, CX, CY, CZ, rows, nblk, T, b, k, t),
+                             X, Y, Z, OX, OY, OZ, L, n, b, (k * T + t) * run, run,
+                             reverse != 0, exclusive != 0);
+    }
 }
 
 extern "C" {
@@ -180,18 +236,6 @@ void g1_jadd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
         g1_jadd_lane(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n, i);
 }
 
-// The lane scan's three passes (g1_kernels.cu: padd_scan), block by block,
-// with the shared-memory block scan as a loop over the block's values (the
-// same Hillis-Steele steps: at step s, value t takes value t - s of the step
-// before).  Arguments as g1_kernels.cu's g1_padd_scan.
-static void host_block_scan(std::vector<G1Proj>& v) {
-    for (size_t s = 1; s < v.size(); s <<= 1) {
-        std::vector<G1Proj> before = v;
-        for (size_t t = s; t < v.size(); ++t)
-            v[t] = g1_proj_add(before[t - s], before[t]);
-    }
-}
-
 void g1_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
                   uint32_t* OX, uint32_t* OY, uint32_t* OZ,
                   uint32_t* SX, uint32_t* SY, uint32_t* SZ,
@@ -199,37 +243,19 @@ void g1_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
                   uint32_t* CX, uint32_t* CY, uint32_t* CZ,
                   size_t rows, size_t L, int run, int threads, int threads2,
                   int reverse, int exclusive) {
-    size_t T = threads, T2 = threads2, n = rows * L;   // n: the walk's planes
-    size_t nblk = (L + (size_t)run * T - 1) / ((size_t)run * T);
-    int run2 = (int)((nblk + T2 - 1) / T2);
-    for (size_t b = 0; b < rows; ++b) {
-        for (size_t k = 0; k < nblk; ++k) {                        // up
-            std::vector<G1Proj> v(T);
-            for (size_t t = 0; t < T; ++t)
-                v[t] = g1_scan_fold_lanes(X, Y, Z, (uint32_t)L, (uint32_t)rows,
-                                          (uint32_t)b, (uint32_t)((k * T + t) * run),
-                                          (uint32_t)run, reverse != 0);
-            host_block_scan(v);
-            for (size_t t = 0; t < T; ++t)
-                g1_store(VX, VY, VZ, rows * nblk * T, (b * nblk + k) * T + t, v[t]);
-        }
-        std::vector<G1Proj> w(T2);                                 // carry
-        for (size_t t = 0; t < T2; ++t)
-            w[t] = g1_scan_fold_totals(VX, VY, VZ, (uint32_t)rows, (uint32_t)nblk,
-                                       (uint32_t)T, (uint32_t)b, (uint32_t)(t * run2),
-                                       (uint32_t)run2);
-        host_block_scan(w);
-        if (SX != nullptr) g1_store(SX, SY, SZ, rows, b, w[T2 - 1]);
-        for (size_t t = 0; t < T2; ++t)
-            g1_scan_carry_walk(t > 0 ? w[t - 1] : g1_identity(), VX, VY, VZ, CX, CY, CZ,
-                               rows, nblk, T, b, t * run2, run2);
-        if (OX == nullptr) continue;
-        for (size_t k = 0; k < nblk; ++k)                          // down
-            for (size_t t = 0; t < T; ++t)
-                g1_scan_walk(g1_scan_carry_in(VX, VY, VZ, CX, CY, CZ, rows, nblk, T, b, k, t),
-                             X, Y, Z, OX, OY, OZ, L, n, b, (k * T + t) * run, run,
-                             reverse != 0, exclusive != 0);
-    }
+    host_padd_scan<G1Curve>(X, Y, Z, OX, OY, OZ, SX, SY, SZ, VX, VY, VZ, CX, CY, CZ,
+                            rows, L, run, threads, threads2, reverse, exclusive);
+}
+
+void g2_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t* Z,
+                  uint32_t* OX, uint32_t* OY, uint32_t* OZ,
+                  uint32_t* SX, uint32_t* SY, uint32_t* SZ,
+                  uint32_t* VX, uint32_t* VY, uint32_t* VZ,
+                  uint32_t* CX, uint32_t* CY, uint32_t* CZ,
+                  size_t rows, size_t L, int run, int threads, int threads2,
+                  int reverse, int exclusive) {
+    host_padd_scan<G2Curve>(X, Y, Z, OX, OY, OZ, SX, SY, SZ, VX, VY, VZ, CX, CY, CZ,
+                            rows, L, run, threads, threads2, reverse, exclusive);
 }
 
 void fr_batch_inverse(const uint32_t* x, uint32_t* out, uint32_t* pre, uint32_t* col,
@@ -268,9 +294,9 @@ void g2_pmadd(const uint32_t* accX, const uint32_t* accY, const uint32_t* accZ,
               const uint32_t* x2, const uint32_t* y2, size_t row_stride,
               const uint8_t* inf2, const uint8_t* sign,
               uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t L, int R) {
-    for (size_t i = 0; i < L; ++i)
-        g2_pmadd_lane(accX, accY, accZ, x2, y2, row_stride, inf2, sign,
-                      X3, Y3, Z3, L, R, i);
+    for (size_t i = 0; i < L; ++i)   // a pair at a time (g2_pair.cuh)
+        g2_pmadd_pair_lane(accX, accY, accZ, x2, y2, row_stride, inf2, sign,
+                           X3, Y3, Z3, L, R, i, true, [](bool) { return pair_ctx{}; });
 }
 
 void g2_padd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,

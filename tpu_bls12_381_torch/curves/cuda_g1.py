@@ -11,7 +11,9 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
 * ``padd`` takes the place of ``_padd_kernel`` / ``padd`` (``:465``, ``:507``):
   RCB16 algorithm 7; ``padd_scan`` is the same addition scanned along the
   last axis (the MSM tail's lane scans, which the JAX package runs as
-  log2(L) Hillis-Steele steps of ``padd``);
+  log2(L) Hillis-Steele steps of ``padd``; its plain version,
+  ``lane_scan_plain``, and its launch, ``launch_scan``, also serve G2's
+  ``cuda_g2.padd2_scan``);
 * ``pdbl`` takes the place of ``_pdbl_kernel`` / ``pdbl`` (``:478``, ``:519``):
   RCB16 algorithm 9, with a count ``times``: one launch doubles every lane
   ``times`` times in registers, where the JAX package's ``_double_n`` runs a
@@ -73,7 +75,7 @@ SCAN_LAUNCHES = {}
 CHAIN_LAUNCHES = {}
 
 # The lane scan's lanes a thread folds, and its most threads a block
-# (SCAN_MAX_THREADS in csrc/g1_kernels.cu).
+# (SCAN_MAX_THREADS in csrc/lane_scan.cuh).
 SCAN_RUN = 4
 SCAN_MAX_THREADS = 128
 
@@ -176,80 +178,88 @@ def _lanes(P, idx):
     return tuple(c[..., idx] for c in P)
 
 
-def _fold(P, valid):
+def _fold(F, P, valid):
     """Fold the last axis from its first slot, ((p0 + p1) + p2) + ..., over
     the slots ``valid`` (a mask of them) keeps; a fold of none is the
     identity."""
-    ident = _identity_like(P, 1)
-    acc = pj.proj_cmov(FQ_PLAIN, valid[..., 0], _lanes(P, 0),
-                       tuple(c[..., 0] for c in ident))
+    ident = _identity_like(F, P, 1)
+    acc = pj.proj_cmov(F, valid[..., 0], _lanes(P, 0), tuple(c[..., 0] for c in ident))
     for j in range(1, P[0].shape[-1]):
-        acc = pj.proj_cmov(FQ_PLAIN, valid[..., j], padd_plain(acc, _lanes(P, j)), acc)
+        acc = pj.proj_cmov(F, valid[..., j], pj.proj_add(F, acc, _lanes(P, j)), acc)
     return acc
 
 
-def _block_scan(P):
+def _block_scan(F, P):
     """Inclusive Hillis-Steele scan along the last axis: at step s, slot t
     takes (slot t - s) + (slot t) of the step before."""
     T = P[0].shape[-1]
     s = 1
     while s < T:
-        head = padd_plain(_lanes(P, slice(0, T - s)), _lanes(P, slice(s, T)))
+        head = pj.proj_add(F, _lanes(P, slice(0, T - s)), _lanes(P, slice(s, T)))
         P = tuple(torch.cat([c[..., :s], h], dim=-1) for c, h in zip(P, head))
         s <<= 1
     return P
 
 
-def _walk(acc, P, exclusive: bool):
+def _walk(F, acc, P, exclusive: bool):
     """From ``acc``, add the last axis's slots in order; every slot's sum
     (before its add where ``exclusive``) stacked on the last axis."""
     outs = []
     for j in range(P[0].shape[-1]):
-        nxt = padd_plain(acc, _lanes(P, j))
+        nxt = pj.proj_add(F, acc, _lanes(P, j))
         outs.append(acc if exclusive else nxt)
         acc = nxt
     return tuple(torch.stack([o[c] for o in outs], dim=-1) for c in range(3))
 
 
-def _identity_like(P, lanes: int):
-    return pj.proj_identity(FQ_PLAIN, tuple(P[0].shape[1:-1]) + (lanes,),
-                            P[0].device)
+def _identity_like(F, P, lanes: int):
+    return pj.proj_identity(F, F.batch_shape(P[0])[:-1] + (lanes,), P[0].device)
 
 
-def _pad_last(P, length: int):
+def _pad_last(F, P, length: int):
     pad = length - P[0].shape[-1]
     if pad == 0:
         return P
     return tuple(torch.cat([c, i], dim=-1)
-                 for c, i in zip(P, _identity_like(P, pad)))
+                 for c, i in zip(P, _identity_like(F, P, pad)))
 
 
-def padd_scan_plain(P, *, reverse=False, exclusive=False, total=False,
+def lane_scan_plain(F, P, *, reverse=False, exclusive=False, total=False,
                     run=SCAN_RUN, threads=None):
-    """The lane scan of ``padd_scan`` in the kernel's association: the same
-    runs, blocks and carries (``csrc/g1.cuh``), over plain additions."""
+    """The lane scan of the scan kernels (``padd_scan``, and
+    ``cuda_g2.padd2_scan`` over Fq2) in their association: the same runs,
+    blocks and carries (``csrc/lane_scan.cuh``), over the plain additions of
+    adapter ``F`` (``FQ_PLAIN`` or ``FQ2_PLAIN``)."""
     L = P[0].shape[-1]
     threads = threads or scan_threads(L, run)
     nblk, threads2, run2 = scan_geometry(L, run, threads)
     x = tuple(c.flip(-1) for c in P) if reverse else P
-    x = _pad_last(x, nblk * threads * run)
+    x = _pad_last(F, x, nblk * threads * run)
     x = tuple(c.unflatten(-1, (nblk, threads, run)) for c in x)
     lane = torch.arange(nblk * threads * run, device=P[0].device)
-    v = _block_scan(_fold(x, (lane < L).reshape(nblk, threads, run)))   # up: (.., nblk, T)
-    tot = _pad_last(_lanes(v, threads - 1), threads2 * run2)   # carry
+    v = _block_scan(F, _fold(F, x, (lane < L).reshape(nblk, threads, run)))   # up
+    tot = _pad_last(F, _lanes(v, threads - 1), threads2 * run2)             # carry
     tot = tuple(c.unflatten(-1, (threads2, run2)) for c in tot)
     block = torch.arange(threads2 * run2, device=P[0].device)
-    w = _block_scan(_fold(tot, (block < nblk).reshape(threads2, run2)))
+    w = _block_scan(F, _fold(F, tot, (block < nblk).reshape(threads2, run2)))
     if total:
         return _lanes(w, threads2 - 1)
     before = lambda T: tuple(torch.cat([i, c[..., :-1]], dim=-1)
-                             for i, c in zip(_identity_like(T, 1), T))
-    carry = tuple(c.flatten(-2)[..., :nblk] for c in _walk(before(w), tot, True))
+                             for i, c in zip(_identity_like(F, T, 1), T))
+    carry = tuple(c.flatten(-2)[..., :nblk] for c in _walk(F, before(w), tot, True))
     v_before = before(v)
-    cin = padd_plain(tuple(c.unsqueeze(-1).expand(t.shape).contiguous()
-                           for c, t in zip(carry, v_before)), v_before)
-    out = tuple(c.flatten(-3)[..., :L] for c in _walk(cin, x, exclusive))
+    cin = pj.proj_add(F, tuple(c.unsqueeze(-1).expand(t.shape).contiguous()
+                               for c, t in zip(carry, v_before)), v_before)
+    out = tuple(c.flatten(-3)[..., :L] for c in _walk(F, cin, x, exclusive))
     return tuple((c.flip(-1) if reverse else c).contiguous() for c in out)
+
+
+def padd_scan_plain(P, *, reverse=False, exclusive=False, total=False,
+                    run=SCAN_RUN, threads=None):
+    """The lane scan of ``padd_scan`` in the kernel's association, over plain
+    G1 additions (``lane_scan_plain``)."""
+    return lane_scan_plain(FQ_PLAIN, P, reverse=reverse, exclusive=exclusive,
+                           total=total, run=run, threads=threads)
 
 
 def madd_plain(P, A):
@@ -407,6 +417,46 @@ def padd(P, Q):
     return tuple(out)
 
 
+def scan_threads_checked(name: str, L: int, run: int, threads):
+    """The lane scan's threads a block (None: ``scan_threads``); raises
+    unless the run is at least 1 and the threads a power of two up to
+    SCAN_MAX_THREADS."""
+    threads = threads or scan_threads(L, run)
+    if run < 1 or threads & (threads - 1) or not 1 <= threads <= SCAN_MAX_THREADS:
+        raise ValueError(f"{name}: run {run} must be >= 1 and threads {threads} "
+                         f"a power of two up to {SCAN_MAX_THREADS}")
+    return threads
+
+
+def launch_scan(entry, name: str, P, elem: tuple, *, reverse, exclusive, total,
+                run, threads):
+    """A lane scan's passes on the card: ``entry`` is ``g1_padd_scan`` or
+    ``g2_padd_scan`` (one C signature), ``P`` the coordinates
+    (*elem, *batch, L), contiguous.  Allocates the scratch and the output
+    (the scan's shape, or (*elem, *batch) for a total); returns the output and
+    the launches made (3, or 2 for a total)."""
+    shape = tuple(P[0].shape)
+    L = shape[-1]
+    rows = math.prod(shape[len(elem):-1])
+    nblk, threads2, _ = scan_geometry(L, run, threads)
+    if rows > 65535 or rows * nblk * threads * run >= 1 << 31:
+        raise ValueError(f"{name}: {rows} rows of {L} lanes, the kernel takes at "
+                         f"most 65535 rows and 2^31 lanes")
+    dev = P[0].device
+    new = lambda *dims: [torch.empty(elem + dims, dtype=torch.int32, device=dev)
+                         for _ in range(3)]
+    V, C = new(rows, nblk * threads), new(rows, nblk)
+    out = (new(*shape[len(elem):-1]) if total
+           else [torch.empty_like(P[0]) for _ in range(3)])
+    O, S = ([None] * 3, out) if total else (out, [None] * 3)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = entry(*[ptr(t) for t in (*P, *O, *S, *V, *C)], rows, L, run, threads,
+                     threads2, int(reverse), int(exclusive), stream_ptr(dev))
+    check_launch(code, name)
+    return tuple(out), 2 if total else 3
+
+
 def padd_scan(P, *, reverse=False, exclusive=False, total=False,
               run=SCAN_RUN, threads=None):
     """Scan of complete projective additions along the last axis.
@@ -423,36 +473,16 @@ def padd_scan(P, *, reverse=False, exclusive=False, total=False,
     shape = tuple(P[0].shape)
     if len(shape) < 2 or shape[-1] < 1:
         raise ValueError(f"padd_scan: need (24, *batch, L) with L >= 1, got {shape}")
-    L = shape[-1]
-    rows = math.prod(shape[1:-1])
-    threads = threads or scan_threads(L, run)
-    if run < 1 or threads & (threads - 1) or not 1 <= threads <= SCAN_MAX_THREADS:
-        raise ValueError(f"padd_scan: run {run} must be >= 1 and threads {threads} "
-                         f"a power of two up to {SCAN_MAX_THREADS}")
+    threads = scan_threads_checked("padd_scan", shape[-1], run, threads)
     if not P[0].is_cuda:
         return padd_scan_plain(P, reverse=reverse, exclusive=exclusive, total=total,
                                run=run, threads=threads)
-    nblk, threads2, _ = scan_geometry(L, run, threads)
-    if rows > 65535 or rows * nblk * threads * run >= 1 << 31:
-        raise ValueError(f"padd_scan: {rows} rows of {L} lanes, the kernel takes at "
-                         f"most 65535 rows and 2^31 lanes")
-    dev = P[0].device
-    new = lambda *dims: [torch.empty((K,) + dims, dtype=torch.int32, device=dev)
-                         for _ in range(3)]
-    V, C = new(rows, nblk * threads), new(rows, nblk)
-    out = new(*shape[1:-1]) if total else [torch.empty_like(P[0]) for _ in range(3)]
-    O, S = ([None] * 3, out) if total else (out, [None] * 3)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        code = _lib().g1_padd_scan(
-            *[ptr(t) for t in (*P, *O, *S, *V, *C)], rows, L, run, threads,
-            threads2, int(reverse), int(exclusive), stream_ptr(dev))
-    check_launch(code, "g1_padd_scan")
-    n = 2 if total else 3
+    out, n = launch_scan(_lib().g1_padd_scan, "g1_padd_scan", P, (K,), reverse=reverse,
+                         exclusive=exclusive, total=total, run=run, threads=threads)
     LAUNCHES["padd_scan"] += n
     key = (scan_mode(reverse, exclusive, total), shape)
     SCAN_LAUNCHES[key] = SCAN_LAUNCHES.get(key, 0) + n
-    return tuple(out)
+    return out
 
 
 def pdbl(P, times: int = 1):

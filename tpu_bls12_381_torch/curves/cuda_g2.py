@@ -7,22 +7,31 @@ Counterpart of the JAX package's ``curves/pallas_g2.py``:
   Fq2 (Karatsuba products, 3b' = 12(1+u)), y2 negated per lane where
   ``sign``, P passed through where ``inf2``;
 * ``padd2`` takes the place of ``_padd2_kernel`` / ``padd2`` (``:201``,
-  ``:315``): RCB16 algorithm 7 over Fq2;
+  ``:315``): RCB16 algorithm 7 over Fq2; ``padd2_scan`` is the same addition
+  scanned along the last axis (the G2 MSM tail's lane scans, which the JAX
+  package runs as log2(L) Hillis-Steele steps of ``padd2``), as
+  ``cuda_g1.padd_scan`` is for G1;
 * ``pdbl2`` takes the place of ``_pdbl2_kernel`` / ``pdbl2`` (``:219``,
   ``:327``): RCB16 algorithm 9 over Fq2 with complex squaring, with a count
   ``times``: one launch doubles every lane ``times`` times in registers, where
   the JAX package's ``_double_n`` runs a ``fori_loop`` of launches
   (``projective.proj_double_n_fast`` routes the G2 MSM's doubling chains to
-  it), on the carry-chain Fq product of ``csrc/field_carry.cuh``.
+  it).
 
-The kernels are CUDA C++ in ``csrc/g2_pmadd.cu``, ``csrc/g2_padd.cu`` and
-``csrc/g2_pdbl.cu`` (formulas in ``csrc/g2.cuh``): one thread per lane.  ``pmadd2_rows`` is the looped form,
-as ``cuda_g1.pmadd_signed_rows``: one launch walks the R rows of a scan tile
-inside each thread and writes every prefix row.  On an H100 the integer pipe
-bounds the wide launches (33 to 36 Fq products a lane against 1,152 to 1,728
-bytes, 22 a doubling against 576 bytes a chain), the launches on few lanes
-are bound by launch latency, and the two adds spill registers (PERF.md has
-the numbers).
+The kernels are CUDA C++ in ``csrc/g2_pmadd.cu``, ``csrc/g2_padd.cu``,
+``csrc/g2_padd_scan.cu`` and ``csrc/g2_pdbl.cu`` (formulas in ``csrc/g2.cuh``
+and, for ``pmadd2``, ``csrc/g2_pair.cuh``; the lane scan's passes in
+``csrc/lane_scan.cuh``), all on the carry-chain Fq product of
+``csrc/field_carry.cuh``.  ``pmadd2`` runs a lane on two threads, each holding
+one component of every Fq2 value, so that a 72-word point and the formula's
+temporaries fit (a launch is 2 L threads); the others run one thread a lane,
+their products ordered so that operands die early.  ``pmadd2_rows`` is the
+looped form, as ``cuda_g1.pmadd_signed_rows``: one launch walks the R rows of
+a scan tile and writes every prefix row.  On an H100 the integer pipe bounds
+the wide launches (33 to 36 Fq products a lane against 1,152 to 1,728 bytes,
+22 a doubling against 576 bytes a chain); the launches on few lanes, the lane
+scan's among them, are bound by latency (PERF.md has the numbers, registers
+and spill).
 
 An Fq2 coordinate is one ``(24, 2, *batch)`` int32 tensor (limbs, then the
 component, then the batch: ``curves/field_adapters.py``).  The kernel gets
@@ -32,13 +41,15 @@ what a contiguous tensor of that shape gives; ``_check_coords`` holds every
 operand to it.
 
 Each wrapper takes its plain version (``*_plain``: the formulas of
-``curves/projective.py`` over ``FQ2_PLAIN``) only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises; there is no fallback.  The
-wrappers copy nothing: coordinates must be contiguous and of one shape, masks
-contiguous, and anything else raises (the ``*_fast`` routers of
-``curves/projective.py`` broadcast and lay out for them).  ``LAUNCHES``
-counts kernel launches, and nothing else; ``CHAIN_LAUNCHES`` splits
-``pdbl2``'s by the doublings ``times`` a launch made.
+``curves/projective.py`` over ``FQ2_PLAIN``; ``padd2_scan_plain``, the scan
+kernel's association, ``cuda_g1.lane_scan_plain``) only for tensors on the
+CPU.  For CUDA tensors it launches the kernel or raises; there is no
+fallback.  The wrappers copy nothing: coordinates must be contiguous and of
+one shape, masks contiguous, and anything else raises (the ``*_fast``
+routers of ``curves/projective.py`` broadcast and lay out for them).
+``LAUNCHES`` counts kernel launches, and nothing else; ``SCAN_LAUNCHES``
+splits ``padd2_scan``'s by mode and shape, ``CHAIN_LAUNCHES`` ``pdbl2``'s by
+the doublings ``times`` a launch made.
 """
 
 from __future__ import annotations
@@ -51,12 +62,16 @@ from .. import _build
 from ..fields import FQ
 from ..fields.cuda_ops import check_launch, check_limbs, stream_ptr
 from . import projective as pj
-from .cuda_g1 import _check_mask
+from .cuda_g1 import (SCAN_RUN, _check_mask, lane_scan_plain, launch_scan, scan_mode,
+                      scan_threads_checked)
 from .field_adapters import FQ2_PLAIN
 
 K = FQ.num_limbs
 
-LAUNCHES = {"pmadd2": 0, "padd2": 0, "pdbl2": 0}
+LAUNCHES = {"pmadd2": 0, "padd2": 0, "pdbl2": 0, "padd2_scan": 0}
+# padd2_scan's launches by what each call scanned: (mode, shape) -> launches,
+# mode one of cuda_g1.scan_mode's names, shape the coordinates' (24, 2, *batch, L).
+SCAN_LAUNCHES = {}
 # pdbl2's launches by chain length: times -> launches (the doublings are
 # the sum of times * launches).
 CHAIN_LAUNCHES = {}
@@ -67,6 +82,7 @@ _ARGTYPES = {
                  + [ctypes.c_longlong, ctypes.c_int, _PTR]),
     "g2_padd": [_PTR] * 9 + [ctypes.c_longlong, _PTR],
     "g2_pdbl": [_PTR] * 6 + [ctypes.c_longlong, ctypes.c_int, _PTR],
+    "g2_padd_scan": [_PTR] * 15 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [_PTR],
 }
 _ENTRIES: dict = {}
 
@@ -74,6 +90,7 @@ _ENTRIES: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SCAN_LAUNCHES.clear()
     CHAIN_LAUNCHES.clear()
 
 
@@ -107,6 +124,14 @@ def pmadd2_rows_plain(x_rows, y_rows, sign_rows, inf_rows):
 
 def padd2_plain(P, Q):
     return pj.proj_add(FQ2_PLAIN, P, Q)
+
+
+def padd2_scan_plain(P, *, reverse=False, exclusive=False, total=False,
+                     run=SCAN_RUN, threads=None):
+    """The lane scan of ``padd2_scan`` in the kernel's association, over plain
+    G2 additions (``cuda_g1.lane_scan_plain``)."""
+    return lane_scan_plain(FQ2_PLAIN, P, reverse=reverse, exclusive=exclusive,
+                           total=total, run=run, threads=threads)
 
 
 def pdbl2_plain(P, times: int = 1):
@@ -233,6 +258,30 @@ def padd2(P, Q):
     check_launch(code, "g2_padd")
     LAUNCHES["padd2"] += 1
     return tuple(out)
+
+
+def padd2_scan(P, *, reverse=False, exclusive=False, total=False,
+               run=SCAN_RUN, threads=None):
+    """Scan of complete projective additions over Fq2 along the last axis,
+    with ``cuda_g1.padd_scan``'s modes and arguments: ``P`` coordinates
+    (24, 2, *batch, L); a total is (24, 2, *batch).  Results are the sums by
+    value; their limbs are those of ``padd2_scan_plain`` with the same run and
+    threads.  Three launches (two for a total), whatever L is."""
+    _check_coords(list(P), "padd2_scan")
+    shape = tuple(P[0].shape)
+    if len(shape) < 3 or shape[-1] < 1:
+        raise ValueError(f"padd2_scan: need (24, 2, *batch, L) with L >= 1, got {shape}")
+    threads = scan_threads_checked("padd2_scan", shape[-1], run, threads)
+    if not P[0].is_cuda:
+        return padd2_scan_plain(P, reverse=reverse, exclusive=exclusive, total=total,
+                                run=run, threads=threads)
+    out, n = launch_scan(_entry("g2_padd_scan"), "g2_padd_scan", P, (K, 2),
+                         reverse=reverse, exclusive=exclusive, total=total, run=run,
+                         threads=threads)
+    LAUNCHES["padd2_scan"] += n
+    key = (scan_mode(reverse, exclusive, total), shape)
+    SCAN_LAUNCHES[key] = SCAN_LAUNCHES.get(key, 0) + n
+    return out
 
 
 def pdbl2(P, times: int = 1):

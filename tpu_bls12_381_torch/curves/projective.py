@@ -24,8 +24,9 @@ The plain functions here are also the plain versions of the fused CUDA
 kernels in ``curves/cuda_g1.py`` and ``curves/cuda_g2.py``; the ``*_fast``
 routers send CUDA tensors to those kernels and CPU tensors to the plain
 functions.  The lane scans (``proj_lane_scan``) are the MSM tail's: the JAX
-package's Hillis-Steele steps, except for G1 on the card, where one scan
-kernel takes them (``proj_lane_scan_fast``, ``proj_lane_sum_fast``).
+package's Hillis-Steele steps, except on the card, where one scan kernel
+takes them (``proj_lane_scan_fast``, ``proj_lane_sum_fast``: ``padd_scan``
+for G1, ``padd2_scan`` for G2).
 """
 
 from __future__ import annotations
@@ -366,20 +367,27 @@ def proj_scan_rows_fast(F, x_rows, y_rows, sign_rows, inf_rows):
 
 def lane_scan_kernel(F, device):
     """The lane-scan wrapper that serves adapter ``F`` on ``device``
-    (``cuda_g1.padd_scan``: G1 on the card), else None (the Hillis-Steele
-    steps).  The routers below and ``msm_geometry``'s launch plan both ask it."""
-    if torch.device(device).type != "cuda" or F is not FQ_ADAPTER:
+    (``cuda_g1.padd_scan`` for G1, ``cuda_g2.padd2_scan`` for G2, on the
+    card), else None (the Hillis-Steele steps).  The routers below and
+    ``msm_geometry``'s launch plan both ask it."""
+    if torch.device(device).type != "cuda":
         return None
-    from . import cuda_g1
+    if F is FQ_ADAPTER:
+        from . import cuda_g1
 
-    return cuda_g1.padd_scan
+        return cuda_g1.padd_scan
+    if F is FQ2_ADAPTER:
+        from . import cuda_g2
+
+        return cuda_g2.padd2_scan
+    return None
 
 
 def proj_lane_scan_fast(F, P, *, reverse: bool = False, exclusive: bool = False):
-    """``proj_lane_scan`` by value: a G1 point tensor on the card goes to the
-    scan kernel (``cuda_g1.padd_scan``, some 2L additions in 3 launches, in
-    another association, so other limbs), anything else to the Hillis-Steele
-    steps in the JAX package's order."""
+    """``proj_lane_scan`` by value: a G1 or G2 point tensor on the card goes
+    to the scan kernel (``lane_scan_kernel``: some 2L additions in 3 launches,
+    in another association, so other limbs), anything else to the
+    Hillis-Steele steps in the JAX package's order."""
     scan = lane_scan_kernel(F, P[0].device)
     if scan is None:
         return proj_lane_scan(F, P, reverse=reverse, exclusive=exclusive)
@@ -388,8 +396,8 @@ def proj_lane_scan_fast(F, P, *, reverse: bool = False, exclusive: bool = False)
 
 
 def proj_lane_sum_fast(F, P):
-    """Point sum along the last axis: on the card for G1 the scan kernel's
-    total (2 launches), else slot 0 of the Hillis-Steele suffix scan."""
+    """Point sum along the last axis: on the card the scan kernel's total (2
+    launches), else slot 0 of the Hillis-Steele suffix scan."""
     scan = lane_scan_kernel(F, P[0].device)
     if scan is None:
         return tuple(c[..., 0] for c in proj_lane_scan(F, P, reverse=True))

@@ -38,9 +38,10 @@ On CUDA tensors the group-law calls (the scan's signed mixed adds, ``g_add``,
 ``curves/cuda_g1.py``, ``curves/cuda_g2.py`` and ``fields/cuda_ops.py``; sort,
 gather, searchsorted, rolls and selects are plain PyTorch.  The scan is ONE
 launch per window: each thread owns a column and walks its R rows.  The
-tail's lane scans (stitch, triangle) are, for G1 on the card, the scan kernel
-``padd_scan`` (``projective.proj_lane_scan_fast``: 12 launches a window); on
-the CPU and for G2 they are the JAX package's Hillis-Steele steps.  The
+tail's lane scans (stitch, triangle) are, on the card, the scan kernel
+``padd_scan`` (G1) or ``padd2_scan`` (G2) (``projective.proj_lane_scan_fast``:
+12 launches a window); on the CPU they are the JAX package's Hillis-Steele
+steps.  The
 boundary, the triangle combine and Horner call the add and the doubling on
 few lanes; that part is bound by launch latency.  A chain of doublings
 (``_double_n``: the triangle combine's lb_bits, Horner's w, ``expand_bases``'
@@ -81,12 +82,15 @@ GLV_HALF_BITS_STATIC = 128
 
 _KEY_DTYPE = torch.int64
 
-# A window's tail on the card for G1: the stitch (a scan, 3 launches), the
+# A window's tail on the card: the stitch (a scan, 3 launches), the
 # triangle's column and row sums (totals, 2 each), its suffix scan (3) and
 # the sum of that (2); two adds at the boundary, one in the weighted sum,
-# two in the combine, whose lb_bits doublings are one pdbl launch.
+# two in the combine, whose lb_bits doublings are one pdbl (pdbl2) launch.
+# The kernels' names in the launch counts by the adapter's limb planes a
+# coordinate (1: G1, 2: G2): (the scan, the add).
 TAIL_SCAN_LAUNCHES = 12
 TAIL_ADDS = 5
+TAIL_KERNELS = {1: ("padd_scan", "padd"), 2: ("padd2_scan", "padd2")}
 
 
 def window_bits_for(n: int, F=None, device=None) -> int:
@@ -116,19 +120,19 @@ def lane_tile_for(n: int, F=None, device=None) -> int:
     """Lane width L for the bucket-accumulation tile (R = ceil(n/L) rows).
 
     The row scan is R dependent mixed adds per lane, the column stitch a lane
-    scan: L ~ sqrt(256 n), within the profile's cap.  G1 takes at least
-    2^msm_g1_lane_tile_log_min lanes while that leaves 16 rows: on the card
+    scan: L ~ sqrt(256 n), within the profile's cap (one less for G2).  A
+    curve takes at least 2^msm_g1_lane_tile_log_min (G2:
+    2^msm_g2_lane_tile_log_min) lanes while that leaves 16 rows: on the card
     the scan needs that many lanes in flight, and its stitch costs some 2L
     adds, not L log2 L."""
     ln = max(4, n).bit_length() - 1
     prof = chip_profile(device)
-    lo, cap = 3, prof.msm_lane_tile_log_cap
+    cap = prof.msm_lane_tile_log_cap
+    floor = prof.msm_g1_lane_tile_log_min
     if F is not None and getattr(F, "limb_planes", 1) > 1:
-        cap -= 1
-    else:
-        lo = max(lo, min(prof.msm_g1_lane_tile_log_min, ln - 4))
-        cap = max(cap, lo)
-    return 1 << int(np.clip((ln + 8) // 2, lo, cap))
+        cap, floor = cap - 1, prof.msm_g2_lane_tile_log_min
+    lo = max(3, min(floor, ln - 4))
+    return 1 << int(np.clip((ln + 8) // 2, lo, max(cap, lo)))
 
 
 def num_windows(w: int, num_bits: int = FR_BITS) -> int:
@@ -581,10 +585,11 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     sequential batch groups of ``per_group`` scalar sets, and
     ``scan_launches``, the scan launches of the whole call (one a window, a
     piece and a group), and ``tail_launches``: where the lane scans take the
-    scan kernel (``projective.lane_scan_kernel``: G1 on the card), the
-    ``padd_scan`` and ``padd`` launches of the call (a window's tail makes 12
-    scan launches and 5 adds; each piece after the first of a group adds its
-    window sums in once; Horner adds T - 1 times), else None.
+    scan kernel (``projective.lane_scan_kernel``: on the card), the scan's
+    and the add's launches of the call under their names (``padd_scan`` and
+    ``padd`` for G1, ``padd2_scan`` and ``padd2`` for G2; a window's tail
+    makes 12 scan launches and 5 adds; each piece after the first of a group
+    adds its window sums in once; Horner adds T - 1 times), else None.
     ``doubling_chains``: the call's chains of doublings (one a window's
     triangle combine, one a Horner step; on the card each is one ``pdbl``
     launch for G1, one ``pdbl2`` launch for G2) and ``doublings``, the
@@ -649,8 +654,9 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     runs = T * pieces * groups
     tail = None
     if pj.lane_scan_kernel(F, device) is not None:
-        tail = {"padd_scan": TAIL_SCAN_LAUNCHES * runs,
-                "padd": TAIL_ADDS * runs + groups * (pieces - 1) + T - 1}
+        scan, add = TAIL_KERNELS[F.limb_planes]
+        tail = {scan: TAIL_SCAN_LAUNCHES * runs,
+                add: TAIL_ADDS * runs + groups * (pieces - 1) + T - 1}
     plan = _tile_plan(F, n_run, w, device)
     chains = [(runs, plan["lb_bits"]), (T - 1, w)]
     return {"glv": glv, "T": T, **plan,

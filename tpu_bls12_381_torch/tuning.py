@@ -30,9 +30,10 @@ class ChipProfile:
     # log2 ceiling of the bucket-accumulation lane tile L
     # (pippenger.lane_tile_for): one scan thread per lane.
     msm_lane_tile_log_cap: int
-    # log2 floor of G1's lane tile where the points allow 16 rows: the lanes
-    # the scan kernel needs in flight to fill the card.
+    # log2 floors of G1's and G2's lane tiles where the points allow 16
+    # rows: the lanes the scan kernel needs in flight to fill the card.
     msm_g1_lane_tile_log_min: int
+    msm_g2_lane_tile_log_min: int
     # log2 of the longest row the NTT tile kernel takes in one block
     # (ntt/cuda_ntt.py): shared memory a block may opt into, at 32 bytes an
     # Fr element.
@@ -49,13 +50,14 @@ _CAPS = dict(msm_window_cap_small=15, msm_window_cap_large=16,
 
 # On the CPU nothing is held in shared memory; the cap is an H100's (227 KB:
 # rows of 2^12), so that a size splits there as it does on the card.  The
-# CPU's G1 tile has no floor: its tiles are the JAX package's.
+# CPU's tiles have no floor: they are the JAX package's.
 _CPU = ChipProfile("cpu", **_CAPS, msm_g1_lane_tile_log_min=3,
-                   ntt_tile_log_cap=12)
+                   msm_g2_lane_tile_log_min=3, ntt_tile_log_cap=12)
 
-# The G1 tile's floor on the card, from chip_smoke.py's sweep of the scan
-# kernel over tiles of the same adds (PERF.md).
+# The tiles' floors on the card, from chip_smoke.py's sweeps of the scan
+# kernels over tiles of one window's adds (tile_sweep, tile_sweep_g2; PERF.md).
 _CUDA_G1_LANE_TILE_LOG_MIN = 15
+_CUDA_G2_LANE_TILE_LOG_MIN = 14
 
 # log2 of the columns L of the batch inversion's (R, L) tile on the card
 # (vecops.batch_inverse_tile; the CPU's plain loop keeps the JAX package's
@@ -73,6 +75,7 @@ def _cuda_profile(index: int) -> ChipProfile:
     row = props.shared_memory_per_block_optin // NTT_TILE_ELEM_BYTES
     return ChipProfile(props.name, **_CAPS,
                        msm_g1_lane_tile_log_min=_CUDA_G1_LANE_TILE_LOG_MIN,
+                       msm_g2_lane_tile_log_min=_CUDA_G2_LANE_TILE_LOG_MIN,
                        ntt_tile_log_cap=row.bit_length() - 1)
 
 
