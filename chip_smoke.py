@@ -7,11 +7,14 @@ Builds the CUDA kernels from ``tpu_bls12_381_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (integer arithmetic, canonical
 results: the tolerance is zero, ``torch.equal``; the doubling chains ``pdbl``
 and ``pdbl2`` at every count a path gives them, ``madd`` with P == A planted
-in one lane, in a whole warp and in the last lane of a partial last warp, the
-batch inversion's three kernels at 2^16 with zeros planted), sweeps the chains
+in one lane, in a whole warp and in the last lane of a partial last warp,
+``jadd`` with P == Q the same way, the batch inversion's three kernels at 2^16
+with zeros planted), sweeps the chains
 at the paths' widths (``chain_sweep``: one doubling on 2^20 lanes, G1 and G2,
 ``madd`` on 2^20 lanes against its build with the doubling in every lane,
-the batch inversion's columns), runs the golden n = 4096 G1
+``jac_ladder`` against its build that reads x and y again at each add,
+``jadd`` on 2^19 lanes with and without P == Q lanes, the batch inversion's
+columns), runs the golden n = 4096 G1
 MSM vector with GLV off and on, and drives the ported paths once each at
 full width: ``msm_g1`` on 2^20 points, checked against one host scalar
 multiplication, its tail's launches against the plan, then the tail's lane
@@ -30,9 +33,11 @@ asked), checked against host sums, round trips and each other; then the
 vector ops at 2^22.  Then SRS point validation (``points_2e20``): 2^20 G1
 points with planted non-members, off-curve points and an identity, written to
 wire bytes and read back on the card, checked with ``is_on_curve_affine`` and
-``is_in_subgroup`` (the Jacobian kernels ``jdbl`` and ``madd``, once a bit)
-against the planted masks, the members summed by ``sum_reduce`` (``jadd``)
-against the host, ``scalar_mul`` routed against the generic formulas, and G2
+``is_in_subgroup`` (one ``jac_ladder`` launch: the whole 255-bit
+double-and-add ladder, r read from one column) against the planted masks, the
+members summed by ``sum_reduce`` (``jadd``, one a round) against the host,
+``scalar_mul`` on 256 lanes with per-lane scalars routed against the generic
+formulas, and G2
 on 1,028 lanes; and the README's Quick start through ``global_accelerator()``
 (``entry``): warmup at 2^20 with factor 4, the validated points uploaded with
 factor 4, ``msm_with_bases`` and its async form against the host, the 2^22
@@ -58,10 +63,13 @@ length), an upload's against its slices and factor, and a batch inversion's
 against its three kernels.
 ``bound_ms`` counts the bytes the function needs (2 for a 16-bit limb);
 ``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in.  ``madd``
-computes the doubling that only P == A lanes use in a warp that holds one,
-so its ``bound_ms`` is the add's alone and ``bound_ms_with_doubling`` that of
-the sum and the doubling; ``jadd`` computes it in every lane, and its
-``bound_ms_without_doubling`` is the add's alone.  A
+and ``jadd`` compute the doubling that only P == A (P == Q) lanes use in a
+warp that holds one: ``madd``'s rows hold no such lane past warp 0, so their
+``bound_ms`` is the add's alone and ``bound_ms_with_doubling`` that of the
+sum and the doubling; ``jadd``'s rows hold them in most warps, so their bound
+counts the doubling and ``bound_ms_without_doubling`` is the add's alone.
+A ``jac_ladder`` row's bound counts 255 doublings a lane and an add for each
+set bit of the lane's scalar (``set_bits``).  A
 phase's line ends with ``seconds_since_start``.  Any failing phase raises,
 and the exit code is then not 0.  Without a CUDA device the script exits with
 code 2 and prints no result.
@@ -333,27 +341,40 @@ def main() -> int:
     if args.upto == "build":
         return stop_early()
 
-    # madd's other build, which chain_sweep times against the kept one:
-    # g1_jac_kernels.cu with the doubling computed in every lane (no warp
-    # branch, the constant-time select), compiled from a copy of the sources
-    # with that one statement changed, while the kernels phase runs.
-    madd_alt_src = (_build.CSRC_DIR / "g1_jac.cuh").read_text()
-    madd_branch = ("if (WARP_ANY(x_eq & y_eq))\n"
-                   "        R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);")
-    if madd_branch not in madd_alt_src:
-        raise AssertionError("build: madd's warp branch is not in g1_jac.cuh as expected")
-    madd_alt_dir = _build.BUILD_DIR / "madd_every_lane"
-    madd_alt_dir.mkdir(parents=True, exist_ok=True)
-    (madd_alt_dir / "g1_jac.cuh").write_text(madd_alt_src.replace(
-        madd_branch, "R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);"))
-    (madd_alt_dir / "g1_jac_kernels.cu").write_text(
-        (_build.CSRC_DIR / "g1_jac_kernels.cu").read_text())
-    madd_alt_lib = madd_alt_dir / "libg1_jac_kernels.so"
-    madd_alt_proc = subprocess.Popen(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
-         str(madd_alt_lib), str(madd_alt_dir / "g1_jac_kernels.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    atexit.register(lambda: madd_alt_proc.poll() is None and madd_alt_proc.kill())
+    # Builds not kept, which chain_sweep times against the kept one:
+    # g1_jac_kernels.cu compiled from a copy of the sources with one statement
+    # of g1_jac.cuh changed, while the kernels phase runs.  madd with the
+    # doubling computed in every lane (no warp branch, the constant-time
+    # select); the ladder reading x and y again at each add (234 registers
+    # where the kept build holds them in 248).
+    def alt_jac_build(name, old, new):
+        src_ = (_build.CSRC_DIR / "g1_jac.cuh").read_text()
+        if src_.count(old) != 1:
+            raise AssertionError(f"build: {name}: the statement to change is not in "
+                                 f"g1_jac.cuh as expected")
+        dir_ = _build.BUILD_DIR / name
+        dir_.mkdir(parents=True, exist_ok=True)
+        (dir_ / "g1_jac.cuh").write_text(src_.replace(old, new))
+        (dir_ / "g1_jac_kernels.cu").write_text(
+            (_build.CSRC_DIR / "g1_jac_kernels.cu").read_text())
+        proc = subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+             str(dir_ / "libg1_jac_kernels.so"), str(dir_ / "g1_jac_kernels.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        return proc, dir_ / "libg1_jac_kernels.so"
+
+    alt_builds = {
+        "madd every lane": alt_jac_build(
+            "madd_every_lane",
+            "if (WARP_ANY(x_eq & y_eq))\n"
+            "        R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);",
+            "R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);"),
+        "ladder x, y read at each add": alt_jac_build(
+            "ladder_reread", "g1_jac_madd<CarryMul>(acc, x, y, inf)",
+            "g1_jac_madd<CarryMul>(acc, fp_load<Fq>(x2, n, idx), "
+            "fp_load<Fq>(y2, n, idx), inf)"),
+    }
 
     # ------------------------------------------------------------ shared inputs
     rng = np.random.default_rng(SEED)
@@ -891,6 +912,30 @@ def main() -> int:
             raise AssertionError(f"madd, {what}: P + (-A) is not the identity")
     emit({"phase": "kernels", "name": "madd planted", "N": N, "equal": madd_equal})
     del Pw, Aw, Aq, inf_w
+    # jadd likewise computes the doubling only in a warp with a P == Q lane.
+    # Besides warp 0's lane 2 above: a whole warp of P == Q lanes (warp 1,
+    # Q = P with Z times 3), and 2^16 - 3 lanes whose last lane is P == Q and
+    # the one before P == -Q.
+    jadd_equal = {}
+    Qw = [c.clone() for c in Qj]
+    Pq3 = jac_scaled(Pj, 3)
+    for c in range(3):
+        Qw[c][:, eq_lanes] = Pq3[c][:, eq_lanes]
+        Qw[c][:, neg_lanes] = pt.jac_neg(FQ_PLAIN, Pq3)[c][:, neg_lanes]
+    Qw = contig(Qw)
+    for what, P_, Q_ in (("warp 1 all P == Q", Pj, Qw),
+                         (f"{n_odd} lanes, the last P == Q",
+                          tuple(c[:, :n_odd].contiguous() for c in Pj),
+                          tuple(c[:, :n_odd].contiguous() for c in Qw))):
+        got = cuda_g1.jadd(P_, Q_)
+        torch.cuda.synchronize()
+        jadd_equal[what] = trees_equal(got, cuda_g1.jadd_plain(P_, Q_))
+        if not jadd_equal[what]:
+            raise AssertionError(f"jadd, {what}: kernel and plain version differ")
+        if not bool(ops.is_zero(FQ, got[2][:, neg_lanes]).all()):
+            raise AssertionError(f"jadd, {what}: P + (-P) is not the identity")
+    emit({"phase": "kernels", "name": "jadd planted", "N": N, "equal": jadd_equal})
+    del Qw, Pq3
     check("jdbl", "jdbl_kernel", N, cuda_g1.jdbl(Pj), cuda_g1.jdbl_plain(Pj),
           lambda: cuda_g1.jdbl(Pj), lambda: cuda_g1.jdbl_plain(Pj),
           lambda: cuda_g1.LAUNCHES["jdbl"])
@@ -921,8 +966,8 @@ def main() -> int:
 
     # The chains' sweep at the paths' widths: one doubling on the uploads'
     # 2^20 lanes, G1 and G2 (the pdbl[upload] and pdbl2[upload] rows have
-    # their 80 and 140), madd's two builds on the ladder's 2^20 lanes, and
-    # the batch inversion's columns L on the upload's
+    # their 80 and 140), madd's two builds on 2^20 lanes, jadd on 2^19 with
+    # and without P == Q lanes, and the batch inversion's columns L on the upload's
     # (24, 2^20) and the vecops phase's (16, 2^22).  Kernel times from the
     # trace; every tile against the first.
     chain_sweep = []
@@ -936,32 +981,48 @@ def main() -> int:
     chain_sweep.append({"kernel": "pdbl2", "shape": [24, 2, 1 << LOG_N], "times": 1,
                         "ms": t_["ms"], "ms_from": t_["ms_from"]})
     del Pu2
-    # madd on the ladder's (24, 2^20) with no P == A lane (the accumulator
-    # 2A), the kept build (the doubling only in a warp that holds a P == A
-    # lane) and the build with the doubling in every lane, in turns kept,
-    # every lane, every lane, kept; both builds' outputs are held equal.
+    # madd on is_in_subgroup's (24, 2^20) with no P == A lane (the
+    # accumulator 2A), and the ladder on the same points with r: each kept
+    # build against its build not kept, in turns kept, other, other, kept;
+    # the outputs are held equal.
     Au = tiled_affine(1 << LOG_N)
     Pm = contig(cuda_g1.jdbl_plain(pt.affine_to_jac(FQ_PLAIN, Au)))
-    madd_alt_log, _ = madd_alt_proc.communicate()
-    if madd_alt_proc.returncode != 0:
-        raise AssertionError(f"chain_sweep: madd's every-lane build failed:\n{madd_alt_log}")
+    r_col = torch.from_numpy(ints_to_limbs([constants.FR_MODULUS], 16).astype(np.int32)).to(dev)
     kept_jac_lib = cuda_g1._jac_lib
-    every_lane = ctypes.CDLL(str(madd_alt_lib))
-    every_lane.g1_madd.argtypes = kept_jac_lib().g1_madd.argtypes
-    ref = cuda_g1.madd(Pm, Au)
-    for build_ in ("kept", "every lane", "every lane", "kept"):
-        if build_ == "every lane":
-            cuda_g1._jac_lib = lambda: every_lane
-        try:
-            same = trees_equal(cuda_g1.madd(Pm, Au), ref)
-            t_ = measure(lambda: cuda_g1.madd(Pm, Au), "madd_kernel", 10)
-        finally:
-            cuda_g1._jac_lib = kept_jac_lib
-        chain_sweep.append({"kernel": "madd", "shape": [24, 1 << LOG_N], "build": build_,
-                            "ms": t_["ms"], "ms_from": t_["ms_from"], "equal": same})
-        if not same:
-            raise AssertionError(f"madd's {build_} build differs from the kept one")
-    del Au, Pm, ref
+    alt_logs = {}
+    for (what, (proc_, lib_path)), kernel, run in zip(
+            alt_builds.items(), ("madd", "jac_ladder"),
+            (lambda: cuda_g1.madd(Pm, Au), lambda: cuda_g1.jac_ladder(r_col, Au, 255))):
+        alt_logs[what], _ = proc_.communicate()
+        if proc_.returncode != 0:
+            raise AssertionError(f"chain_sweep: the build '{what}' failed:\n{alt_logs[what]}")
+        other = ctypes.CDLL(str(lib_path))
+        fn = f"g1_{kernel}"
+        getattr(other, fn).argtypes = getattr(kept_jac_lib(), fn).argtypes
+        ref = run()
+        for build_ in ("kept", what, what, "kept"):
+            if build_ == what:
+                cuda_g1._jac_lib = lambda: other
+            try:
+                same = trees_equal(run(), ref)
+                t_ = measure(run, f"{kernel}_kernel", 10 if kernel == "madd" else 3)
+            finally:
+                cuda_g1._jac_lib = kept_jac_lib
+            chain_sweep.append({"kernel": kernel, "shape": [24, 1 << LOG_N], "build": build_,
+                                "ms": t_["ms"], "ms_from": t_["ms_from"], "equal": same})
+            if not same:
+                raise AssertionError(f"{kernel}'s build '{build_}' differs from the kept one")
+    # jadd at sum_reduce's first-round shape, (24, 2^19): with the tiled
+    # points lane i + 2^19 holds lane i's point, so P == Q in every lane and
+    # every warp computes the doubling; rolled by one lane, no lane has P == Q.
+    Jl = tuple(c[:, :1 << (LOG_N - 1)].contiguous() for c in Pm)
+    Jr = tuple(c[:, 1 << (LOG_N - 1):].contiguous() for c in Pm)
+    for what, Q_ in (("P == Q in every lane", Jr),
+                     ("no P == Q lane", contig(roll(Jr, 1)))):
+        t_ = measure(lambda: cuda_g1.jadd(Jl, Q_), "jadd_kernel", 10)
+        chain_sweep.append({"kernel": "jadd", "shape": [24, 1 << (LOG_N - 1)], "lanes": what,
+                            "ms": t_["ms"], "ms_from": t_["ms_from"]})
+    del Au, Pm, ref, Jl, Jr, r_col
     phases = ("binv_prefix", "binv_columns", "binv_unwind")
     for spec, log_n in ((FQ, LOG_N), (FR, NTT_LOG_N)):
         xs_ = rand_field(spec, 1 << log_n)
@@ -979,8 +1040,9 @@ def main() -> int:
         del xs_, ref, out_
     torch.cuda.empty_cache()
     emit({"phase": "chain_sweep", "rows": chain_sweep, "card": smi,
-          "ptxas_madd_every_lane": {k: v for k, v in ptxas_lines(madd_alt_log).items()
-                                    if "madd" in k}})
+          "ptxas_not_kept": {
+              what: {k: v for k, v in ptxas_lines(alt_logs[what]).items() if kernel in k}
+              for what, kernel in zip(alt_builds, ("madd", "jac_ladder"))}})
     if args.upto == "kernels":
         return stop_early()
 
@@ -2235,7 +2297,7 @@ def main() -> int:
     # summed; scalar_mul routed through the Jacobian kernels against the
     # generic formulas; then G2 on 1,028 lanes through the generic Fq2 path.
     P_MOD, R_MOD = constants.FQ_MODULUS, constants.FR_MODULUS
-    F1g = FqAdapter(FQ)            # the same field kernels, not routed to madd/jdbl/jadd
+    F1g = FqAdapter(FQ)            # the same field kernels, not routed to the Jacobian kernels
 
     def g1_non_members(count):
         """Curve points outside G1: x = 5, 6, ... with x^3 + 4 a square."""
@@ -2324,8 +2386,9 @@ def main() -> int:
     want_sum = oracle.jac_to_affine(
         oracle.scalar_mul(k_members % R_MOD, G, oracle.FQ_OPS), oracle.FQ_OPS)
     sum_ok = g1_ints(tuple(c[:, None] for c in S)) == want_sum
-    # scalar_mul on 256 lanes: routed (jdbl + madd a bit) and generic (field
-    # kernels and torch ops), same tensors, same limbs
+    # scalar_mul on 256 lanes: routed (one jac_ladder launch, per-lane
+    # scalars, so a warp adds where any of its lanes has the bit) and generic
+    # (field kernels and torch ops), same tensors, same limbs
     k256 = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(256)]
     k256[:2] = [0, R_MOD - 1]
     k256_t = torch.from_numpy(ints_to_limbs(k256, 16).astype(np.int32)).to(dev)
@@ -2379,54 +2442,116 @@ def main() -> int:
           "g2_launches_is_in_subgroup": launches_sub2, "card": smi})
     if not points_ok:
         raise AssertionError("points_2e20: a check failed (see the line above)")
-    if (launches_sub.get("jdbl"), launches_sub.get("madd"), launches_sum.get("jadd")) != (255, 255, 20):
+    # is_in_subgroup is one jac_ladder launch (no jdbl or madd a bit), the
+    # 256-lane scalar_mul too, sum_reduce one jadd a round
+    ladder_only = lambda l_: (l_.get("jac_ladder"), l_.get("jdbl", 0), l_.get("madd", 0))
+    if (ladder_only(launches_sub), ladder_only(launches_sm), launches_sum.get("jadd")) != (
+            (1, 0, 0), (1, 0, 0), 20):
         raise AssertionError(f"points_2e20: the Jacobian kernels were not launched as the "
-                             f"ladder and the tree need: {launches_sub}, {launches_sum}")
+                             f"ladder and the tree need: {launches_sub}, {launches_sm}, "
+                             f"{launches_sum}")
     del A2, A2_valid, S2, on2, sub2
 
     # ----------------- the Jacobian kernels at N = 2^16 with the edge lanes, and
-    # at the shapes points_2e20 gives them
+    # at the shapes points_2e20 gives them.  Since the ladder, no driven path
+    # launches madd or jdbl (their routers, jac_add_affine_fast and
+    # jac_double_fast, have no caller there): their rows say 0 launches.
     JAC_SRC = "tpu_bls12_381_torch/csrc/g1_jac_kernels.cu"
     jdbl_mads = 2 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
     madd_mads = 9 * mul_mads(W_FQ) + 9 * sqr_mads(W_FQ)
     jadd_mads = 13 * mul_mads(W_FQ) + 10 * sqr_mads(W_FQ)
-    # The doubling inside madd and jadd serves only the P == A lanes.  madd
-    # computes it only in a warp that holds such a lane, so its rows' bound
-    # is the add alone (7M + 4S: these inputs need no more), with the bound
-    # of the sum and the doubling (9M + 9S) beside it.  jadd computes it in
-    # every lane (constant time, as in JAX): the add alone stands beside its
-    # bound.
+    # The doubling inside madd and jadd serves only the P == A (P == Q) lanes,
+    # and both compute it only in a warp that holds such a lane.  madd's rows
+    # have no such lane past warp 0, so their bound is the add alone (7M + 4S),
+    # with the bound of the sum and the doubling (9M + 9S) beside it.  jadd's
+    # rows have them in most warps (the edge lanes; on sum_reduce's first
+    # round every lane, since the tiled points repeat every 4096 lanes): their
+    # bound counts the doubling, the add alone (11M + 5S) beside it.
     madd_add_mads = 7 * mul_mads(W_FQ) + 4 * sqr_mads(W_FQ)
     jadd_add_mads = 11 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
     madd_with = lambda lanes: bound(8 * 24 * lanes * LIMB_BYTES + lanes,
                                     lanes * madd_mads)[0]
     jadd_alone = lambda lanes: bound(9 * 24 * lanes * LIMB_BYTES, lanes * jadd_add_mads)[0]
+    jac_ptxas = lambda kernel: {k: v for k, v in registers.items() if kernel in k}
     Pj, Qj, Aj = jac_edge_cases(N)
     edge = "kernels: N = 2^16 with the edge lanes (launches: points_2e20's)"
+    no_path = ("kernels: N = 2^16 with the edge lanes (no driven path launches it since "
+               "the ladder)")
     kernel_row("madd[edge]", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",
                [24, N], lambda: cuda_g1.madd(Pj, Aj), lambda: cuda_g1.madd_plain(Pj, Aj),
-               8 * 24 * N, N, N * madd_add_mads, 20, n_launches=launches_sub["madd"],
-               path=edge, equal=True, bound_ms_with_doubling=madd_with(N))
+               8 * 24 * N, N, N * madd_add_mads, 20, n_launches=launches_sub.get("madd", 0),
+               path=no_path, equal=True, bound_ms_with_doubling=madd_with(N))
     kernel_row("jadd[edge]", "jadd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:252",
                [24, N], lambda: cuda_g1.jadd(Pj, Qj), lambda: cuda_g1.jadd_plain(Pj, Qj),
                9 * 24 * N, 0, N * jadd_mads, 20, n_launches=launches_sum["jadd"],
                path=edge, equal=True, bound_ms_without_doubling=jadd_alone(N))
     kernel_row("jdbl[edge]", "jdbl_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
                [24, N], lambda: cuda_g1.jdbl(Pj), lambda: cuda_g1.jdbl_plain(Pj),
-               6 * 24 * N, 0, N * jdbl_mads, 20, n_launches=launches_sub["jdbl"],
-               path=edge, equal=True)
+               6 * 24 * N, 0, N * jdbl_mads, 20, n_launches=launches_sub.get("jdbl", 0),
+               path=no_path, equal=True)
     del Pj, Qj, Aj
+
+    # The ladder (is_in_subgroup in one launch).  Its bound counts the work
+    # these inputs need: num_bits doublings a lane and a mixed add (the add
+    # alone) for each set bit of each lane's scalar; it moves A, the mask, the
+    # scalar limbs once and the result.  Edge lanes at 2^16, per-lane scalars
+    # (k = 0, 1, r - 1, r, r + 2, 2^255 - 1 on members; A's inf; two
+    # non-members at r and r + 2; r + 2 also in warp 1 and in the last lanes,
+    # where the accumulator meets P == A), held to the plain ladder (some
+    # 40 s on the card, timed once).
+    def ladder_row(name, k_, A_, ks_, path):
+        lanes = A_[0].shape[-1]
+        adds = sum(bin(v % (1 << 255)).count("1") for v in ks_) * (lanes // len(ks_))
+        kernel_row(name, "jac_ladder_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
+                   [24, lanes], lambda: cuda_g1.jac_ladder(k_, A_, 255),
+                   lambda: cuda_g1.jac_ladder_plain(k_, A_, 255),
+                   2 * 24 * lanes + 3 * 24 * lanes + k_.numel(), lanes,
+                   lanes * 255 * jdbl_mads + adds * madd_add_mads, 3,
+                   n_launches=launches_sub["jac_ladder"], path=path, equal=True,
+                   replaces_with="tpu_bls12_381/curves/pallas_g1.py:180, a launch of each "
+                                 "a bit in tpu_bls12_381/curves/points.py:242",
+                   num_bits=255, set_bits=adds, scalars=f"{tuple(k_.shape)}",
+                   ptxas=jac_ptxas("jac_ladder"))
+
+    A16 = [c.clone() for c in tiled_affine(N)]
+    nm16 = g1.affine_from_ints(g1_non_members(2), device=dev)
+    for c in range(2):
+        A16[c][:, 7:9] = nm16[c]
+        A16[c][:, 6] = 0
+    A16[2][6] = True
+    A16 = contig(A16)
+    ks16 = [0, 1, R_MOD - 1, R_MOD, R_MOD + 2, (1 << 255) - 1, 5, R_MOD, R_MOD + 2]
+    ks16 += [int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(N - len(ks16))]
+    for l_ in (40, N - 1):
+        ks16[l_] = R_MOD + 2
+    k16 = torch.from_numpy(ints_to_limbs(ks16, 16).astype(np.int32)).to(dev)
+    ladder_row("jac_ladder[edge]", k16, A16, ks16,
+               "kernels: N = 2^16 with the edge lanes, per-lane scalars (launches: "
+               "points_2e20's is_in_subgroup)")
+    probe = [0, 1, 2, 3, 4, 5, 9, 40, N - 1]
+    got16 = g1.jacobian_to_ints(tuple(c[:, probe] for c in cuda_g1.jac_ladder(k16, A16, 255)))
+    if got16 != [oracle.jac_to_affine(oracle.scalar_mul(ks16[l_], base_pts[l_ % M],
+                                                         oracle.FQ_OPS), oracle.FQ_OPS)
+                 for l_ in probe]:
+        raise AssertionError("jac_ladder[edge]: the probed lanes differ from the host's")
+    del A16, k16
+    r_col = torch.from_numpy(ints_to_limbs([R_MOD], 16).astype(np.int32)).to(dev)
+    ladder_row("jac_ladder", r_col, A, [R_MOD],
+               "points_2e20: is_in_subgroup, one launch, r read from one column")
     # the ladder's accumulator is a Jacobian batch with Z != 1: 2A here
     Pbig = contig(cuda_g1.jdbl_plain(pt.affine_to_jac(FQ_PLAIN, A)))
     kernel_row("madd", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",
                [24, n], lambda: cuda_g1.madd(Pbig, A), lambda: cuda_g1.madd_plain(Pbig, A),
-               8 * 24 * n, n, n * madd_add_mads, 10, n_launches=launches_sub["madd"],
-               path="points_2e20: is_in_subgroup, one a bit", equal=True,
+               8 * 24 * n, n, n * madd_add_mads, 10, n_launches=launches_sub.get("madd", 0),
+               path="jac_add_affine_fast at is_in_subgroup's shape (the ladder runs its "
+                    "lane body; no driven path launches it)", equal=True,
                bound_ms_with_doubling=madd_with(n))
     kernel_row("jdbl", "jdbl_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
                [24, n], lambda: cuda_g1.jdbl(Pbig), lambda: cuda_g1.jdbl_plain(Pbig),
-               6 * 24 * n, 0, n * jdbl_mads, 10, n_launches=launches_sub["jdbl"],
-               path="points_2e20: is_in_subgroup, one a bit", equal=True)
+               6 * 24 * n, 0, n * jdbl_mads, 10, n_launches=launches_sub.get("jdbl", 0),
+               path="jac_double_fast at is_in_subgroup's shape (the ladder runs its "
+                    "lane body; no driven path launches it)", equal=True,
+               ptxas=jac_ptxas("jdbl"))
     Jl = tuple(c[:, :n // 2].contiguous() for c in Pbig)
     Jr = tuple(c[:, n // 2:].contiguous() for c in Pbig)
     del Pbig
@@ -2434,8 +2559,9 @@ def main() -> int:
                [24, n // 2], lambda: cuda_g1.jadd(Jl, Jr), lambda: cuda_g1.jadd_plain(Jl, Jr),
                9 * 24 * (n // 2), 0, (n // 2) * jadd_mads, 10,
                n_launches=launches_sum["jadd"],
-               path="points_2e20: sum_reduce, its first round of 20", equal=True,
-               bound_ms_without_doubling=jadd_alone(n // 2))
+               path="points_2e20: sum_reduce, its first round of 20 (P == Q in every lane)",
+               equal=True, bound_ms_without_doubling=jadd_alone(n // 2),
+               ptxas=jac_ptxas("jadd"))
     del Jl, Jr
     torch.cuda.empty_cache()
     if args.upto == "points_2e20":

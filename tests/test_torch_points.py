@@ -171,6 +171,7 @@ def test_group_law_edge_lanes_against_the_oracle(curve):
 def test_routers_on_cpu_tensors_take_the_generic_formulas(curve):
     F, (P, Q, A) = curve
     assert pt._fused(F, P[0]) is None
+    assert pt.ladder_kernel(F, P[0].device) is None
     eq = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
     assert eq(pt.jac_add_fast(F, P, Q), pt.jac_add(F, P, Q))
     assert eq(pt.jac_add_affine_fast(F, P, A), pt.jac_add_affine(F, P, A))
@@ -309,6 +310,54 @@ def test_g1_is_in_subgroup_members_non_members_identity():
     got = pt.is_in_subgroup(F1, A)
     assert got.tolist() == [True, True, False, False, True]
     _assert_limbs_equal((got,), (jpt.is_in_subgroup(JF, jg1.affine_from_ints(pts)),), F1)
+
+
+def test_g1_is_in_subgroup_through_the_ladder_route(monkeypatch):
+    """``ladder_kernel`` forced to ``cuda_g1.jac_ladder`` on CPU tensors, where
+    the wrapper takes ``jac_ladder_plain``: ``scalar_mul`` lays A out and hands
+    r over as one (16, 1) column (a lane stride of 0, never copied out to the
+    batch), one ladder call for the whole check, and ``is_in_subgroup`` gives
+    the masks of ``test_g1_is_in_subgroup_members_non_members_identity``; the
+    ladder's limbs equal the generic loop's (``scalar_mul`` on the CPU)."""
+    rng = random.Random(13)
+    G = oracle.g1_generator()
+    members = [oracle.jac_to_affine(oracle.scalar_mul(rng.randrange(1, R_MOD), G,
+                                                      oracle.FQ_OPS), oracle.FQ_OPS)
+               for _ in range(2)]
+    A = g1.affine_from_ints(members + _non_members() + [None], device="cpu")
+    calls = []
+
+    def ladder(k, A_, num_bits):
+        calls.append((tuple(k.shape), num_bits))
+        calls.append(cuda_g1.jac_ladder(k, A_, num_bits))
+        return calls[-1]
+
+    monkeypatch.setattr(pt, "ladder_kernel", lambda F, device: ladder if F is F1 else None)
+    got = pt.is_in_subgroup(F1, A)
+    assert got.tolist() == [True, True, False, False, True]
+    assert calls[0] == ((16, 1), 255) and len(calls) == 2
+    monkeypatch.undo()
+    r = _scalar_limbs([R_MOD])
+    generic = pt.scalar_mul(F1, r, A)
+    assert all(torch.equal(a, b) for a, b in zip(calls[1], generic))
+
+
+@pytest.mark.parametrize("bad", ["expanded", "shape", "bits"])
+def test_jac_ladder_refuses_other_scalar_layouts(bad):
+    """``cuda_g1.jac_ladder`` copies nothing: scalars are contiguous (16, *batch)
+    planes or one contiguous (16, 1) column, and num_bits is 1 to 256."""
+    _, _, A = _cases(F1, 3)
+    r = _scalar_limbs([R_MOD])
+    if bad == "expanded":
+        with pytest.raises(ValueError):
+            cuda_g1.jac_ladder(r.expand(16, N), A)
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            cuda_g1.jac_ladder(_scalar_limbs([1] * (N - 1)), A)
+    else:
+        for num_bits in (0, 257):
+            with pytest.raises(ValueError):
+                cuda_g1.jac_ladder(r, A, num_bits)
 
 
 @pytest.mark.parametrize("name", ["g1", "g2"])

@@ -23,8 +23,6 @@ struct G1Proj {
     fq X, Y, Z;
 };
 
-DEV fq fq_mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
-
 struct FieldMul {
     static DEV fq mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
     static DEV fq sqr(const fq& a) { return fp_sqr<Fq>(a); }
@@ -34,7 +32,6 @@ struct CarryMul {
     static DEV fq mul(const fq& a, const fq& b) { return fq_mul_cc(a, b); }
     static DEV fq sqr(const fq& a) { return fq_mul_cc(a, a); }
 };
-DEV fq fq_sqr(const fq& a) { return fp_sqr<Fq>(a); }
 DEV fq fq_add(const fq& a, const fq& b) { return fp_add<Fq>(a, b); }
 DEV fq fq_sub(const fq& a, const fq& b) { return fp_sub<Fq>(a, b); }
 DEV fq fq_neg(const fq& a) { return fp_neg<Fq>(a); }

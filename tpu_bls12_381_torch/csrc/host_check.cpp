@@ -222,6 +222,17 @@ void g1_jdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
     for (size_t i = 0; i < n; ++i) g1_jdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
 }
 
+// The ladder of g1_jac_kernels.cu's jac_ladder (scalar_mul in one launch):
+// scalar limb j of lane i at scalars[j * s_plane + i * s_lane].  Every lane
+// runs alone, so each takes the add where its own bit is set (WARP_ANY(p) is p).
+void g1_jac_ladder(const uint32_t* scalars, size_t s_plane, size_t s_lane,
+                   const uint32_t* x2, const uint32_t* y2, const uint8_t* inf2,
+                   uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n, int num_bits) {
+    for (size_t i = 0; i < n; ++i)
+        g1_jac_ladder_lane(scalars, s_plane, s_lane, x2, y2, inf2, X3, Y3, Z3, n, i,
+                           num_bits);
+}
+
 void g1_madd(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
              const uint32_t* x2, const uint32_t* y2, const uint8_t* inf2,
              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {

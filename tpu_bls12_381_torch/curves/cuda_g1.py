@@ -23,7 +23,12 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
   ``_madd_kernel`` (``:180``), ``_add_kernel`` (``:252``) and ``_dbl_kernel``
   (``:156``) with their wrappers ``madd``, ``jadd``, ``jdbl``: madd-2007-bl,
   add-2007-bl and dbl-2009-l with the edge-case selections of
-  ``curves/points.py``.
+  ``curves/points.py``;
+* ``jac_ladder`` takes the place of ``_dbl_kernel`` and ``_madd_kernel`` as
+  the JAX package's ``points.scalar_mul`` (``curves/points.py:242``) runs
+  them, a launch of each a bit: the whole double-and-add ladder in one
+  launch, the accumulator in registers (``points.scalar_mul`` routes G1 on
+  the card to it, hence ``is_in_subgroup``).
 
 The kernels are CUDA C++: the projective ones in ``csrc/g1_kernels.cu``
 (formulas in ``csrc/g1.cuh``), the Jacobian ones in ``csrc/g1_jac_kernels.cu``
@@ -31,8 +36,8 @@ The kernels are CUDA C++: the projective ones in ``csrc/g1_kernels.cu``
 thread per lane, all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
 launch walks the R rows of a scan tile inside each thread and writes every
 prefix row, where the JAX package launches R times.  ``pmadd_signed``, ``padd``,
-``padd_scan`` and ``pdbl`` take the carry-chain Fq product of
-``csrc/field_carry.cuh``.  On an H100 the integer
+``padd_scan``, ``pdbl`` and the Jacobian kernels take the carry-chain Fq
+product of ``csrc/field_carry.cuh``.  On an H100 the integer
 pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
 864 bytes); the many launches on few lanes are bound by launch latency
 (PERF.md has the numbers).
@@ -64,9 +69,10 @@ from . import projective as pj
 from .field_adapters import FQ_PLAIN
 
 K = FQ.num_limbs
+SCALAR_LIMBS = 16      # a scalar's 16-bit limbs, standard form (256 bits)
 
 LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0,
-            "madd": 0, "jadd": 0, "jdbl": 0, "padd_scan": 0}
+            "madd": 0, "jadd": 0, "jdbl": 0, "padd_scan": 0, "jac_ladder": 0}
 # padd_scan's launches by what each call scanned: (mode, shape) -> launches,
 # mode one of scan_mode's names, shape the coordinates' (24, *batch, L).
 SCAN_LAUNCHES = {}
@@ -125,7 +131,10 @@ def _jac_lib():
         lib.g1_madd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_jadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_jdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, _PTR]
-        for fn in (lib.g1_madd, lib.g1_jadd, lib.g1_jdbl):
+        lib.g1_jac_ladder.argtypes = (
+            [_PTR] + [ctypes.c_longlong] * 2 + [_PTR] * 6
+            + [ctypes.c_longlong, ctypes.c_int, _PTR])
+        for fn in (lib.g1_madd, lib.g1_jadd, lib.g1_jdbl, lib.g1_jac_ladder):
             fn.restype = ctypes.c_int
         _JAC_CONFIGURED = True
     return lib
@@ -272,6 +281,20 @@ def jadd_plain(P, Q):
 
 def jdbl_plain(P):
     return pt.jac_double(FQ_PLAIN, P)
+
+
+def jac_ladder_plain(scalars, A, num_bits: int = 255):
+    """scalars * A by the ladder of ``points.scalar_mul`` in plain steps:
+    from the identity, MSB first, per bit ``jdbl_plain``, ``madd_plain`` and
+    the select of the sum where the lane's bit is set (constant time: every
+    step computes the add).  ``scalars``: (16, *batch) limbs, or one
+    (16, 1, ...) column for every lane."""
+    acc = pt.jac_identity(FQ_PLAIN, FQ_PLAIN.batch_shape(A[0]), A[0].device)
+    for b in range(num_bits - 1, -1, -1):
+        bit = ((scalars[b // 16] >> (b % 16)) & 1).bool()
+        acc = jdbl_plain(acc)
+        acc = pt.jac_cmov(FQ_PLAIN, bit, madd_plain(acc, A), acc)
+    return acc
 
 
 # -----------------------------------------------------------------------------
@@ -566,4 +589,46 @@ def jdbl(P):
             P[0].numel() // K, stream_ptr(dev))
     check_launch(code, "g1_jdbl")
     LAUNCHES["jdbl"] += 1
+    return tuple(out)
+
+
+def jac_ladder(scalars, A, num_bits: int = 255):
+    """``scalars * A`` lane by lane (the ``points.scalar_mul`` contract): the
+    double-and-add ladder over the low ``num_bits`` bits, MSB first, in one
+    launch.  ``A``: affine (x, y, inf), contiguous (24, *batch) coordinates
+    and a (*batch) mask.  ``scalars``: contiguous int32 (16, *batch) 16-bit
+    limbs in standard form, or one contiguous (16, 1, ...) column that every
+    lane reads (a lane stride of 0: ``is_in_subgroup``'s r, never copied out
+    to the batch).  Returns a Jacobian batch.  A warp in which no lane has a
+    bit skips that bit's add: the time, not the value, depends on the bits."""
+    x2, y2, inf2 = A
+    batch = _check_coords([x2, y2], "jac_ladder")
+    dev = x2.device
+    _check_mask(inf2, batch, dev, "jac_ladder: inf2")
+    check_limbs(scalars, SCALAR_LIMBS, "jac_ladder: scalars")
+    if scalars.device != dev:
+        raise ValueError("jac_ladder: scalars on a different device")
+    if tuple(scalars.shape[1:]) == batch:
+        lane_stride = 1
+    elif scalars.dim() == 1 + len(batch) and scalars.numel() == SCALAR_LIMBS:
+        lane_stride = 0
+    else:
+        raise ValueError(
+            f"jac_ladder: scalars of shape {tuple(scalars.shape)}: expected "
+            f"({SCALAR_LIMBS}, *{batch}) or one ({SCALAR_LIMBS}, 1, ...) column")
+    num_bits = int(num_bits)
+    if not 1 <= num_bits <= 16 * SCALAR_LIMBS:
+        raise ValueError(f"jac_ladder: num_bits must be 1 to {16 * SCALAR_LIMBS}, "
+                         f"got {num_bits}")
+    if not x2.is_cuda:
+        return jac_ladder_plain(scalars, A, num_bits)
+    n = x2.numel() // K
+    out = [torch.empty_like(x2) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _jac_lib().g1_jac_ladder(
+            scalars.data_ptr(), n if lane_stride else 1, lane_stride,
+            x2.data_ptr(), y2.data_ptr(), inf2.data_ptr(),
+            *[o.data_ptr() for o in out], n, num_bits, stream_ptr(dev))
+    check_launch(code, "g1_jac_ladder")
+    LAUNCHES["jac_ladder"] += 1
     return tuple(out)

@@ -16,10 +16,12 @@ cases (``torch.where``, no branch on data), in the JAX package's order.
 Routing.  ``jac_add_fast``, ``jac_add_affine_fast`` and ``jac_double_fast``
 send G1 (``FQ_ADAPTER``) on CUDA tensors to the fused kernels of
 ``curves/cuda_g1.py`` (``jadd``, ``madd``, ``jdbl``); G2, other adapters and
-CPU tensors take the generic formulas.  ``scalar_mul`` and ``sum_reduce`` step
-through the routers, so on the card a G1 double-and-add is two launches a bit.
-The kernels' limbs equal the generic formulas' (the JAX package's Pallas
-kernels are bit-identical to its generic path in the same way).
+CPU tensors take the generic formulas.  ``scalar_mul`` sends G1 on the card to
+``cuda_g1.jac_ladder`` (``ladder_kernel``), the whole ladder in one launch;
+elsewhere it steps through the routers, a doubling and a mixed add a bit.
+``sum_reduce`` makes one ``jac_add_fast`` a round.  The kernels' limbs equal
+the generic formulas' (the JAX package's Pallas kernels are bit-identical to
+its generic path in the same way).
 """
 
 from __future__ import annotations
@@ -200,6 +202,29 @@ def jac_double_fast(F, P):
     return mod.jdbl(tuple(c))
 
 
+def ladder_kernel(F, device):
+    """The wrapper that runs a whole double-and-add ladder in one launch for
+    adapter ``F`` on ``device`` (``cuda_g1.jac_ladder`` for G1 on the card),
+    else None (a doubling and a mixed add a bit).  The JAX package fuses no
+    G2 Jacobian kernel, so G2 has none."""
+    if F is FQ_ADAPTER and torch.device(device).type == "cuda":
+        from . import cuda_g1
+
+        return cuda_g1.jac_ladder
+    return None
+
+
+def _ladder_scalars(k, batch):
+    """(16, *kbatch) limbs as the ladder takes them: one contiguous (16, 1,
+    ...) column where every lane has the same scalar (the batch axes all of
+    size 1 or stride 0 once broadcast: is_in_subgroup's r), else contiguous
+    (16, *batch) planes."""
+    k = k.expand((k.shape[0],) + tuple(batch))
+    if all(s == 0 for s, d in zip(k.stride()[1:], k.shape[1:]) if d != 1):
+        return k[(slice(None),) + (slice(0, 1),) * len(batch)].contiguous()
+    return k.contiguous()
+
+
 def jac_to_affine(F, P):
     """Jacobian -> affine: (X/Z^2, Y/Z^3, inf = Z==0)."""
     X, Y, Z = P
@@ -265,16 +290,27 @@ def is_on_curve_jacobian(F, P, b_mont):
 def scalar_mul(F, scalars, A, num_bits=255):
     """Batched double-and-add: scalars[i] * A[i].
 
-    ``scalars``: (16, *batch) 16-bit limbs, **standard form**.  ``A``: affine
-    batch.  Returns a Jacobian batch.  Constant-time MSB-first loop: per bit
-    one doubling, one mixed add, and a per-lane select of the sum where the
-    lane's bit is set (the JAX package's ``fori_loop`` body, here a Python loop
-    over the bits).
+    ``scalars``: (16, *batch) 16-bit limbs, **standard form** (they broadcast
+    against A's batch).  ``A``: affine batch.  Returns a Jacobian batch.
+    Constant-time MSB-first loop: per bit one doubling, one mixed add, and a
+    per-lane select of the sum where the lane's bit is set (the JAX package's
+    ``fori_loop`` body, here a Python loop over the bits).  G1 on the card runs
+    the whole loop in one ``cuda_g1.jac_ladder`` launch, with the same limbs;
+    it skips the add in a warp where no lane has the bit, so its time (not its
+    values) depends on the scalars' bits: meant for public scalars, as r in
+    ``is_in_subgroup``.
     """
     x, y, inf = A
+    scalars = scalars.to(device=x.device, dtype=LIMB_DTYPE)
+    ladder = ladder_kernel(F, x.device)
+    if ladder is not None:
+        batch = torch.broadcast_shapes(x.shape[1:], y.shape[1:], inf.shape,
+                                       scalars.shape[1:])
+        lay = lambda t: t.expand((t.shape[0],) + batch).contiguous()
+        return ladder(_ladder_scalars(scalars, batch),
+                      (lay(x), lay(y), inf.expand(batch).contiguous()), num_bits)
     batch = F.batch_shape(x)
     acc = jac_identity(F, batch, x.device)
-    scalars = scalars.to(device=x.device, dtype=LIMB_DTYPE)
     for i in range(num_bits):
         bit_index = num_bits - 1 - i
         bit = ((scalars[bit_index // 16] >> (bit_index % 16)) & 1).bool()
@@ -287,8 +323,9 @@ def scalar_mul(F, scalars, A, num_bits=255):
 def is_in_subgroup(F, A, *, num_bits: int = 255):
     """Batched r-torsion membership: [r]P == O (with P on the curve).
 
-    One constant-time 255-bit ladder per batch; the identity counts as a
-    member.  Returns a bool batch.
+    One constant-time 255-bit ladder per batch (G1 on the card: one
+    ``jac_ladder`` launch that reads r from one column); the identity counts
+    as a member.  Returns a bool batch.
     """
     batch = F.batch_shape(A[0])
     r_limbs = torch.from_numpy(
