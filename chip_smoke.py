@@ -5,7 +5,10 @@
 
 Builds the CUDA kernels from ``tpu_bls12_381_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (integer arithmetic, canonical
-results: the tolerance is zero, ``torch.equal``; the doubling chains ``pdbl``
+results: the tolerance is zero, ``torch.equal``; the NTT tile in each load
+mode at rows of 2^1, 2^5, 2^11 and 2^12 with the table ``w`` and the scalar,
+``butterfly_stages`` at 1 to 6 stages and the ladder's split at a shrunken
+tile; the doubling chains ``pdbl``
 and ``pdbl2`` at every count a path gives them, ``madd`` with P == A planted
 in one lane, in a whole warp and in the last lane of a partial last warp,
 ``jadd`` with P == Q the same way, the batch inversion's three kernels at 2^16
@@ -28,14 +31,21 @@ to its plain version in every mode on 2^16 - 3 and 3 x 1,001 lanes, then at
 each of the paths' shapes), then the ``tile_sweep_g2`` (the G2 scan kernel
 over four tiles of one window's adds, ``padd2`` at two widths); and the Fr NTT
 on 2^22 elements
-through ``NttContext`` (the four-step by default, the radix-2 ladder when
-asked), checked against host sums, round trips and each other; then the
-vector ops at 2^22.  Then SRS point validation (``points_2e20``): 2^20 G1
-points with planted non-members, off-curve points and an identity, written to
+through ``NttContext`` (``auto``'s route, the ladder on the card: one tile
+launch reading the bit-reversed rows as columns of x, then two
+``butterfly_stages`` launches; and the four-step, forced: two tile launches
+on the columns), checked against host sums, round trips and each other, the
+launches asserted by tile load mode and by (half, count); then the ladder's
+tile at rows of 2^11 and 2^12 in turns (``ntt_ladder_split``), and both
+algorithms from 2^10 to 2^24 (``ntt_crossover``); then the vector ops at
+2^22.  (The NTT's folds and its builds not kept are timed by
+``python3 -m tpu_bls12_381_torch.ntt.sweeps``.)  Then SRS point validation
+(``points_2e20``): 2^20 G1 points with planted non-members, off-curve points and an identity, written to
 wire bytes and read back on the card, checked with ``is_on_curve_affine`` and
 ``is_in_subgroup`` (one ``jac_ladder`` launch: the whole 255-bit
 double-and-add ladder, r read from one column) against the planted masks, the
-members summed by ``sum_reduce`` (``jadd``, one a round) against the host,
+members summed by ``sum_reduce`` (``jadd``, one a round) against the host
+(the ladder's row held to the plain ladder on its first 2^14 lanes),
 ``scalar_mul`` on 256 lanes with per-lane scalars routed against the generic
 formulas, and G2
 on 1,028 lanes; and the README's Quick start through ``global_accelerator()``
@@ -61,6 +71,9 @@ Every MSM path's ``pdbl`` (G2: ``pdbl2``) launches and doublings are
 asserted against its plan (``doubling_chains``, and the launches by chain
 length), an upload's against its slices and factor, and a batch inversion's
 against its three kernels.
+``ms`` is ``call_ms`` where the trace misses launches or the two disagree
+by more than one wrapper call's host cost (``launch_overhead_ms``, build
+line; ``ms_from`` says which, ``profiler_ms`` keeps the trace's reading).
 ``bound_ms`` counts the bytes the function needs (2 for a 16-bit limb);
 ``bound_ms_as_stored`` counts the 4-byte slot a limb is stored in.  ``madd``
 and ``jadd`` compute the doubling that only P == A (P == Q) lanes use in a
@@ -69,7 +82,9 @@ warp that holds one: ``madd``'s rows hold no such lane past warp 0, so their
 sum and the doubling; ``jadd``'s rows hold them in most warps, so their bound
 counts the doubling and ``bound_ms_without_doubling`` is the add's alone.
 A ``jac_ladder`` row's bound counts 255 doublings a lane and an add for each
-set bit of the lane's scalar (``set_bits``).  A
+set bit of the lane's scalar (``set_bits``).  An NTT tile row's bound counts
+no product by the twiddle w^0 = 1 (``bound_ms_all_products`` counts them), a
+``butterfly_stages`` row's the twiddle entries its launch needs.  A
 phase's line ends with ``seconds_since_start``.  Any failing phase raises,
 and the exit code is then not 0.  Without a CUDA device the script exits with
 code 2 and prints no result.
@@ -84,6 +99,7 @@ import atexit
 import ctypes
 import dataclasses
 import hashlib
+import importlib
 import json
 import logging
 import os
@@ -114,7 +130,8 @@ PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_ctx_small",
           "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
           "points_2e20", "entry"]
 G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
-PLAIN_ONCE_MS = 30_000  # a plain call this long is timed once (kernel_row)
+PLAIN_ONCE_MS = 5_000   # a plain call this long is timed once (kernel_row)
+LATE = "g2_padd_scan"   # the source the build phase does not wait for
 
 
 T_START = time.perf_counter()
@@ -144,6 +161,11 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+# One wrapper call's cost on the host with next to no device work (a
+# one-element add, by CUDA events): set once the kernels are built.
+LAUNCH_OVERHEAD_MS = [0.0]
+
+
 def measure(fn, symbol: str, reps: int) -> dict:
     """Time ``reps`` back-to-back calls of a kernel wrapper.
 
@@ -152,8 +174,11 @@ def measure(fn, symbol: str, reps: int) -> dict:
     events around the same calls untraced; on few lanes that is the
     wrapper's host time, not the kernel.  ``other_launches``: device kernels
     in the trace that are not the kernel (a wrapper should launch none).
-    Where the trace holds no device time, ``ms`` is ``call_ms`` and
-    ``ms_from`` says so.
+    ``ms`` is ``call_ms`` instead (``ms_from`` says which) where the trace
+    holds no device time, where it holds another count of launches than
+    ``reps`` calls make, or where the two disagree by
+    more than ``LAUNCH_OVERHEAD_MS``: short launches, whose profiler readings
+    disagreed with their calls (``profiler_ms`` keeps the trace's reading).
     """
     import torch
     from torch.autograd import DeviceType
@@ -169,13 +194,21 @@ def measure(fn, symbol: str, reps: int) -> dict:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     own = [e for e in events if symbol in e.key]
     count = sum(e.count for e in own)
+    row = {"ms": call_ms, "ms_from": "events", "call_ms": call_ms,
+           "traced_launches": count,
+           "other_launches": sum(e.count for e in events) - count}
     if count:
         ms = sum(e.self_device_time_total for e in own) / 1e3 / count
-        return {"ms": ms, "ms_from": "profiler", "call_ms": call_ms,
-                "traced_launches": count,
-                "other_launches": sum(e.count for e in events) - count}
-    return {"ms": call_ms, "ms_from": "events", "call_ms": call_ms,
-            "traced_launches": 0, "other_launches": 0}
+        row["profiler_ms"] = ms
+        launches_per_call = max(1, round(count / reps))
+        whole = count == launches_per_call * reps
+        if whole and abs(ms * launches_per_call - call_ms) <= LAUNCH_OVERHEAD_MS[0]:
+            row.update(ms=ms, ms_from="profiler")
+        elif not whole:
+            row["ms_from"] = "events (the trace holds another count of launches)"
+        else:
+            row["ms_from"] = "events (profiler and call disagree)"
+    return row
 
 
 def ms_by_kernel(fn, symbols, reps: int) -> dict:
@@ -280,6 +313,7 @@ def main() -> int:
                                          cuda_ntt, get_domain, intt, ntt,
                                          release_domain)
     from tpu_bls12_381_torch.ntt.ntt import _butterflies, release_coset_cache
+    ntt_mod = importlib.import_module("tpu_bls12_381_torch.ntt.ntt")
     from tpu_bls12_381_torch.runtime import (NttContext, backend_info, dispatch_msm,
                                              dispatch_ntt, dispatch_vecop, g1_context,
                                              g2_context, global_accelerator,
@@ -323,16 +357,22 @@ def main() -> int:
         native_build["available"] = native.available()
         native_build["seconds"] = time.perf_counter() - t_
 
+    # The build's longest compile (the G2 lane scan's, LATE) goes on while the
+    # G1 phases run; the phase waits for every other source, and the G2 lane
+    # scan's checks wait for it before msm_ctx_small.
     t0 = time.perf_counter()
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
-    paths = _build.build()
+    paths = _build.build([name for name in _build.source_names() if name != LATE])
     build_s = time.perf_counter() - t0
     native_thread.join()
     registers = {}
     for name in paths:
         registers.update(ptxas_lines(_build.build_log(name)))
+    one = torch.zeros(16, 1, dtype=torch.int32, device=dev)
+    LAUNCH_OVERHEAD_MS[0] = time_ms(lambda: cuda_ops.add(FR, one, one), 200)
     emit({"phase": "build", "seconds": round(build_s, 2),
+          "launch_overhead_ms": LAUNCH_OVERHEAD_MS[0],
           "seconds_by_source": {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()},
           "native_host_library": native_build["available"],
           "seconds_native_build_beside": round(native_build["seconds"], 2),
@@ -341,41 +381,45 @@ def main() -> int:
     if args.upto == "build":
         return stop_early()
 
-    # Builds not kept, which chain_sweep times against the kept one:
-    # g1_jac_kernels.cu compiled from a copy of the sources with one statement
-    # of g1_jac.cuh changed, while the kernels phase runs.  madd with the
-    # doubling computed in every lane (no warp branch, the constant-time
-    # select); the ladder reading x and y again at each add (234 registers
-    # where the kept build holds them in 248).
-    def alt_jac_build(name, old, new):
-        src_ = (_build.CSRC_DIR / "g1_jac.cuh").read_text()
-        if src_.count(old) != 1:
-            raise AssertionError(f"build: {name}: the statement to change is not in "
-                                 f"g1_jac.cuh as expected")
+    # Builds not kept, timed against the kept ones: a source compiled from a
+    # copy of the sources with statements changed, while the kernels phase
+    # runs.  chain_sweep: g1_jac_kernels.cu with madd's doubling computed in
+    # every lane (no warp branch, the constant-time select), and with the
+    # ladder reading x and y again at each add (234 registers where the kept
+    # build holds them in 248).
+    def alt_build(name, source, changes):
+        """``changes``: (file in csrc/, statement, replacement), each statement
+        found once."""
         dir_ = _build.BUILD_DIR / name
         dir_.mkdir(parents=True, exist_ok=True)
-        (dir_ / "g1_jac.cuh").write_text(src_.replace(old, new))
-        (dir_ / "g1_jac_kernels.cu").write_text(
-            (_build.CSRC_DIR / "g1_jac_kernels.cu").read_text())
+        texts = {f"{source}.cu": (_build.CSRC_DIR / f"{source}.cu").read_text()}
+        for file_, old, new in changes:
+            src_ = texts.get(file_) or (_build.CSRC_DIR / file_).read_text()
+            if src_.count(old) != 1:
+                raise AssertionError(f"build: {name}: the statement to change is not in "
+                                     f"{file_} as expected")
+            texts[file_] = src_.replace(old, new)
+        for file_, text in texts.items():
+            (dir_ / file_).write_text(text)
         proc = subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
-             str(dir_ / "libg1_jac_kernels.so"), str(dir_ / "g1_jac_kernels.cu")],
+             str(dir_ / f"lib{source}.so"), str(dir_ / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         atexit.register(lambda: proc.poll() is None and proc.kill())
-        return proc, dir_ / "libg1_jac_kernels.so"
+        return proc, dir_ / f"lib{source}.so"
 
     alt_builds = {
-        "madd every lane": alt_jac_build(
-            "madd_every_lane",
-            "if (WARP_ANY(x_eq & y_eq))\n"
-            "        R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);",
-            "R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);"),
-        "ladder x, y read at each add": alt_jac_build(
-            "ladder_reread", "g1_jac_madd<CarryMul>(acc, x, y, inf)",
-            "g1_jac_madd<CarryMul>(acc, fp_load<Fq>(x2, n, idx), "
-            "fp_load<Fq>(y2, n, idx), inf)"),
+        "madd every lane": alt_build(
+            "madd_every_lane", "g1_jac_kernels",
+            [("g1_jac.cuh", "if (WARP_ANY(x_eq & y_eq))\n"
+              "        R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);",
+              "R = g1_jac_cmov(x_eq & y_eq, g1_jac_dbl<M>(P), R);")]),
+        "ladder x, y read at each add": alt_build(
+            "ladder_reread", "g1_jac_kernels",
+            [("g1_jac.cuh", "g1_jac_madd<CarryMul>(acc, x, y, inf)",
+              "g1_jac_madd<CarryMul>(acc, fp_load<Fq>(x2, n, idx), "
+              "fp_load<Fq>(y2, n, idx), inf)")]),
     }
-
     # ------------------------------------------------------------ shared inputs
     rng = np.random.default_rng(SEED)
 
@@ -592,40 +636,108 @@ def main() -> int:
               lambda: cuda_ops.LAUNCHES[f"butterfly_{sfx}"])
 
     # One stage of the ladder on the array where it lies, (16, 4, 2^14): the
-    # first stage, a middle one and the last.
+    # first stage, a middle one and the last (butterfly_stages at count 1).
     xs = rand_field(FR, N).reshape(16, 4, N // 4)
     tw14 = get_domain(14, dev).tw
     for half in (1, 1 << 6, 1 << 13):
-        check(f"butterfly_stage_fr[half={half}]", "butterfly_stage_kernel", N,
+        check(f"butterfly_stage_fr[half={half}]", "butterfly_stages_kernel", N,
               [cuda_ops.butterfly_stage(FR, xs, tw14, half)],
               [cuda_ops.butterfly_stage_plain(FR, xs, tw14, half)],
               lambda: cuda_ops.butterfly_stage(FR, xs, tw14, half),
               lambda: cuda_ops.butterfly_stage_plain(FR, xs, tw14, half),
-              lambda: cuda_ops.LAUNCHES["butterfly_fr"])
-    release_domain(14)
+              lambda: cuda_ops.LAUNCHES["butterfly_stages"])
+    # Several stages a launch, count 1 to 6, on (16, 2, 2^15): up to the
+    # row's last stage with the row's own table, with the top stage's table,
+    # from a small half (whole runs to a block), the scalar on two.
+    x2 = rand_field(FR, N).reshape(16, 2, N // 2)
+    for count, half, log_s, scaled in ((1, 1 << 14, 15, False), (2, 1 << 9, 11, True),
+                                       (3, 1 << 12, 15, False), (4, 1 << 2, 6, False),
+                                       (5, 1 << 10, 15, True), (6, 1 << 7, 13, False),
+                                       (6, 1 << 9, 15, False)):
+        tw_s = get_domain(log_s, dev).tw
+        sc = get_domain(3, dev).n_inv if scaled else None
+        check(f"butterfly_stages[half={half},count={count},S=2^{log_s},scale={scaled}]",
+              "butterfly_stages_kernel", N,
+              [cuda_ops.butterfly_stages(FR, x2, tw_s, half, count, sc)],
+              [cuda_ops.butterfly_stages_plain(FR, x2, tw_s, half, count, sc)],
+              lambda: cuda_ops.butterfly_stages(FR, x2, tw_s, half, count, sc),
+              lambda: cuda_ops.butterfly_stages_plain(FR, x2, tw_s, half, count, sc),
+              lambda: {str(k): v for k, v in cuda_ops.STAGE_LAUNCHES.items()})
+    # The card's ladder split at a shrunken tile (rows of 2^4): 2^15 makes one
+    # tile launch and launches of 6 and 5 stages (the last takes fewer).
+    keep = ntt_mod.ladder_tile_log
+    ntt_mod.ladder_tile_log = lambda t: 4
+    tw15 = get_domain(15, dev).tw
+    xl = x2[:, 0].contiguous()
+    reset_counts()
+    got_l = _butterflies(xl, tw15, 15, get_domain(15, dev).n_inv)
+    split_launches = (dict(cuda_ntt.LAUNCHES), dict(cuda_ops.STAGE_LAUNCHES))
+    ntt_mod.ladder_tile_log = keep
+    want_l = xl
+    for h in range(15):
+        want_l = cuda_ops.butterfly_stage_plain(FR, want_l, tw15, 1 << h)
+    want_l = ops.mont_mul(FR, want_l, get_domain(15, dev).n_inv[:, None])
+    split_ok = torch.equal(got_l, want_l)
+    emit({"phase": "kernels", "name": "ladder split at a tile of 2^4", "N": 1 << 15,
+          "equal": split_ok, "split": ntt_mod.ladder_split(15, 4),
+          "launches": [split_launches[0], {str(k): v for k, v in split_launches[1].items()}]})
+    if not split_ok or split_launches != ({"ntt_tile": 1, "ntt_tile_w": 0},
+                                          {(16, 6): 1, (1024, 5): 1}):
+        raise AssertionError(f"the ladder's split at a tile of 2^4: equal {split_ok}, "
+                             f"launches {split_launches}")
+    del x2, xl, got_l, want_l
+    release_domain()
 
-    # The NTT tile: a long row to a block; short rows, several to a block,
-    # with a table of 4 rows serving 8 (the periodic case) and the scalar; 9
-    # short rows (a block part empty) with both folds.
-    def tile_case(B, log_m, Bw, scaled, inverse=False):
+    # The NTT tile in both load modes: rows of 2^1, 2^5, 2^11 and the cap
+    # 2^12 (a last block part empty where rows share a block), with a table
+    # w of fewer rows than x serving it periodically, and the scalar.
+    def tile_case(B, log_m, Bw, scaled, natural_in, inverse=False):
+        """Bit-reversed rows, or natural ones (a column a block)."""
         m = 1 << log_m
         x = rand_field(FR, B * m).reshape(16, B, m)
         dom = get_domain(log_m, dev)
         tw = dom.itw if inverse else dom.tw
         w = rand_field(FR, Bw * m).reshape(16, Bw, m) if Bw else None
         scale = dom.n_inv if scaled else None
-        check(f"ntt_tile[{B}x2^{log_m},Bw={Bw},scale={scaled}]", "ntt_tile_kernel",
-              B * m, [cuda_ntt.ntt_tile(x, tw, w, scale)],
-              [cuda_ntt.ntt_tile_plain(x, tw, w, scale)],
-              lambda: cuda_ntt.ntt_tile(x, tw, w, scale),
-              lambda: cuda_ntt.ntt_tile_plain(x, tw, w, scale),
-              lambda: dict(cuda_ntt.LAUNCHES))
+        if natural_in:
+            x4 = x.reshape(16, B, m, 1)
+            kern = lambda: cuda_ntt.ntt_tile_columns(x4, tw, w, scale)
+            plain = lambda: cuda_ntt.ntt_tile_columns_plain(x4, tw, w, scale)
+        else:
+            kern = lambda: cuda_ntt.ntt_tile(x, tw, w, scale)
+            plain = lambda: cuda_ntt.ntt_tile_plain(x, tw, w, scale)
+        check(f"ntt_tile[{B}x2^{log_m},Bw={Bw},scale={scaled},natural_in={natural_in}]",
+              "ntt_tile_kernel", B * m, [kern()], [plain()], kern, plain,
+              lambda: dict(cuda_ntt.MODE_LAUNCHES))
 
-    tile_case(32, 11, 0, False)
-    tile_case(8, 5, 4, False)
-    tile_case(8, 5, 0, True)
-    tile_case(9, 5, 3, True, inverse=True)
-    tile_case(3, chip_profile(dev).ntt_tile_log_cap, 1, False)
+    cap = cuda_ntt._cap_log(dev)
+    for natural_in in (True, False):
+        tile_case((N >> 1) - 3, 1, 5, True, natural_in)
+        tile_case((N >> 5) - 3, 5, 409, False, natural_in, inverse=True)
+        tile_case(N >> 11, 11, 4, natural_in, natural_in)
+        tile_case(N >> cap, cap, 1, not natural_in, natural_in)
+
+    # Rows read as columns of (B, m, C) blocks: the four-step's (w of C rows,
+    # the scalar) and the ladder's (columns in bit-reversed order).
+    def columns_case(B, log_m, log_c, Bw, scaled, brev):
+        m, C = 1 << log_m, 1 << log_c
+        x = rand_field(FR, B * m * C).reshape(16, B, m, C)
+        dom = get_domain(log_m, dev)
+        w = rand_field(FR, Bw * m).reshape(16, Bw, m) if Bw else None
+        scale = dom.n_inv if scaled else None
+        check(f"ntt_tile_columns[{B}x2^{log_m}x2^{log_c},Bw={Bw},scale={scaled},"
+              f"brev={brev}]", "ntt_tile_kernel", B * m * C,
+              [cuda_ntt.ntt_tile_columns(x, dom.tw, w, scale, brev)],
+              [cuda_ntt.ntt_tile_columns_plain(x, dom.tw, w, scale, brev)],
+              lambda: cuda_ntt.ntt_tile_columns(x, dom.tw, w, scale, brev),
+              lambda: cuda_ntt.ntt_tile_columns_plain(x, dom.tw, w, scale, brev),
+              lambda: dict(cuda_ntt.MODE_LAUNCHES))
+
+    columns_case(1, 8, 8, 1 << 8, False, False)
+    columns_case(2, 8, 7, 0, True, False)
+    columns_case(1, 11, 5, 0, False, True)
+    columns_case(4, 5, 9, 0, True, True)
+    columns_case(1, cap, 16 - cap, 2, False, True)
     release_domain()
 
     # Points with Z != 1, and the edge lanes of the group law.
@@ -853,21 +965,9 @@ def main() -> int:
     Ps2 = tuple(torch.cat([p[..., :8], p[..., 3:4], q[..., 3:4], p[..., 10:n_odd2]],
                           dim=-1).contiguous() for p, q in zip(P2, Q2))
     Po2 = tuple(c[..., :3 * 1001].reshape(24, 2, 3, 1001).contiguous() for c in Ps2)
-    for operand, what in ((Ps2, f"{n_odd2}"), (Po2, "3 x 1001")):
-        for mode in modes:
-            if not trees_equal(cuda_g2.padd2_scan(operand, **mode),
-                               cuda_g2.padd2_scan_plain(operand, **mode)):
-                raise AssertionError(f"padd2_scan {what} {mode}: kernel and plain differ")
-    pair2 = tuple(c[..., 8:10].contiguous() for c in Ps2)
-    if not bool(FQ2_PLAIN.is_zero(cuda_g2.padd2_scan(pair2, total=True)[2]).all()):
-        raise AssertionError("padd2_scan: P + (-P) is not the identity")
-    check("padd2_scan", "padd_scan_", n_odd2, cuda_g2.padd2_scan(Ps2, exclusive=True),
-          cuda_g2.padd2_scan_plain(Ps2, exclusive=True),
-          lambda: cuda_g2.padd2_scan(Ps2, exclusive=True),
-          lambda: cuda_g2.padd2_scan_plain(Ps2, exclusive=True),
-          lambda: cuda_g2.LAUNCHES["padd2_scan"], reps=3)
+    # (checked before msm_ctx_small, once its source has compiled)
     P2_edge = P2                           # the G2 chains' edge lanes, for the rows below
-    del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2, Ps2, Po2
+    del P2, Q2, Pm2, A2, Aproj2, tile, xr, yr, sr, ir, got, want, negP2, ident2
 
     # The Jacobian kernels on the edge lanes of points.jac_add_affine /
     # jac_add / jac_double (operands from jac_edge_cases, below).
@@ -1045,7 +1145,6 @@ def main() -> int:
               for what, kernel in zip(alt_builds, ("madd", "jac_ladder"))}})
     if args.upto == "kernels":
         return stop_early()
-
     # --------------------------------------------------------------- msm_small
     with open(ROOT / "tests" / "vectors" / "msm_g1_vectors.json") as f:
         case = next(c for c in json.load(f)["cases"] if c["n"] == 4096)
@@ -1181,7 +1280,7 @@ def main() -> int:
 
     def kernel_row(name, symbol, source, replaces, shape, kernel_fn, plain_fn,
                    limbs_moved, mask_bytes, wide_mads, reps, n_launches=None,
-                   per_call=1, *, path, kernels_per_call=1, **extra):
+                   per_call=1, *, path, kernels_per_call=1, plain_lanes=None, **extra):
         """One row of the ``kernels`` line: a kernel at the shape that the
         driven path ``path`` gives it, with its launches in that path's run
         (a kernel that several paths run at different shapes has a row for
@@ -1191,11 +1290,17 @@ def main() -> int:
         ``plain_ms`` is the time of a second plain call, since the first
         call at a shape pays one-off costs (lazy module loading, allocation)
         that can double a call of a few seconds; a first call of
-        ``PLAIN_ONCE_MS`` or more (the 140-doubling G2 chain) is not
-        repeated, and is the time (``plain_ms_of_call`` says which).  A
+        ``PLAIN_ONCE_MS`` or more (the ladders, the upload chains, the
+        larger scans), where they weigh less, is not repeated, and is the
+        time (``plain_ms_of_call`` says which).  A
         function of several kernels (``kernels_per_call``, the lane scan's
-        passes) is timed whole: ``ms`` is the sum of its kernels' times."""
+        passes) is timed whole: ``ms`` is the sum of its kernels' times.
+        ``plain_lanes``: ``plain_fn`` computes the first that many lanes
+        only (the last axis), and the kernel's output is held to it there;
+        ``plain_ms`` is then the slice's."""
         got = kernel_fn()
+        if plain_lanes is not None:
+            got = tuple(c[..., :plain_lanes] for c in got)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1216,7 +1321,7 @@ def main() -> int:
         if timed["ms_from"] == "profiler":
             timed["ms"] *= kernels_per_call
         timed["call_ms"] /= per_call
-        if timed["ms_from"] == "events":
+        if timed["ms_from"].startswith("events"):
             timed["ms"] /= per_call
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
@@ -1225,7 +1330,8 @@ def main() -> int:
                "plain_ms": plain_ms, "plain_ms_of_call": plain_call, "bound_ms": b_ms,
                "bound_by": b_by, "bound_ms_as_stored": s_ms,
                "bound_by_as_stored": s_by, "library_ms": None, "shape": shape,
-               "path": path, **extra}
+               "path": path, **({"plain_lanes": plain_lanes} if plain_lanes else {}),
+               **extra}
         if err != 0:
             raise AssertionError(f"{name} at {shape}: kernel and plain differ")
         rows.append(row)
@@ -1456,6 +1562,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     if args.upto == "msm_2e20":
         return stop_early()
+
+    # ------------------------------------------------- the G2 lane scan's checks
+    # The kernels phase's operands for the G2 lane scan, held here once its
+    # source has compiled (the build's longest; the G1 phases ran meanwhile).
+    t0 = time.perf_counter()
+    _build.build([LATE])
+    late_wait_s = time.perf_counter() - t0
+    registers.update(ptxas_lines(_build.build_log(LATE)))
+    emit({"phase": "build", "source": LATE,
+          "seconds": round(_build.BUILD_SECONDS.get(LATE, 0.0), 1),
+          "seconds_waited_after_the_g1_phases": round(late_wait_s, 2),
+          "ptxas": ptxas_lines(_build.build_log(LATE))})
+    for operand, what in ((Ps2, f"{n_odd2}"), (Po2, "3 x 1001")):
+        for mode in modes:
+            if not trees_equal(cuda_g2.padd2_scan(operand, **mode),
+                               cuda_g2.padd2_scan_plain(operand, **mode)):
+                raise AssertionError(f"padd2_scan {what} {mode}: kernel and plain differ")
+    pair2 = tuple(c[..., 8:10].contiguous() for c in Ps2)
+    if not bool(FQ2_PLAIN.is_zero(cuda_g2.padd2_scan(pair2, total=True)[2]).all()):
+        raise AssertionError("padd2_scan: P + (-P) is not the identity")
+    check("padd2_scan", "padd_scan_", n_odd2, cuda_g2.padd2_scan(Ps2, exclusive=True),
+          cuda_g2.padd2_scan_plain(Ps2, exclusive=True),
+          lambda: cuda_g2.padd2_scan(Ps2, exclusive=True),
+          lambda: cuda_g2.padd2_scan_plain(Ps2, exclusive=True),
+          lambda: cuda_g2.LAUNCHES["padd2_scan"], reps=3)
+    del Ps2, Po2, pair2
 
     # ----------------------------------------------------------- msm_ctx_small
     # The cached-bases path at small sizes, every variant against the golden
@@ -2037,12 +2169,14 @@ def main() -> int:
             else:
                 ok = got == [int(v, 16) for v in case["output"]]
             tiles = sum(cuda_ntt.LAUNCHES.values())
-            stages = cuda_ops.LAUNCHES["butterfly_fr"]
-            routed = (tiles, stages) == ((2, 0) if algo == "fourstep"
-                                         else (0, case["log_n"]))
+            stages = cuda_ops.LAUNCHES["butterfly_stages"]
+            ladder = (1, len(ntt_mod.ladder_split(case["log_n"],
+                                                  ntt_mod.ladder_tile_log(xv))[1]))
+            routed = (tiles, stages) == ((2, 0) if algo == "fourstep" else ladder)
             emit({"phase": "ntt_small", "kind": case["kind"], "log_n": case["log_n"],
                   "algorithm": algo, "equal": ok, "tile_launches": tiles,
-                  "butterfly_launches": stages})
+                  "butterfly_stages_launches": stages,
+                  "stage_launches": {str(k): v for k, v in cuda_ops.STAGE_LAUNCHES.items()}})
             if not ok:
                 raise AssertionError(f"ntt_small {case['kind']} 2^{case['log_n']} "
                                      f"{algo}: wrong result")
@@ -2080,18 +2214,37 @@ def main() -> int:
         out = fn()
         return out, counts()
 
+    tiles = lambda l_: l_["ntt_tile"] + l_["ntt_tile_w"]
     t0 = time.perf_counter()
-    y4, launches_4 = counted(lambda: ctx.forward(x22))     # the main path
+    y4, launches_4 = counted(lambda: ctx.forward(x22))     # the main path: auto's route
     first_s = time.perf_counter() - t0
+    modes_4, stages_4 = dict(cuda_ntt.MODE_LAUNCHES), dict(cuda_ops.STAGE_LAUNCHES)
+    auto_fourstep = ntt_mod._route_fourstep(x22, Ordering.NN)
+    set_algorithm("fourstep")
+    yF, launches_F = counted(lambda: ctx.forward(x22))
+    modes_F = dict(cuda_ntt.MODE_LAUNCHES)
     set_algorithm("radix2")
     y2, launches_2 = counted(lambda: ctx.forward(x22))
+    stages_2, modes_2 = dict(cuda_ops.STAGE_LAUNCHES), dict(cuda_ntt.MODE_LAUNCHES)
     set_algorithm("auto")
-    same = torch.equal(y4, y2)
+    same = torch.equal(yF, y2) and torch.equal(y4, y2)
+    del yF
     shape_ok = tuple(y4.shape) == (16, n22) and y4.dtype == torch.int32
-    if (launches_4["ntt_tile"] + launches_4["ntt_tile_w"], launches_4["butterfly_fr"]) != (2, 0):
-        raise AssertionError(f"ntt_2e22: the default route is not the four-step: {launches_4}")
-    if launches_2["butterfly_fr"] != NTT_LOG_N or launches_2["ntt_tile"] + launches_2["ntt_tile_w"]:
-        raise AssertionError(f"ntt_2e22: radix2 did not run {NTT_LOG_N} stages: {launches_2}")
+    c22, split22 = ntt_mod.ladder_split(NTT_LOG_N, ntt_mod.ladder_tile_log(x22))
+    ladder_launches = (1, len(split22))
+    if (tiles(launches_F), launches_F["butterfly_stages"], modes_F) != (2, 0, {"columns": 2}):
+        raise AssertionError(f"ntt_2e22: the four-step did not run two tiles on the "
+                             f"columns: {launches_F}, {modes_F}")
+    if ((tiles(launches_2), launches_2["butterfly_stages"]) != ladder_launches
+            or len(split22) > 3 or modes_2 != {"columns_brev": 1}
+            or stages_2 != {(1 << h, k): 1 for h, k in split22}):
+        raise AssertionError(f"ntt_2e22: the ladder did not run one tile and the "
+                             f"butterfly_stages launches {split22}: {launches_2}, {stages_2}, "
+                             f"{modes_2}")
+    if (tiles(launches_4), launches_4["butterfly_stages"]) != (
+            (2, 0) if auto_fourstep else ladder_launches):
+        raise AssertionError(f"ntt_2e22: the default route is not the one auto takes "
+                             f"(four-step: {auto_fourstep}): {launches_4}")
 
     # Host checks with Python integers on standard-form values.  Limb sums
     # stay below 2^38, so numpy sums them exactly.
@@ -2120,9 +2273,13 @@ def main() -> int:
     coset_back = torch.equal(coset_intt(coset_ntt(x22, 7), 7), x22)
     release_coset_cache()
     nr = ctx.forward(x22, Ordering.NR)
-    nr_rn = (torch.equal(ctx.inverse(nr, Ordering.RN), x22)
-             and torch.equal(vecops.bit_reverse(nr), y4))
-    del nr
+    back_rn, launches_rn = counted(lambda: ctx.inverse(nr, Ordering.RN))
+    modes_rn = dict(cuda_ntt.MODE_LAUNCHES)
+    nr_rn = torch.equal(back_rn, x22) and torch.equal(vecops.bit_reverse(nr), y4)
+    if modes_rn != {"rows_bitrev": 1}:
+        raise AssertionError(f"ntt_2e22: the RN ladder did not run its tile on bit-reversed "
+                             f"rows: {modes_rn}")
+    del nr, back_rn
     xb = x22.reshape(16, 4, n22 // 4)
     yb, launches_b = counted(lambda: ctx.forward(xb))
     batched = all(torch.equal(yb[:, i], ctx.forward(xb[:, i].contiguous()))
@@ -2135,44 +2292,85 @@ def main() -> int:
         each = [tracing.timed_reps(1, fn) for _ in range(5)]
         return statistics.median(each), each
 
-    med4, each4 = median_seconds(lambda: ctx.forward(x22))
-    with tracing.collect_stages() as stages4:
-        ctx.forward(x22)
-    trace4 = device_trace(lambda: ctx.forward(x22))
+    med4, each4 = median_seconds(lambda: ctx.forward(x22))      # auto's route
     imed4, ieach4 = median_seconds(lambda: ctx.inverse(y4))
+    set_algorithm("fourstep")
+    medF, eachF = median_seconds(lambda: ctx.forward(x22))
+    imedF, ieachF = median_seconds(lambda: ctx.inverse(y4))
+    with tracing.collect_stages() as stagesF:
+        ctx.forward(x22)
+    traceF = device_trace(lambda: ctx.forward(x22))
     set_algorithm("radix2")
     med2, each2 = median_seconds(lambda: ctx.forward(x22))
+    imed2, ieach2 = median_seconds(lambda: ctx.inverse(y4))
     trace2 = device_trace(lambda: ctx.forward(x22))
     set_algorithm("auto")
     ntt_ok = (same and shape_ok and host_ok and back2 and back4 and coset_back
               and nr_rn and batched)
     emit({"phase": "ntt_2e22", "n": n22, "equal": bool(ntt_ok),
+          "route": "fourstep" if auto_fourstep else "ladder",
           "fourstep_equals_ladder": same, "host_checks": host_ok,
           "probe_k": k_probe, "inverse_roundtrip_ladder": back2,
-          "inverse_roundtrip_fourstep": back4, "coset_roundtrip": coset_back,
+          "inverse_roundtrip_auto": back4, "coset_roundtrip": coset_back,
           "nr_rn_roundtrip": nr_rn, "batched_4x2e20": batched,
           "ntt_fr_2e22_elems_per_s": n22 / med4,
+          "ntt_fr_2e22_elems_per_s_fourstep": n22 / medF,
           "ntt_fr_2e22_elems_per_s_ladder": n22 / med2,
           "seconds_median_of_5": med4, "seconds_each": each4,
+          "seconds_median_of_5_fourstep": medF, "seconds_each_fourstep": eachF,
           "seconds_median_of_5_ladder": med2, "seconds_each_ladder": each2,
           "seconds_median_of_5_inverse": imed4, "seconds_each_inverse": ieach4,
+          "seconds_median_of_5_inverse_fourstep": imedF,
+          "seconds_each_inverse_fourstep": ieachF,
+          "seconds_median_of_5_inverse_ladder": imed2, "seconds_each_inverse_ladder": ieach2,
           "seconds_first_call": first_s, "seconds_domain_build": domain_s,
           "seconds_w_table_build": w_table_s, "seconds_host_horner": round(horner_s, 2),
-          "split": [la22, lb22], "launches": launches_4, "launches_ladder": launches_2,
+          "split": [la22, lb22], "ladder_split": [c22, split22],
+          "launches": launches_4, "launches_fourstep": launches_F,
+          "launches_ladder": launches_2,
+          "stage_launches_ladder": {str(k): v for k, v in stages_2.items()},
           "launches_inverse": launches_inv, "launches_batched": launches_b,
+          "launches_rn_inverse": launches_rn,
+          "tile_modes": {"auto": modes_4, "fourstep": modes_F, "ladder": modes_2,
+                         "ladder_rn": modes_rn},
           "peak_bytes_allocated": peak22, "bytes_allocated_before": mem_before,
-          "stages_ms": {k: round(v, 3) for k, v in stages4.items()},
-          "device_kernels_fourstep": trace4[:8], "device_kernels_ladder": trace2[:8],
-          "other_launches_fourstep": sum(r[2] for r in trace4 if "ntt_tile" not in r[0]),
-          "other_launches_ladder": sum(r[2] for r in trace2 if "butterfly_stage" not in r[0]),
+          "stages_ms_fourstep": {k: round(v, 3) for k, v in stagesF.items()},
+          "device_kernels_fourstep": traceF[:8], "device_kernels_ladder": trace2[:8],
+          "other_launches_fourstep": sum(r[2] for r in traceF if "ntt_tile" not in r[0]),
+          "other_launches_ladder": sum(r[2] for r in trace2 if "ntt_tile" not in r[0]
+                                       and "butterfly_stages" not in r[0]),
           "card": smi})
     if not ntt_ok:
         raise AssertionError("ntt_2e22: a check failed (see the line above)")
 
-    # Where the two algorithms cross: both timed at smaller sizes, the
-    # four-step forced below the size from which `auto` takes it.
-    for log_c in (12, 16, 20):
-        xc = x22[:, :1 << log_c].contiguous()
+    # The ladder's tile rows: 2^11 (four values a thread) against the cap 2^12
+    # (eight), in turns, the outputs held equal.
+    set_algorithm("radix2")
+    keep_tile_log = ntt_mod.LADDER_TILE_LOG
+    split_rows = []
+    try:
+        for c_ in (11, 12, 12, 11):
+            ntt_mod.LADDER_TILE_LOG = c_
+            reset_counts()
+            same_ = torch.equal(ctx.forward(x22), y4)
+            launches_ = (tiles(counts()), dict(cuda_ops.STAGE_LAUNCHES))
+            med_, each_ = median_seconds(lambda: ctx.forward(x22))
+            split_rows.append({"tile_log": c_, "ms": med_ * 1e3,
+                               "ms_each": [t * 1e3 for t in each_], "equal": same_,
+                               "launches": [launches_[0], {str(k): v for k, v in
+                                                           launches_[1].items()}]})
+            if not same_:
+                raise AssertionError(f"the ladder at a tile of 2^{c_} differs")
+    finally:
+        ntt_mod.LADDER_TILE_LOG = keep_tile_log
+        set_algorithm("auto")
+    emit({"phase": "ntt_ladder_split", "n": n22, "rows": split_rows, "card": smi})
+
+    # Where the two algorithms cross: both timed at each size, and the route
+    # that `auto` takes there (2^23 and 2^24: x repeated).
+    for log_c in (10, 12, 14, 16, 20, 23, 24):
+        xc = (x22[:, :1 << log_c].contiguous() if log_c <= NTT_LOG_N
+              else x22.repeat(1, 1 << (log_c - NTT_LOG_N)))
         ctx_c = {}
         for algo in ("fourstep", "radix2"):
             set_algorithm(algo)
@@ -2182,57 +2380,118 @@ def main() -> int:
         if not torch.equal(ctx_c["fourstep"][0], ctx_c["radix2"][0]):
             raise AssertionError(f"ntt 2^{log_c}: four-step and ladder differ")
         emit({"phase": "ntt_crossover", "log_n": log_c,
+              "auto_route": "fourstep" if ntt_mod._route_fourstep(xc, Ordering.NN)
+              else "ladder",
               "fourstep_ms": ctx_c["fourstep"][1][0] * 1e3,
               "ladder_ms": ctx_c["radix2"][1][0] * 1e3,
               "fourstep_ms_each": [t * 1e3 for t in ctx_c["fourstep"][1][1]],
               "ladder_ms_each": [t * 1e3 for t in ctx_c["radix2"][1][1]]})
         del ctx_c, xc, yc
+    torch.cuda.empty_cache()
+
     if args.upto == "ntt_2e22":
         return stop_early()
 
     # ------------------------------------------- NTT kernels at the path's shapes
+    NTT_SRC = "tpu_bls12_381_torch/csrc/ntt_kernels.cu"
+    STAGES_SRC = "tpu_bls12_381_torch/csrc/ntt_stages.cu"
+    TILE_TPU = "tpu_bls12_381/ntt/pallas_ntt.py:80"
+    BFLY_TPU = "tpu_bls12_381/fields/pallas_ops.py:421"
+    ntt_lib, stages_lib = cuda_ntt._lib(), cuda_ops._stages_lib()
+    ntt_lib.fr_ntt_tile_blocks_per_sm.restype = ctypes.c_int
+    stages_lib.fr_butterfly_stages_blocks_per_sm.restype = ctypes.c_int
+    ntt_ptxas = lambda kernel: {k: v for k, v in registers.items() if kernel in k}
+    # products a tile needs: those of twiddle w^0 = 1 (m - 1 a row) take none
+    tile_products = lambda rows, m: rows * ((m // 2) * (m.bit_length() - 1) - (m - 1))
+    tile_mads = lambda rows, m, folds: (
+        tile_products(rows, m) + folds * rows * m) * mul_mads(W_FR)
+    tile_mads_all = lambda rows, m, folds: (
+        rows * (m // 2) * (m.bit_length() - 1) + folds * rows * m) * mul_mads(W_FR)
     tw22 = get_domain(NTT_LOG_N, dev).tw
     xr22 = vecops.bit_reverse(x22)
-    ladder_plain = lambda h: cuda_ops.butterfly_stage_plain(FR, xr22, tw22, h)
-    for half in (1, 1 << 10):                     # the last stage is the row's own check
-        if not torch.equal(cuda_ops.butterfly_stage(FR, xr22, tw22, half), ladder_plain(half)):
-            raise AssertionError(f"butterfly_stage at 2^22, half={half}: kernel and plain differ")
-    last = 1 << (NTT_LOG_N - 1)
-    kernel_row("butterfly_fr", "butterfly_stage_kernel", FIELD_SRC,
-               "tpu_bls12_381/fields/pallas_ops.py:421", [16, n22 // 2],
-               lambda: cuda_ops.butterfly_stage(FR, xr22, tw22, last),
-               lambda: ladder_plain(last),
-               5 * 16 * (n22 // 2), 0, (n22 // 2) * mul_mads(W_FR), 10,
-               n_launches=launches_2["butterfly_fr"],
-               note="the ladder's last stage; ladder_ms_per_stage is the mean "
-                    "over the 22 stages of one ladder",
-               ladder_ms_per_stage=sum(r[1] for r in trace2 if "butterfly_stage" in r[0])
-               / NTT_LOG_N,
-               path="ntt_2e22: the ladder")
-    del xr22
-    NTT_SRC = "tpu_bls12_381_torch/csrc/ntt_kernels.cu"
+    # The ladder: its tile on rows of 2^c22 (NN: the bit-reversed columns of
+    # x where it lies; RN: bit-reversed rows), then each butterfly_stages
+    # launch on what the one before left.
+    m_c = 1 << c22
+    xc22 = x22.reshape(16, 1, m_c, n22 // m_c)
+    xb22 = xr22.reshape(16, n22 // m_c, m_c)
+    tw_c = ntt_mod._stage_table(tw22, NTT_LOG_N, c22)
+    tile_bytes = 2 * 16 * n22 + 16 * (m_c // 2)
+    ladder_bound_all = bound(tile_bytes * LIMB_BYTES, tile_mads_all(n22 // m_c, m_c, 0))[0]
+    kernel_row("ntt_tile[ladder]", "ntt_tile_kernel", NTT_SRC, TILE_TPU,
+               [16, n22 // m_c, m_c],
+               lambda: cuda_ntt.ntt_tile_columns(xc22, tw_c, brev_cols=True),
+               lambda: cuda_ntt.ntt_tile_columns_plain(xc22, tw_c, brev_cols=True),
+               tile_bytes, 0, tile_mads(n22 // m_c, m_c, 0), 5,
+               n_launches=modes_4.get("columns_brev", 0),
+               path="ntt_2e22: auto's route, the NN ladder (rows read as bit-reversed "
+                    "columns)",
+               mode="columns_brev", bound_ms_all_products=ladder_bound_all,
+               blocks_per_sm=ntt_lib.fr_ntt_tile_blocks_per_sm(c22),
+               ptxas=ntt_ptxas("ntt_tile_kernel"))
+    kernel_row("ntt_tile[ladder RN]", "ntt_tile_kernel", NTT_SRC, TILE_TPU,
+               [16, n22 // m_c, m_c], lambda: cuda_ntt.ntt_tile(xb22, tw_c),
+               lambda: cuda_ntt.ntt_tile_plain(xb22, tw_c),
+               tile_bytes, 0, tile_mads(n22 // m_c, m_c, 0), 5,
+               n_launches=modes_rn["rows_bitrev"],
+               path="ntt_2e22: the RN ladder (bit-reversed rows in)", mode="rows_bitrev",
+               bound_ms_all_products=ladder_bound_all)
+    xs_ = cuda_ntt.ntt_tile(xb22, tw_c).reshape(16, n22)
+    del xc22, xb22
+    for h, k in split22:
+        tw_s = ntt_mod._stage_table(tw22, NTT_LOG_N, h + k)
+        kernel_row(f"butterfly_stages[half=2^{h},count={k}]", "butterfly_stages_kernel",
+                   STAGES_SRC, BFLY_TPU, [16, n22],
+                   lambda: cuda_ops.butterfly_stages(FR, xs_, tw_s, 1 << h, k),
+                   lambda: cuda_ops.butterfly_stages_plain(FR, xs_, tw_s, 1 << h, k),
+                   2 * 16 * n22 + 16 * (1 << (h + k - 1)), 0,
+                   k * (n22 // 2) * mul_mads(W_FR), 10,
+                   n_launches=stages_4.get((1 << h, k), 0),
+                   path="ntt_2e22: auto's route, the ladder", half=1 << h, count=k,
+                   twiddle_table=[16, 1 << (h + k - 1)],
+                   blocks_per_sm=stages_lib.fr_butterfly_stages_blocks_per_sm(k),
+                   ptxas=ntt_ptxas("butterfly_stages_kernel"))
+        xs_ = cuda_ops.butterfly_stages(FR, xs_, tw_s, 1 << h, k)
+    if not torch.equal(xs_, y4):
+        raise AssertionError("ntt_2e22: the ladder's launches, one by one, differ from "
+                             "the NTT")
+    del xs_, tw_s
+    # The elementwise butterfly (the TPU kernel's contract) on the ladder's
+    # last stage's operands: no driven path calls it.
+    ev, ov = xr22[:, :n22 // 2].contiguous(), xr22[:, n22 // 2:].contiguous()
+    kernel_row("butterfly_fr", "butterfly_kernel", "tpu_bls12_381_torch/csrc/field_kernels.cu",
+               BFLY_TPU, [16, n22 // 2], lambda: cuda_ops.butterfly(FR, ev, ov, tw22),
+               lambda: cuda_ops.butterfly_plain(FR, ev, ov, tw22),
+               5 * 16 * (n22 // 2), 0, (n22 // 2) * mul_mads(W_FR), 10, n_launches=0,
+               path="kernels: the elementwise form (no driven path calls it)")
+    del xr22, ev, ov
+    # The four-step's two tiles: natural rows in, bit-reversed as they load.
     m_in, m_out = 1 << lb22, 1 << la22
     W22 = cuda_ntt._step_w(NTT_LOG_N, m_out, m_in, False, dev)
-    xt = x22.reshape(16, m_out, m_in)
-    tw_in, tw_out = get_domain(lb22, dev).tw, get_domain(la22, dev).tw
-    tile_mads = lambda rows, m, folds: (
-        rows * (m // 2) * (m.bit_length() - 1) + folds * rows * m) * mul_mads(W_FR)
-    kernel_row("ntt_tile_w", "ntt_tile_kernel", NTT_SRC,
-               "tpu_bls12_381/ntt/pallas_ntt.py:80", [16, m_out, m_in],
-               lambda: cuda_ntt.ntt_tile(xt, tw_in, w=W22),
-               lambda: cuda_ntt.ntt_tile_plain(xt, tw_in, w=W22),
-               3 * 16 * n22 + 16 * (m_in // 2), 0, tile_mads(m_out, m_in, 1), 5,
-               n_launches=launches_4["ntt_tile_w"],
-               path="ntt_2e22: the four-step")
+    tw_in = get_domain(lb22, dev).tw
+    four_path = "ntt_2e22: the four-step" + ("" if auto_fourstep else " (forced)")
+    four_launches = launches_4 if auto_fourstep else launches_F
+    xt = x22.reshape(16, 1, m_in, m_out)
+    tile_bytes = 3 * 16 * n22 + 16 * (m_in // 2)
+    kernel_row("ntt_tile_w", "ntt_tile_kernel", NTT_SRC, TILE_TPU, [16, m_out, m_in],
+               lambda: cuda_ntt.ntt_tile_columns(xt, tw_in, w=W22),
+               lambda: cuda_ntt.ntt_tile_columns_plain(xt, tw_in, w=W22),
+               tile_bytes, 0, tile_mads(m_out, m_in, 1), 5,
+               n_launches=four_launches["ntt_tile_w"], path=four_path, mode="columns",
+               bound_ms_all_products=bound(tile_bytes * LIMB_BYTES,
+                                           tile_mads_all(m_out, m_in, 1))[0],
+               blocks_per_sm=ntt_lib.fr_ntt_tile_blocks_per_sm(lb22))
     del W22
-    xt = x22.reshape(16, m_in, m_out)
-    kernel_row("ntt_tile", "ntt_tile_kernel", NTT_SRC,
-               "tpu_bls12_381/ntt/pallas_ntt.py:80", [16, m_in, m_out],
-               lambda: cuda_ntt.ntt_tile(xt, tw_out),
-               lambda: cuda_ntt.ntt_tile_plain(xt, tw_out),
-               2 * 16 * n22 + 16 * (m_out // 2), 0, tile_mads(m_in, m_out, 0), 5,
-               n_launches=launches_4["ntt_tile"],
-               path="ntt_2e22: the four-step")
+    xt = x22.reshape(16, 1, m_out, m_in)
+    tw_out = get_domain(la22, dev).tw
+    tile_bytes = 2 * 16 * n22 + 16 * (m_out // 2)
+    kernel_row("ntt_tile", "ntt_tile_kernel", NTT_SRC, TILE_TPU, [16, m_in, m_out],
+               lambda: cuda_ntt.ntt_tile_columns(xt, tw_out),
+               lambda: cuda_ntt.ntt_tile_columns_plain(xt, tw_out),
+               tile_bytes, 0, tile_mads(m_in, m_out, 0), 5,
+               n_launches=four_launches["ntt_tile"], path=four_path, mode="columns",
+               bound_ms_all_products=bound(tile_bytes * LIMB_BYTES,
+                                           tile_mads_all(m_in, m_out, 0))[0])
     del xt, y4, ctx
     release_domain()
     cuda_ntt.release_fourstep_cache()
@@ -2499,19 +2758,21 @@ def main() -> int:
     # non-members at r and r + 2; r + 2 also in warp 1 and in the last lanes,
     # where the accumulator meets P == A), held to the plain ladder (some
     # 40 s on the card, timed once).
-    def ladder_row(name, k_, A_, ks_, path):
+    def ladder_row(name, k_, A_, ks_, path, plain_lanes=None):
         lanes = A_[0].shape[-1]
         adds = sum(bin(v % (1 << 255)).count("1") for v in ks_) * (lanes // len(ks_))
+        cut = lambda t: t if plain_lanes is None else t[..., :plain_lanes].contiguous()
         kernel_row(name, "jac_ladder_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:156",
                    [24, lanes], lambda: cuda_g1.jac_ladder(k_, A_, 255),
-                   lambda: cuda_g1.jac_ladder_plain(k_, A_, 255),
+                   lambda: cuda_g1.jac_ladder_plain(
+                       k_ if k_.shape[-1] == 1 else cut(k_), tuple(cut(c) for c in A_), 255),
                    2 * 24 * lanes + 3 * 24 * lanes + k_.numel(), lanes,
                    lanes * 255 * jdbl_mads + adds * madd_add_mads, 3,
                    n_launches=launches_sub["jac_ladder"], path=path, equal=True,
                    replaces_with="tpu_bls12_381/curves/pallas_g1.py:180, a launch of each "
                                  "a bit in tpu_bls12_381/curves/points.py:242",
                    num_bits=255, set_bits=adds, scalars=f"{tuple(k_.shape)}",
-                   ptxas=jac_ptxas("jac_ladder"))
+                   ptxas=jac_ptxas("jac_ladder"), plain_lanes=plain_lanes)
 
     A16 = [c.clone() for c in tiled_affine(N)]
     nm16 = g1.affine_from_ints(g1_non_members(2), device=dev)
@@ -2536,8 +2797,11 @@ def main() -> int:
         raise AssertionError("jac_ladder[edge]: the probed lanes differ from the host's")
     del A16, k16
     r_col = torch.from_numpy(ints_to_limbs([R_MOD], 16).astype(np.int32)).to(dev)
+    # Held to the plain ladder on its first 2^14 lanes (2^20 of it took 99 s);
+    # the masks of every lane are points_2e20's gate.
     ladder_row("jac_ladder", r_col, A, [R_MOD],
-               "points_2e20: is_in_subgroup, one launch, r read from one column")
+               "points_2e20: is_in_subgroup, one launch, r read from one column",
+               plain_lanes=1 << 14)
     # the ladder's accumulator is a Jacobian batch with Z != 1: 2A here
     Pbig = contig(cuda_g1.jdbl_plain(pt.affine_to_jac(FQ_PLAIN, A)))
     kernel_row("madd", "madd_kernel", JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:180",

@@ -30,6 +30,7 @@ from tpu_bls12_381_torch.curves.field_adapters import FQ2_PLAIN, FQ_ADAPTER as F
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
 from tpu_bls12_381_torch.ntt import cuda_ntt, get_domain
+from tpu_bls12_381_torch.vecops import bit_reverse
 
 # One intra-op thread: the plain ladders are thousands of tiny tensor ops
 # (see tests/test_torch_g2.py).
@@ -124,8 +125,9 @@ def test_butterfly_elementwise(lib):
 
 @pytest.mark.parametrize("half", [1, 2, 8, 32])
 def test_butterfly_stage(lib, half):
-    """One ladder stage on a (16, 3, 64) array where it lies: the pairs, the
-    strided twiddle and the in-place layout of the output."""
+    """One ladder stage on a (16, 3, 64) array where it lies (the stages
+    kernel at count 1): the pairs, the strided twiddle and the in-place
+    layout of the output."""
     rows, n = 3, 64
     x = ops.mont_mul(FR, _elements(FR, 16).repeat(1, 2),
                      _elements(FR, 17).flip(1).repeat(1, 2).roll(5, 1))
@@ -136,28 +138,163 @@ def test_butterfly_stage(lib, half):
     assert torch.equal(out, cuda_ops.butterfly_stage_plain(FR, x, tw, half))
 
 
-@pytest.mark.parametrize("B,log_m,Bw,scaled", [
-    (4, 6, 0, False),       # the plain tile: 8 rows to a block, half empty
-    (4, 6, 4, False),       # with a full table
-    (4, 6, 2, True),        # a table of 2 rows serving 4, and the scalar
-    (17, 5, 0, True),       # two blocks of 16 rows, the second nearly empty
-    (3, 10, 3, False),      # one long row to a block
-    (2, 1, 1, True),        # the shortest row
-])
-def test_ntt_tile(lib, B, log_m, Bw, scaled):
-    m = 1 << log_m
-    fill = lambda seed, cnt: ops.mont_mul(
+def _fill(seed, cnt):
+    """cnt canonical Fr elements (products of the edge values and randoms)."""
+    return ops.mont_mul(
         FR, _elements(FR, seed).repeat(1, -(-cnt // N))[:, :cnt],
         _elements(FR, seed + 1).flip(1).repeat(1, -(-cnt // N))[:, :cnt].roll(cnt // 3, 1))
-    x = fill(18, B * m).reshape(16, B, m).contiguous()
+
+
+@pytest.mark.parametrize("natural_in", [False, True])
+@pytest.mark.parametrize("B,log_m,Bw,scaled", [
+    (4, 6, 0, False),       # the plain tile: 32 rows to a block, most empty
+    (4, 6, 4, False),       # with a full table
+    (4, 6, 2, True),        # a table of 2 rows serving 4, and the scalar
+    (65, 5, 0, True),       # two blocks of 64 rows, the second nearly empty
+    (3, 10, 3, False),      # two long rows to a block, the second block half full
+    (2, 1, 1, True),        # the shortest row
+    (2, 11, 1, True),       # rows of 2^11: a block each, rounds of 3, 3, 3, 2
+    (1, 12, 0, False),      # the cap: a slab of 2^12, 512 threads
+])
+def test_ntt_tile(lib, B, log_m, Bw, scaled, natural_in):
+    """The tile's register rounds and exchanges, block by block, in both load
+    modes: bit-reversed rows in, or natural rows in (a column a block, each
+    element bit-reversed as it loads; the plain version bit-reverses the
+    rows first)."""
+    m = 1 << log_m
+    x = _fill(18, B * m).reshape(16, B, m).contiguous()
     dom = get_domain(log_m, device="cpu")
-    w = fill(20, Bw * m).reshape(16, Bw, m).contiguous() if Bw else None
+    w = _fill(20, Bw * m).reshape(16, Bw, m).contiguous() if Bw else None
     scale = dom.n_inv if scaled else None
     out = torch.empty_like(x)
     lib.fr_ntt_tile(_ptr(x), _ptr(dom.itw), _ptr(w) if Bw else None,
                     _ptr(scale) if scaled else None, _ptr(out), SZ(B), SZ(Bw),
-                    ctypes.c_int(log_m))
-    assert torch.equal(out, cuda_ntt.ntt_tile_plain(x, dom.itw, w, scale))
+                    ctypes.c_int(log_m), ctypes.c_int(0 if natural_in else -1),
+                    ctypes.c_int(0))
+    rows = bit_reverse(x, axis=-1) if natural_in else x
+    assert torch.equal(out, cuda_ntt.ntt_tile_plain(rows, dom.itw, w, scale))
+
+
+@pytest.mark.parametrize("B,log_m,log_c,Bw,scaled,brev", [
+    (1, 5, 3, 0, False, False),     # the four-step's rows: columns of one block
+    (2, 5, 3, 4, True, False),      # two blocks, w of 4 rows serving 16
+    (3, 4, 2, 0, True, True),       # the ladder's rows: columns in bit-reversed order
+    (1, 11, 1, 2, False, True),     # rows of 2^11 from 2 columns
+    (2, 3, 0, 1, False, True),      # one column a block: the rows themselves
+])
+def test_ntt_tile_columns(lib, B, log_m, log_c, Bw, scaled, brev):
+    """The tile reading its rows as the columns of x seen as (B, m, C) blocks,
+    natural order down a column (the four-step's transposes and the ladder's
+    bit reversal folded into the load)."""
+    m, C = 1 << log_m, 1 << log_c
+    x = _fill(24, B * m * C).reshape(16, B, m, C).contiguous()
+    dom = get_domain(log_m, device="cpu")
+    w = _fill(26, Bw * m).reshape(16, Bw, m).contiguous() if Bw else None
+    scale = dom.n_inv if scaled else None
+    out = torch.empty(16, B * C, m, dtype=torch.int32)
+    lib.fr_ntt_tile(_ptr(x), _ptr(dom.tw), _ptr(w) if Bw else None,
+                    _ptr(scale) if scaled else None, _ptr(out), SZ(B * C), SZ(Bw),
+                    ctypes.c_int(log_m), ctypes.c_int(log_c), ctypes.c_int(int(brev)))
+    assert torch.equal(out, cuda_ntt.ntt_tile_columns_plain(x, dom.tw, w, scale, brev))
+
+
+@pytest.mark.parametrize("rows,log_n,log_h,count,log_s,scaled", [
+    (1, 14, 8, 6, 14, False),    # the row's top stages, its own table; two rounds
+    (2, 13, 7, 5, 12, True),     # two rows, the top stage's table, the scalar
+    (1, 14, 6, 4, 10, False),    # below the top: runs above the slab
+    (3, 9, 2, 3, 9, False),      # one round; small half: whole runs to a block
+    (5, 7, 0, 2, 7, True),       # the first stages, 40 runs, a last block part empty
+    (1, 12, 1, 6, 7, False),     # half 2: lanes past the offsets
+])
+def test_butterfly_stages(lib, rows, log_n, log_h, count, log_s, scaled):
+    """Several ladder stages a launch, block by block and round by round,
+    against the plain stages one at a time."""
+    n = 1 << log_n
+    x = _fill(22, rows * n).reshape(16, rows, n).contiguous()
+    tw = get_domain(log_s, device="cpu").tw
+    scale = get_domain(3, device="cpu").n_inv if scaled else None
+    out = torch.empty_like(x)
+    lib.fr_butterfly_stages(_ptr(x), _ptr(tw), _ptr(scale) if scaled else None, _ptr(out),
+                            SZ(rows * n), ctypes.c_int(log_h), ctypes.c_int(count),
+                            ctypes.c_int(log_s))
+    assert torch.equal(out, cuda_ops.butterfly_stages_plain(FR, x, tw, 1 << log_h, count,
+                                                            scale))
+
+
+def _positions(lib, V, fn, *args):
+    q = (ctypes.c_uint32 * V)()
+    fn(*args, q)
+    return list(q)
+
+
+@pytest.mark.parametrize("log_m", [1, 3, 5, 8, 11, 12])
+def test_ntt_round_mappings(lib, log_m):
+    """Every round of the tile covers the block's slab once (each slab
+    position held by one thread and value), and the natural-order load is
+    the bit reversal: thread t of a row takes elements t + k m/2^eb, each
+    placed at its bit-reversed position.  A warp's 32 lanes hit 32 banks of
+    the swizzled shared memory for each value, in every round the rows of
+    2^11 and 2^12 take, and in the stages kernel's rounds on the ladder."""
+    lib.ntt_swizzle.restype = ctypes.c_uint32
+    sb = max(11, log_m)
+    eb = lib.ntt_tile_eb(sb)
+    threads, m, V = 1 << (sb - eb), 1 << log_m, 1 << eb
+    brev = lambda v, bits: int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+    first = lambda t: _positions(lib, V, lib.ntt_first_positions, ctypes.c_uint32(t),
+                                 ctypes.c_int(log_m), ctypes.c_int(1), ctypes.c_int(eb))
+    later = lambda e0, sb_, eb_: lambda t: _positions(
+        lib, 1 << eb_, lib.ntt_round_positions, ctypes.c_uint32(t), ctypes.c_int(e0),
+        ctypes.c_int(sb_), ctypes.c_int(eb_))
+    rounds = [("first", first)] + [
+        (f"s0={s0}", later(min(s0, sb - eb), sb, eb)) for s0 in range(eb, log_m, eb)]
+    for name, pos in rounds:
+        seen = set()
+        for t in range(threads):
+            q = pos(t)
+            if name == "first" and log_m >= eb:
+                lanes = m >> eb
+                assert [brev(p % m, log_m) for p in q] == [
+                    t % lanes + brev(k, eb) * lanes for k in range(V)]
+            seen.update(q)
+        assert seen == set(range(1 << sb)), name
+        if log_m >= 11:
+            _assert_no_bank_conflicts(lib, pos, threads, V, name)
+    if log_m == 11:                      # the stages kernel on the 2^22 ladder
+        seb = lib.ntt_stages_eb()
+        for log_h, count in ((11, 6), (17, 5)):
+            lo = min(log_h, 11 - count)
+            for rnd in range(-(-count // seb)):
+                e0 = min(lo + seb * rnd, 11 - seb)
+                _assert_no_bank_conflicts(lib, later(e0, 11, seb), 1 << (11 - seb),
+                                          1 << seb, (log_h, count, rnd))
+
+
+def _assert_no_bank_conflicts(lib, pos, threads, V, what):
+    for w0 in range(0, threads, 32):
+        qs = [pos(t) for t in range(w0, w0 + 32)]
+        for k in range(V):
+            assert len({lib.ntt_swizzle(q[k]) % 32 for q in qs}) == 32, (what, w0, k)
+
+
+def test_butterfly_stages_index_math(lib):
+    """The stages kernel's blocks cover the array once: each index from one
+    block and slab position, offsets of a block neighbouring (32-byte
+    sectors whole), positions past the last run dropped."""
+    lib.stages_array_index.restype = ctypes.c_longlong
+    lib.stages_array_index.argtypes = [SZ, ctypes.c_int, ctypes.c_int, SZ, ctypes.c_uint32]
+    lib.stages_block_count.restype = SZ
+    lib.stages_block_count.argtypes = [SZ, ctypes.c_int, ctypes.c_int]
+    for total, log_h, count in ((1 << 14, 8, 6), (1 << 13, 10, 3), (40 << 2, 0, 2),
+                                (3 << 9, 2, 3)):
+        blocks = lib.stages_block_count(total, log_h, count)
+        got = []
+        for blk in range(blocks):
+            idx = [lib.stages_array_index(total, log_h, count, blk, q) for q in range(1 << 11)]
+            got += [i for i in idx if i >= 0]
+            lo = min(log_h, 11 - count)
+            if lo >= 3:
+                assert idx[1:8] == [idx[0] + d for d in range(1, 8)]
+        assert sorted(got) == list(range(total)), (total, log_h, count)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ package's own tests chain its four-step to.
 """
 
 import hashlib
+import importlib
 import json
 import os
 
@@ -24,14 +25,15 @@ from tpu_bls12_381.ntt import (coset_intt as j_coset_intt, coset_ntt as j_coset_
                                ntt as j_ntt)
 from tpu_bls12_381.ntt.ntt import Ordering as JOrdering, _ntt_core as j_ntt_core
 
-from tpu_bls12_381_torch import convert, oracle
-from tpu_bls12_381_torch.fields import FR, ops
+from tpu_bls12_381_torch import _build, convert, oracle
+from tpu_bls12_381_torch.fields import FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs, limbs_to_ints
 from tpu_bls12_381_torch.ntt import (Domain, Ordering, coset_intt, coset_ntt,
                                      cuda_ntt, get_domain, intt, ntt,
                                      release_domain)
 from tpu_bls12_381_torch.ntt.ntt import (_ntt_core, _route_fourstep,
                                          coset_powers)
+from tpu_bls12_381_torch.ntt import sweeps
 from tpu_bls12_381_torch.runtime import (AsyncHandle, ImmediateHandle, NttContext,
                                          config, reset_config_cache)
 
@@ -275,6 +277,53 @@ def test_fourstep_recursive_matches_ladder(inverse, monkeypatch):
     cuda_ntt.release_fourstep_cache()
 
 
+def test_fourstep_reads_columns_where_they_lie(monkeypatch):
+    """The four-step hands both tiles the array where it lies (the tile reads
+    its rows as columns, bit-reversed as they load): no ``bit_reverse``
+    gather and no transposed copy before a tile."""
+    calls, real = [], cuda_ntt.ntt_tile_columns
+
+    def spy(x, tw, w=None, scale=None, brev_cols=False):
+        calls.append((tuple(x.shape), w is not None, scale is not None, brev_cols,
+                      x.is_contiguous()))
+        return real(x, tw, w, scale, brev_cols)
+
+    x = _t(_rand((2, 1 << 10), 63))
+    want = ntt(x)
+    monkeypatch.setattr(cuda_ntt, "ntt_tile_columns", spy)
+    y = cuda_ntt.ntt_fourstep(x)
+    assert torch.equal(y, want)
+    assert calls == [((K, 2, 32, 32), True, False, False, True),
+                     ((K, 2, 32, 32), False, False, False, True)]
+    z = cuda_ntt.ntt_fourstep(y, inverse=True)
+    assert torch.equal(z, x) and calls[-1][2]          # the 1/n in the second tile
+    monkeypatch.setattr(cuda_ntt, "bit_reverse", lambda *a, **k: pytest.fail("gathered"))
+    monkeypatch.setattr(cuda_ntt, "ntt_tile_columns",
+                        lambda x, *a, **k: x.reshape(K, -1, x.shape[2]))
+    cuda_ntt.ntt_fourstep(x)                            # no gather around the tiles
+
+
+def test_ntt_tile_columns_plain_is_the_tile_on_the_columns():
+    """Row b*C + j of the result is the NTT of column j (brev(j)) of block b;
+    CPU tensors launch nothing."""
+    from tpu_bls12_381_torch.vecops import bit_reverse
+
+    x = _t(_rand((2, 16, 4), 64))
+    dom = get_domain(4, device="cpu")
+    before = dict(cuda_ntt.LAUNCHES)
+    for brev in (False, True):
+        got = cuda_ntt.ntt_tile_columns(x, dom.tw, brev_cols=brev)
+        cols = x.transpose(-1, -2)
+        if brev:
+            cols = bit_reverse(cols, axis=-2)
+        assert torch.equal(got, ntt(cols.contiguous()).reshape(K, 8, 16))
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_ntt.ntt_tile_columns(_t(_rand((1, 16, 3), 65)), dom.tw)
+    with pytest.raises(ValueError, match="Bw dividing"):
+        cuda_ntt.ntt_tile_columns(x, dom.tw, w=_t(_rand((3, 16), 66)))
+    assert cuda_ntt.LAUNCHES == before
+
+
 def test_fourstep_round_trip_and_cache():
     x = _t(_rand((1 << 10,), 62))
     y = cuda_ntt.ntt_fourstep(x)
@@ -333,6 +382,116 @@ def test_ntt_tile_refuses_what_the_kernel_does_not_take():
 
 
 # ----------------------------------------------------------------------------
+# The card's ladder split (one tile launch, then butterfly_stages), forced on
+# the CPU at a shrunken tile through the plain versions
+# ----------------------------------------------------------------------------
+
+NTT_MOD = importlib.import_module("tpu_bls12_381_torch.ntt.ntt")
+
+
+@pytest.fixture
+def card_split(monkeypatch):
+    """Route the ladder as the card does, with tiles of 2^cap; record the
+    kernel calls: ("tile", rows, m), ("columns", rows, m, brev_cols) and
+    ("stages", half, count, table entries)."""
+    calls = []
+    real_tile, real_cols = cuda_ntt.ntt_tile, cuda_ntt.ntt_tile_columns
+    real_stages = cuda_ops.butterfly_stages
+
+    def tile(x, tw, w=None, scale=None):
+        calls.append(("tile", x.shape[1], x.shape[2]))
+        return real_tile(x, tw, w, scale)
+
+    def columns(x, tw, w=None, scale=None, brev_cols=False):
+        calls.append(("columns", x.shape[1] * x.shape[3], x.shape[2], brev_cols))
+        return real_cols(x, tw, w, scale, brev_cols)
+
+    def stages(spec, x, tw, half, count, scale=None):
+        calls.append(("stages", half, count, tw.shape[1]))
+        return real_stages(spec, x, tw, half, count, scale)
+
+    def use(cap):
+        monkeypatch.setattr(NTT_MOD, "ladder_tile_log", lambda x: cap)
+        monkeypatch.setattr(cuda_ntt, "ntt_tile", tile)
+        monkeypatch.setattr(cuda_ntt, "ntt_tile_columns", columns)
+        monkeypatch.setattr(cuda_ops, "butterfly_stages", stages)
+        return calls
+
+    return use
+
+
+def test_ladder_split():
+    """The stages above the tile in as few launches of at most 6 as can be,
+    as even as can be; none when the tile takes the whole row."""
+    assert NTT_MOD.ladder_split(22, 11) == (11, [(11, 6), (17, 5)])
+    assert NTT_MOD.ladder_split(22, 12) == (12, [(12, 5), (17, 5)])
+    assert NTT_MOD.ladder_split(10, 11) == (10, [])
+    assert NTT_MOD.ladder_split(28, 11) == (11, [(11, 6), (17, 6), (23, 5)])
+    for log_n in range(1, 33):
+        for c in (4, 5, 11, 12):
+            t, launches = NTT_MOD.ladder_split(log_n, c)
+            assert t == min(log_n, c)
+            s = t
+            for log_h, count in launches:
+                assert log_h == s and 1 <= count <= cuda_ops.MAX_STAGES
+                s += count
+            assert s == log_n
+            assert len(launches) == -(-(log_n - t) // cuda_ops.MAX_STAGES)
+            counts = [k for _, k in launches]
+            assert not counts or max(counts) - min(counts) <= 1
+    assert NTT_MOD.ladder_tile_log(_t(_rand((16,), 80))) is None   # the CPU: per stage
+
+
+@pytest.mark.parametrize("log_n,name,cap", [(7, "NN", 4), (8, "NR", 5), (9, "RN", 4),
+                                            (10, "RR", 5)])
+def test_card_ladder_split_matches_jax(log_n, name, cap, card_split):
+    """ntt and intt through one tile of 2^cap rows (natural input: its
+    columns, bit-reversed) and butterfly_stages launches (the inverse's 1/n
+    folded into the last), in each ordering, equal the JAX package's."""
+    x = _rand((1 << log_n,), 81 + log_n)
+    calls = card_split(cap)
+    _same(ntt(_t(x), Ordering(name)), j_ntt(x, JOrdering(name)))
+    _same(intt(_t(x), Ordering(name)), j_intt(x, JOrdering(name)))
+    _, launches = NTT_MOD.ladder_split(log_n, cap)
+    rows = (1 << log_n) >> cap
+    first = (("columns", rows, 1 << cap, True) if name in ("NN", "NR")
+             else ("tile", rows, 1 << cap))
+    want = [first] + [("stages", 1 << h, k, 1 << (h + k - 1)) for h, k in launches]
+    assert calls == want + want
+
+
+def test_card_ladder_split_coset_and_batch_match_jax(card_split):
+    """The coset forms and a batch of 3 rows through the card's split."""
+    x = _rand((3, 1 << 8), 90)
+    calls = card_split(4)
+    _same(coset_ntt(_t(x), 5), j_coset_ntt(x, 5))
+    _same(coset_intt(_t(x), 5), j_coset_intt(x, 5))
+    _same(ntt(_t(x)), j_ntt(x))
+    assert calls[0] == ("columns", 3 * (1 << 4), 1 << 4, True)
+    assert [c[0] for c in calls] == ["columns", "stages"] * 3   # 2^8: 4 + 4 stages
+
+
+def test_butterfly_stages_refuses_what_the_kernel_does_not_take():
+    x = _t(_rand((2, 64), 91))
+    tw = get_domain(6, device="cpu").tw
+    with pytest.raises(ValueError, match="count"):
+        cuda_ops.butterfly_stages(FR, x, tw, 1, 7)
+    with pytest.raises(ValueError, match="half"):
+        cuda_ops.butterfly_stages(FR, x, tw, 16, 3)
+    with pytest.raises(ValueError, match="twiddles"):
+        cuda_ops.butterfly_stages(FR, x, get_domain(3, device="cpu").tw, 2, 3)
+    with pytest.raises(ValueError, match="twiddles"):
+        cuda_ops.butterfly_stages(FR, x, get_domain(7, device="cpu").tw, 2, 3)
+    with pytest.raises(ValueError, match="scalar"):
+        cuda_ops.butterfly_stages(FR, x, tw, 1, 2, scale=x[:, 0].contiguous())
+    got = cuda_ops.butterfly_stages(FR, x, get_domain(4, device="cpu").tw, 2, 3)
+    want = x
+    for h in (2, 4, 8):
+        want = cuda_ops.butterfly_stage_plain(FR, want, tw, h)
+    assert torch.equal(got, want)        # the top stage's table, the row's own
+
+
+# ----------------------------------------------------------------------------
 # Routing and the split
 # ----------------------------------------------------------------------------
 
@@ -387,6 +546,41 @@ def test_routing_rule(algorithm):
     assert config().ntt_algorithm == "fourstep"
     algorithm("radix2")
     assert _route_fourstep(big, Ordering.NN) is False
+
+
+@pytest.mark.parametrize("name", sorted(sweeps.BUILDS))
+def test_sweep_builds_change_statements_the_sources_hold(name):
+    """Each build that ntt/sweeps.py times against the kept one replaces
+    statements that stand once in the sources."""
+    source, changes = sweeps.BUILDS[name]
+    assert (_build.CSRC_DIR / f"{source}.cu").exists()
+    for file_, old, new in changes:
+        assert (_build.CSRC_DIR / file_).read_text().count(old) == 1, (file_, old)
+        assert old != new
+
+
+def test_sweep_sass_counts():
+    text = """
+\tcode for sm_90a
+\t\tFunction : _Z5probeILi0ELi1EEvPKjPjm
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                               /* 0x000fe40000000800 */
+        /*0010*/              @P0 EXIT ;
+        /*0020*/                   IMAD.WIDE.U32 R2, R4, R5, RZ ;
+        /*0030*/                   IMAD.WIDE.U32 R6, R4, R5, R2 ;
+\t\tFunction : _Z5probeILi0ELi2EEvPKjPjm
+        /*0000*/              @!PT IADD3 R1, R1, 1, RZ ;
+"""
+    got = sweeps._sass_counts(text)
+    assert got["_Z5probeILi0ELi1EEvPKjPjm"] == {"LDC": 1, "EXIT": 1, "IMAD.WIDE.U32": 2}
+    assert got["_Z5probeILi0ELi2EEvPKjPjm"] == {"IADD3": 1}
+
+
+def test_sweeps_need_the_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert sweeps.main() == 1
+    assert capsys.readouterr().out == ""
 
 
 def test_config_reads_the_ntt_variables(monkeypatch):

@@ -351,25 +351,3 @@ DEV void butterfly_lane(const uint32_t* e, const uint32_t* o, const uint32_t* w,
     fp_store<F>(hi, n, idx, h);
     fp_store<F>(lo, n, idx, l);
 }
-
-// One pair of one stage of the radix-2 DIT ladder, on the array where it
-// lies.  x and out are (K, rows, n) planes; tw is the (K, n/2) table of
-// w_n^0 .. w_n^(n/2-1).  The stage joins groups of 2*half elements: pair
-// `pair` of a row is elements i0 = g*2*half + j and i0 + half with
-// g = pair / half, j = pair % half, and its twiddle is w_n^(j * n/(2*half)).
-// idx runs over rows * n/2.  `half` and n are powers of two.
-template <class F>
-DEV void butterfly_stage_lane(const uint32_t* x, const uint32_t* tw,
-                              uint32_t* out, size_t rows, size_t n,
-                              size_t half, size_t idx) {
-    size_t pairs = n / 2;
-    size_t row = idx / pairs, pair = idx % pairs;
-    size_t j = pair & (half - 1);
-    size_t i0 = row * n + ((pair - j) << 1) + j;
-    size_t total = rows * n;
-    El<F> h, l;
-    fp_butterfly<F>(fp_load<F>(x, total, i0), fp_load<F>(x, total, i0 + half),
-                    fp_load<F>(tw, pairs, j * (pairs / half)), h, l);
-    fp_store<F>(out, total, i0, h);
-    fp_store<F>(out, total, i0 + half, l);
-}

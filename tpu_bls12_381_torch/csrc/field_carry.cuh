@@ -306,3 +306,110 @@ DEV El<F> fp_mul_cc(const El<F>& a, const El<F>& b) {
 }
 
 DEV El<Fq> fq_mul_cc(const El<Fq>& a, const El<Fq>& b) { return fp_mul_cc<Fq>(a, b); }
+
+// The butterfly's sum and difference for Fr on the carry flag: a + b and
+// a - b mod r for canonical a, b, each one add chain and one subtract chain
+// of 8 words and a select (field.cuh's fp_add and fp_sub give the same limbs;
+// r < 2^255, so a + b never leaves 8 words).
+DEV El<Fr> fr_add_cc(const El<Fr>& a, const El<Fr>& b) {
+    El<Fr> s, d;
+    uint32_t keep;
+#ifdef __CUDA_ARCH__
+    asm("add.cc.u32 %0, %8, %16;\n\t"
+        "addc.cc.u32 %1, %9, %17;\n\t"
+        "addc.cc.u32 %2, %10, %18;\n\t"
+        "addc.cc.u32 %3, %11, %19;\n\t"
+        "addc.cc.u32 %4, %12, %20;\n\t"
+        "addc.cc.u32 %5, %13, %21;\n\t"
+        "addc.cc.u32 %6, %14, %22;\n\t"
+        "addc.u32 %7, %15, %23;"
+        : "=r"(s.v[0]), "=r"(s.v[1]), "=r"(s.v[2]), "=r"(s.v[3]), "=r"(s.v[4]),
+          "=r"(s.v[5]), "=r"(s.v[6]), "=r"(s.v[7])
+        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]),
+          "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]),
+          "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+    asm("sub.cc.u32 %0, %9, %17;\n\t"
+        "subc.cc.u32 %1, %10, %18;\n\t"
+        "subc.cc.u32 %2, %11, %19;\n\t"
+        "subc.cc.u32 %3, %12, %20;\n\t"
+        "subc.cc.u32 %4, %13, %21;\n\t"
+        "subc.cc.u32 %5, %14, %22;\n\t"
+        "subc.cc.u32 %6, %15, %23;\n\t"
+        "subc.cc.u32 %7, %16, %24;\n\t"
+        "subc.u32 %8, 0, 0;"
+        : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]), "=r"(d.v[4]),
+          "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(keep)
+        : "r"(s.v[0]), "r"(s.v[1]), "r"(s.v[2]), "r"(s.v[3]), "r"(s.v[4]), "r"(s.v[5]),
+          "r"(s.v[6]), "r"(s.v[7]), "r"(fr_p_word(0)), "r"(fr_p_word(1)),
+          "r"(fr_p_word(2)), "r"(fr_p_word(3)), "r"(fr_p_word(4)), "r"(fr_p_word(5)),
+          "r"(fr_p_word(6)), "r"(fr_p_word(7)));
+#else
+    uint64_t c = 0;
+    for (int j = 0; j < 8; ++j) {
+        c += (uint64_t)a.v[j] + b.v[j];
+        s.v[j] = (uint32_t)c;
+        c >>= 32;
+    }
+    uint32_t br = 0;
+    for (int j = 0; j < 8; ++j) {
+        uint64_t t = (uint64_t)s.v[j] - fr_p_word(j) - br;
+        d.v[j] = (uint32_t)t;
+        br = (uint32_t)(t >> 63);
+    }
+    keep = 0u - br;
+#endif
+    // keep: all ones where s - r borrowed (s < r): the sum stands
+    El<Fr> r;
+    UNROLL
+    for (int j = 0; j < 8; ++j) r.v[j] = (s.v[j] & keep) | (d.v[j] & ~keep);
+    return r;
+}
+
+DEV El<Fr> fr_sub_cc(const El<Fr>& a, const El<Fr>& b) {
+    El<Fr> d;
+    uint32_t m;
+#ifdef __CUDA_ARCH__
+    asm("sub.cc.u32 %0, %9, %17;\n\t"
+        "subc.cc.u32 %1, %10, %18;\n\t"
+        "subc.cc.u32 %2, %11, %19;\n\t"
+        "subc.cc.u32 %3, %12, %20;\n\t"
+        "subc.cc.u32 %4, %13, %21;\n\t"
+        "subc.cc.u32 %5, %14, %22;\n\t"
+        "subc.cc.u32 %6, %15, %23;\n\t"
+        "subc.cc.u32 %7, %16, %24;\n\t"
+        "subc.u32 %8, 0, 0;"
+        : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]), "=r"(d.v[4]),
+          "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(m)
+        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]),
+          "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]),
+          "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+    asm("add.cc.u32 %0, %0, %8;\n\t"
+        "addc.cc.u32 %1, %1, %9;\n\t"
+        "addc.cc.u32 %2, %2, %10;\n\t"
+        "addc.cc.u32 %3, %3, %11;\n\t"
+        "addc.cc.u32 %4, %4, %12;\n\t"
+        "addc.cc.u32 %5, %5, %13;\n\t"
+        "addc.cc.u32 %6, %6, %14;\n\t"
+        "addc.u32 %7, %7, %15;"
+        : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]), "+r"(d.v[4]),
+          "+r"(d.v[5]), "+r"(d.v[6]), "+r"(d.v[7])
+        : "r"(fr_p_word(0) & m), "r"(fr_p_word(1) & m), "r"(fr_p_word(2) & m),
+          "r"(fr_p_word(3) & m), "r"(fr_p_word(4) & m), "r"(fr_p_word(5) & m),
+          "r"(fr_p_word(6) & m), "r"(fr_p_word(7) & m));
+#else
+    uint32_t br = 0;
+    for (int j = 0; j < 8; ++j) {
+        uint64_t t = (uint64_t)a.v[j] - b.v[j] - br;
+        d.v[j] = (uint32_t)t;
+        br = (uint32_t)(t >> 63);
+    }
+    m = 0u - br;
+    uint64_t c = 0;
+    for (int j = 0; j < 8; ++j) {
+        c += (uint64_t)d.v[j] + (fr_p_word(j) & m);
+        d.v[j] = (uint32_t)c;
+        c >>= 32;
+    }
+#endif
+    return d;
+}

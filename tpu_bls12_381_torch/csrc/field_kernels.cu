@@ -16,12 +16,9 @@
 // binds it three times over.  (The reckoning is in PERF.md.)  Nothing here is
 // tuned.
 //
-// The butterfly has two entries.  `butterfly` is the elementwise form of the
-// TPU kernel: contiguous e, o, w of one shape in, hi and lo out.
-// `butterfly_stage` is one whole stage of the ladder on the array where it
-// lies: it reads the pairs (j, j + half) and the strided twiddle in place and
-// writes the stage's output in place of the slices, the broadcast and the
-// concatenation that the elementwise form would need around it.
+// `butterfly` is the elementwise form of the TPU kernel: contiguous e, o, w
+// of one shape in, hi and lo out.  The ladder's stages on the array where it
+// lies, several a launch, are ntt_stages.cu's.
 //
 // Plain C interface for ctypes: pointers are device pointers to contiguous
 // int32 planes, `stream` is a cudaStream_t, the return value is
@@ -79,18 +76,6 @@ butterfly_kernel(const uint32_t* __restrict__ e, const uint32_t* __restrict__ o,
     butterfly_lane<F>(e, o, w, hi, lo, n, idx);
 }
 
-// x and out may not overlap: they are declared __restrict__.
-template <class F>
-__global__ void __launch_bounds__(THREADS)
-butterfly_stage_kernel(const uint32_t* __restrict__ x,
-                       const uint32_t* __restrict__ tw,
-                       uint32_t* __restrict__ out, size_t rows, size_t n,
-                       size_t half) {
-    size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= rows * (n / 2)) return;
-    butterfly_stage_lane<F>(x, tw, out, rows, n, half, idx);
-}
-
 static inline unsigned blocks_for(size_t n) {
     return (unsigned)((n + THREADS - 1) / THREADS);
 }
@@ -145,19 +130,6 @@ static int launch_butterfly(const void* e, const void* o, const void* w,
     return (int)cudaGetLastError();
 }
 
-template <class F>
-static int launch_butterfly_stage(const void* x, const void* tw, void* out,
-                                  long long rows, long long n, long long half,
-                                  void* stream) {
-    size_t work = (size_t)rows * (size_t)(n / 2);
-    if (work > 0) {
-        butterfly_stage_kernel<F><<<blocks_for(work), THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out,
-            (size_t)rows, (size_t)n, (size_t)half);
-    }
-    return (int)cudaGetLastError();
-}
-
 extern "C" {
 
 int fr_mont_mul(const void* a, const void* b, void* out, long long n, void* stream) {
@@ -200,11 +172,6 @@ int fr_butterfly(const void* e, const void* o, const void* w, void* hi, void* lo
 int fq_butterfly(const void* e, const void* o, const void* w, void* hi, void* lo,
                  long long n, void* stream) {
     return launch_butterfly<Fq>(e, o, w, hi, lo, n, stream);
-}
-
-int fr_butterfly_stage(const void* x, const void* tw, void* out, long long rows,
-                       long long n, long long half, void* stream) {
-    return launch_butterfly_stage<Fr>(x, tw, out, rows, n, half, stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 // kernels (field.cuh, field_carry.cuh, g1.cuh, g1_jac.cuh, g2.cuh,
 // g2_pair.cuh, ntt.cuh, batch_inverse.cuh, lane_scan.cuh),
 // compiled as plain C++ and run in a
-// loop over the lanes (for the NTT tile: over the blocks, and inside a block
-// over its elements and pairs, with a heap array for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
+// loop over the lanes (for the NTT tile and the ladder's stages: over the
+// blocks, and inside a block over its rounds and threads, with a heap array
+// for the shared memory).  It lets a machine without a GPU hold the kernels' arithmetic
 // against the plain PyTorch versions (tests/test_torch_csrc_host.py):
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
@@ -103,6 +104,17 @@ static void host_padd_scan(const uint32_t* X, const uint32_t* Y, const uint32_t*
     }
 }
 
+// The tile's rounds over the blocks of rows (fr_ntt_tile below).
+template <int EB>
+static void host_tile(const TileArgs& a, size_t per, uint32_t* sh) {
+    const uint32_t threads = ntt_threads(a.sb, EB);
+    for (size_t row0 = 0; row0 < a.rows; row0 += per) {
+        for (uint32_t t = 0; t < threads; ++t) tile_round_first<EB>(a, row0, t, sh);
+        for (int s0 = EB; s0 < a.log_m; s0 += EB)
+            for (uint32_t t = 0; t < threads; ++t) tile_round<EB>(a, row0, t, s0, sh);
+    }
+}
+
 extern "C" {
 
 void fr_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
@@ -142,30 +154,76 @@ void fr_butterfly(const uint32_t* e, const uint32_t* o, const uint32_t* w,
     for (size_t i = 0; i < n; ++i) butterfly_lane<Fr>(e, o, w, hi, lo, n, i);
 }
 
-void fr_butterfly_stage(const uint32_t* x, const uint32_t* tw, uint32_t* out,
-                        size_t rows, size_t n, size_t half) {
-    for (size_t i = 0; i < rows * (n / 2); ++i)
-        butterfly_stage_lane<Fr>(x, tw, out, rows, n, half, i);
+// The ladder's stages (ntt_stages.cu), block by block, each round thread by
+// thread: a round's threads touch disjoint slab positions, and the barrier
+// between the rounds is the end of the loop over the threads.  Arguments as
+// ntt_stages.cu's fr_butterfly_stages.
+void fr_butterfly_stages(const uint32_t* x, const uint32_t* tw, const uint32_t* scale,
+                         uint32_t* out, size_t total, int log_h0, int count, int log_s) {
+    StagesArgs a{x, tw, scale, out, total, log_h0, count, log_s,
+                 stages_lo(log_h0, count)};
+    const uint32_t threads = ntt_threads(NTT_SLAB_BITS, NTT_STAGES_EB);
+    std::vector<uint32_t> sh((size_t)Fr::W << NTT_SLAB_BITS);
+    size_t blocks = stages_blocks(total, log_h0, count);
+    for (size_t blk = 0; blk < blocks; ++blk)
+        for (int rnd = 0; NTT_STAGES_EB * rnd < count; ++rnd)
+            for (uint32_t t = 0; t < threads; ++t) stages_round(a, blk, t, rnd, sh.data());
 }
 
-// The tile kernel's body, block by block.
+// One stage of the ladder: the stages kernel at count = 1, with the table of
+// the whole domain (16, n/2).
+void fr_butterfly_stage(const uint32_t* x, const uint32_t* tw, uint32_t* out,
+                        size_t rows, size_t n, size_t half) {
+    int log_n = 0, log_h = 0;
+    while (((size_t)1 << log_n) < n) ++log_n;
+    while (((size_t)1 << log_h) < half) ++log_h;
+    fr_butterfly_stages(x, tw, nullptr, out, rows * n, log_h, 1, log_n);
+}
+
+// The tile kernel's body (ntt_kernels.cu), block by block, each round thread
+// by thread (host_tile).  cols_log and brev_cols as fr_ntt_tile's; vec_in is
+// the card's alone.
+
 void fr_ntt_tile(const uint32_t* x, const uint32_t* tw, const uint32_t* w,
                  const uint32_t* scale, uint32_t* out, size_t rows, size_t w_rows,
-                 int log_m) {
-    uint32_t cap = tile_rows_per_block(log_m) << log_m;
-    size_t total = rows << log_m;
-    std::vector<uint32_t> sh((size_t)cap * Fr::W);
-    fr sc;
-    if (scale != nullptr) sc = fp_load<Fr>(scale, 1, 0);
-    for (size_t base = 0; base < total; base += cap) {
-        for (uint32_t e = 0; e < cap; ++e) tile_load(x, total, base, sh.data(), cap, e);
-        for (int s = 1; s <= log_m; ++s)
-            for (uint32_t q = 0; q < cap / 2; ++q)
-                tile_butterfly(sh.data(), cap, tw, log_m, s, q);
-        for (uint32_t e = 0; e < cap; ++e)
-            tile_store(sh.data(), cap, e, base, total, log_m, w, w_rows,
-                       scale != nullptr ? &sc : nullptr, out);
-    }
+                 int log_m, int cols_log, int brev_cols) {
+    TileArgs a{x, tw, w, scale, out, rows, w_rows, log_m, tile_slab_bits(log_m), 0,
+               cols_log, brev_cols};
+    std::vector<uint32_t> sh((size_t)Fr::W << a.sb);
+    size_t per = tile_rows_per_block(log_m);
+    if (tile_eb(a.sb) == 2) host_tile<2>(a, per, sh.data());
+    else host_tile<3>(a, per, sh.data());
+}
+
+// The round mappings, for the tests: element bits of the tile's rounds for
+// a slab of 2^sb and of the stages kernel's; slab positions of thread t's
+// 2^eb values (tile round 1, then a round with element bits [e0, e0 + eb));
+// the array index of stages slab position q (-1 past the last run).
+int ntt_tile_eb(int sb) { return tile_eb(sb); }
+
+int ntt_stages_eb() { return NTT_STAGES_EB; }
+
+void ntt_first_positions(uint32_t t, int log_m, int natural_in, int eb, uint32_t* q) {
+    uint32_t q0 = tile_first_q0(t, log_m, natural_in, eb);
+    for (int k = 0; k < (1 << eb); ++k) q[k] = q0 + (uint32_t)k;
+}
+
+void ntt_round_positions(uint32_t t, int e0, int sb, int eb, uint32_t* q) {
+    uint32_t q0 = ntt_round_q0(t, e0, sb, eb);
+    for (int k = 0; k < (1 << eb); ++k) q[k] = q0 | ((uint32_t)k << e0);
+}
+
+uint32_t ntt_swizzle(uint32_t q) { return ntt_swz(q); }
+
+long long stages_array_index(size_t total, int log_h0, int count, size_t blk, uint32_t q) {
+    StagesArgs a{nullptr, nullptr, nullptr, nullptr, total, log_h0, count, 0,
+                 stages_lo(log_h0, count)};
+    size_t idx;
+    return stages_index(a, blk, q, idx) ? (long long)idx : -1;
+}
+
+size_t stages_block_count(size_t total, int log_h0, int count) {
+    return stages_blocks(total, log_h0, count);
 }
 
 // The carry-chain product of field_carry.cuh (its chains as C++).

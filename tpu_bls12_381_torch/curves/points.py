@@ -292,13 +292,15 @@ def scalar_mul(F, scalars, A, num_bits=255):
 
     ``scalars``: (16, *batch) 16-bit limbs, **standard form** (they broadcast
     against A's batch).  ``A``: affine batch.  Returns a Jacobian batch.
-    Constant-time MSB-first loop: per bit one doubling, one mixed add, and a
-    per-lane select of the sum where the lane's bit is set (the JAX package's
-    ``fori_loop`` body, here a Python loop over the bits).  G1 on the card runs
-    the whole loop in one ``cuda_g1.jac_ladder`` launch, with the same limbs;
-    it skips the add in a warp where no lane has the bit, so its time (not its
-    values) depends on the scalars' bits: meant for public scalars, as r in
-    ``is_in_subgroup``.
+    Not constant-time on the card: G1 there runs the whole loop in one
+    ``cuda_g1.jac_ladder`` launch, with the same limbs, which skips the add in
+    a warp where no lane has the bit, so its time (not its values) depends on
+    the scalars' bits.  It is meant for public scalars, as r in
+    ``is_in_subgroup``.  Elsewhere (the CPU, G2) an MSB-first loop: per bit
+    one doubling, one mixed add, and a per-lane select of the sum where the
+    lane's bit is set (the JAX package's ``fori_loop`` body, here a Python
+    loop over the bits), whose sequence of operations does not depend on the
+    scalars.
     """
     x, y, inf = A
     scalars = scalars.to(device=x.device, dtype=LIMB_DTYPE)
@@ -323,9 +325,11 @@ def scalar_mul(F, scalars, A, num_bits=255):
 def is_in_subgroup(F, A, *, num_bits: int = 255):
     """Batched r-torsion membership: [r]P == O (with P on the curve).
 
-    One constant-time 255-bit ladder per batch (G1 on the card: one
-    ``jac_ladder`` launch that reads r from one column); the identity counts
-    as a member.  Returns a bool batch.
+    One 255-bit ladder per batch by ``scalar_mul`` with the public scalar r
+    (G1 on the card: one ``jac_ladder`` launch that reads r from one column
+    and skips the adds of r's zero bits, so its time depends on r's bits and
+    on nothing secret); the identity counts as a member.  Returns a bool
+    batch.
     """
     batch = F.batch_shape(A[0])
     r_limbs = torch.from_numpy(

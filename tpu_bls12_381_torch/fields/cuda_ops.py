@@ -8,12 +8,14 @@ Counterpart of the JAX package's ``fields/pallas_ops.py``:
   (``fields/pallas_ops.py:391``, ``:441``);
 * ``add`` and ``sub`` take the place of ``_build_add_kernel`` / ``add`` and
   ``_build_sub_kernel`` / ``sub`` (``fields/pallas_ops.py:401``, ``:411``);
-* ``butterfly`` and ``butterfly_stage`` take the place of
-  ``_build_butterfly_kernel`` / ``butterfly`` (``fields/pallas_ops.py:421``,
+* ``butterfly``, ``butterfly_stages`` and ``butterfly_stage`` take the place
+  of ``_build_butterfly_kernel`` / ``butterfly`` (``fields/pallas_ops.py:421``,
   ``:453``).  ``butterfly`` is the TPU kernel's elementwise contract;
-  ``butterfly_stage`` is one whole stage of the radix-2 ladder on the array
-  where it lies, so the ladder needs no slices, broadcast twiddles or
-  concatenation around the kernel: one launch a stage and nothing else;
+  ``butterfly_stages`` runs up to six consecutive stages of the radix-2
+  ladder on the array where it lies in one launch (``csrc/ntt_stages.cu``,
+  device code in ``csrc/ntt.cuh``), so the ladder needs no slices, broadcast
+  twiddles or concatenation around the kernel, and no pass over the array a
+  stage; ``butterfly_stage`` is that kernel at one stage;
 * ``batch_inverse`` launches the three kernels of ``csrc/batch_inverse.cu``,
   Montgomery's batch inversion with the product and the square chained
   inside each phase, where ``vecops.batch_inverse`` ran ``mont_mul`` and
@@ -35,9 +37,11 @@ Each wrapper takes its plain version (``*_plain``, over the int64 ops of
 the kernel or raises; there is no fallback.  The wrappers copy nothing:
 operands must be contiguous and of one shape, and anything else raises
 (``fields/fast.py`` broadcasts and lays out for them).  ``LAUNCHES`` counts
-kernel launches, and nothing else; both butterfly entries count under
-``butterfly_fr`` / ``butterfly_fq``, the batch inversion's three kernels
-under ``batch_inverse_fr`` / ``batch_inverse_fq``.
+kernel launches, and nothing else: the elementwise butterfly under
+``butterfly_fr`` / ``butterfly_fq``, the stages kernel (``butterfly_stage``
+too) under ``butterfly_stages`` and, by (half, count), in ``STAGE_LAUNCHES``;
+the batch inversion's three kernels under ``batch_inverse_fr`` /
+``batch_inverse_fq``.
 """
 
 from __future__ import annotations
@@ -53,17 +57,24 @@ from .field import FieldSpec
 LAUNCHES = {"mont_mul_fr": 0, "mont_mul_fq": 0,
             "mont_sqr_fr": 0, "mont_sqr_fq": 0,
             "add_fr": 0, "add_fq": 0, "sub_fr": 0, "sub_fq": 0,
-            "butterfly_fr": 0, "butterfly_fq": 0,
+            "butterfly_fr": 0, "butterfly_fq": 0, "butterfly_stages": 0,
             "batch_inverse_fr": 0, "batch_inverse_fq": 0}
+# butterfly_stages' launches by (half, count)
+STAGE_LAUNCHES: dict = {}
+
+# The most stages one butterfly_stages launch runs (csrc/ntt.cuh).
+MAX_STAGES = 6
 
 _PTR = ctypes.c_void_p
 _CONFIGURED = False
 _BINV_CONFIGURED = False
+_STAGES_CONFIGURED = False
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    STAGE_LAUNCHES.clear()
 
 
 def _lib():
@@ -79,9 +90,6 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [_PTR] * 5 + [ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
-        lib.fr_butterfly_stage.argtypes = (
-            [_PTR] * 3 + [ctypes.c_longlong] * 3 + [_PTR])
-        lib.fr_butterfly_stage.restype = ctypes.c_int
         for name in ("fr_mont_sqr", "fq_mont_sqr"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR, _PTR, ctypes.c_longlong, _PTR]
@@ -99,6 +107,17 @@ def _binv_lib():
             fn.argtypes = [_PTR] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int, _PTR]
             fn.restype = ctypes.c_int
         _BINV_CONFIGURED = True
+    return lib
+
+
+def _stages_lib():
+    global _STAGES_CONFIGURED
+    lib = _build.library("ntt_stages")
+    if not _STAGES_CONFIGURED:
+        lib.fr_butterfly_stages.argtypes = (
+            [_PTR] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_PTR])
+        lib.fr_butterfly_stages.restype = ctypes.c_int
+        _STAGES_CONFIGURED = True
     return lib
 
 
@@ -155,15 +174,28 @@ def butterfly_plain(spec: FieldSpec, even, odd, w):
 def butterfly_stage_plain(spec: FieldSpec, x, tw, half: int):
     """Plain PyTorch version of ``butterfly_stage``: the stage as the JAX
     package's ladder writes it (``ntt/ntt.py:49-61``), with a reshape, two
-    slices, the strided twiddle broadcast over them, and a concatenation."""
+    slices, the strided twiddle broadcast over them, and a concatenation.
+    ``tw`` is the table of a domain at least 2 ``half`` long (``K``, S/2): the
+    stage's twiddle j is entry j * S / (2 half)."""
     K, n = x.shape[0], x.shape[-1]
     lead = tuple(x.shape[1:-1])
     m = 2 * half
-    w = tw[:, ::n // m][:, :half]
+    w = tw[:, ::2 * tw.shape[-1] // m][:, :half]
     w = w.reshape((K,) + (1,) * (len(lead) + 1) + (half,))
     xg = x.reshape((K,) + lead + (n // m, m))
     hi, lo = butterfly_plain(spec, xg[..., :half], xg[..., half:], w)
     return torch.cat([hi, lo], dim=-1).reshape(x.shape)
+
+
+def butterfly_stages_plain(spec: FieldSpec, x, tw, half: int, count: int,
+                           scale=None):
+    """Plain PyTorch version of ``butterfly_stages``: ``butterfly_stage_plain``
+    ``count`` times, then the scalar."""
+    for c in range(count):
+        x = butterfly_stage_plain(spec, x, tw, half << c)
+    if scale is not None:
+        x = ops.mont_mul(spec, x, scale.reshape((spec.num_limbs,) + (1,) * (x.dim() - 1)))
+    return x
 
 
 def _suffix(spec: FieldSpec) -> str:
@@ -253,42 +285,75 @@ def butterfly(spec: FieldSpec, even, odd, w):
     return hi, lo
 
 
+def butterfly_stages(spec: FieldSpec, x, tw, half: int, count: int, scale=None):
+    """``count`` consecutive stages of the radix-2 DIT ladder along the last
+    axis of ``x``, from ``half`` up, in one launch; then times ``scale``.
+
+    ``x`` is (K, ..., n).  At each stage, within every group of ``2 * h``
+    elements (h = half, 2 half, ...), element j of the low half and element j
+    of the high half become (e + w*o, e - w*o) with w = w_(2h)^j.  ``tw`` is
+    the (K, S/2) table w_S^0 .. w_S^(S/2 - 1) of a domain of size S with
+    2^count * half <= S <= n: the ladder's own (S = n), or that of the
+    launch's top stage, whose entries then lie close together.  ``scale``:
+    None or one (K,) element.  1 <= count <= ``MAX_STAGES``.  Returns a new
+    tensor of ``x``'s shape.  Fr only: the NTT runs over no other field.
+    """
+    K = spec.num_limbs
+    if K != 16:
+        raise ValueError("butterfly_stages: the kernel is built for Fr only")
+    check_limbs(x, K, "butterfly_stages: x")
+    check_limbs(tw, K, "butterfly_stages: tw")
+    if x.device != tw.device:
+        raise ValueError(f"butterfly_stages: devices differ ({x.device}, {tw.device})")
+    n = x.shape[-1] if x.dim() > 1 else 0
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"butterfly_stages: the last axis must be a power of "
+                         f"two >= 2, got shape {tuple(x.shape)}")
+    if not 1 <= count <= MAX_STAGES:
+        raise ValueError(f"butterfly_stages: count = {count} is not in [1, {MAX_STAGES}]")
+    if half < 1 or half & (half - 1) or half << count > n:
+        raise ValueError(f"butterfly_stages: half = {half} is no power of two "
+                         f"with half * 2^{count} <= {n}")
+    S = 2 * tw.shape[-1] if tw.dim() == 2 else 0
+    if S & (S - 1) or not half << count <= S <= n:
+        raise ValueError(f"butterfly_stages: expected twiddles of shape ({K}, S/2) "
+                         f"with S a power of two in [{half << count}, {n}], got "
+                         f"{tuple(tw.shape)}")
+    if scale is not None:
+        check_limbs(scale, K, "butterfly_stages: scale")
+        if scale.dim() != 1 or scale.device != x.device:
+            raise ValueError(f"butterfly_stages: expected a scalar of shape ({K},) on "
+                             f"{x.device}, got {tuple(scale.shape)} on {scale.device}")
+    if not x.is_cuda:
+        return butterfly_stages_plain(spec, x, tw, half, count, scale)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = _stages_lib().fr_butterfly_stages(
+            x.data_ptr(), tw.data_ptr(), scale.data_ptr() if scale is not None else None,
+            out.data_ptr(), x.numel() // K, half.bit_length() - 1, count,
+            S.bit_length() - 1, stream_ptr(x.device))
+    check_launch(code, "fr_butterfly_stages")
+    LAUNCHES["butterfly_stages"] += 1
+    STAGE_LAUNCHES[(half, count)] = STAGE_LAUNCHES.get((half, count), 0) + 1
+    return out
+
+
 def butterfly_stage(spec: FieldSpec, x, tw, half: int):
-    """One stage of the radix-2 DIT ladder along the last axis of ``x``.
+    """One stage of the radix-2 DIT ladder along the last axis of ``x``:
+    ``butterfly_stages`` at one stage.
 
     ``x`` is (K, ..., n); ``tw`` is the (K, n/2) table of w_n^0..w_n^(n/2-1).
     Within every group of ``2 * half`` elements, element j of the low half
     and element j of the high half become (e + w*o, e - w*o) with
     w = w_n^(j * n / (2 * half)).  Returns a new tensor of ``x``'s shape.
-    Fr only: the NTT runs over no other field.
     """
-    K = spec.num_limbs
-    if K != 16:
+    if spec.num_limbs != 16:
         raise ValueError("butterfly_stage: the kernel is built for Fr only")
-    check_limbs(x, K, "butterfly_stage: x")
-    check_limbs(tw, K, "butterfly_stage: tw")
-    if x.device != tw.device:
-        raise ValueError(f"butterfly_stage: devices differ ({x.device}, {tw.device})")
     n = x.shape[-1] if x.dim() > 1 else 0
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"butterfly_stage: the last axis must be a power of "
-                         f"two >= 2, got shape {tuple(x.shape)}")
-    if tuple(tw.shape) != (K, n // 2):
+    if n >= 2 and not n & (n - 1) and tuple(tw.shape) != (spec.num_limbs, n // 2):
         raise ValueError(f"butterfly_stage: expected twiddles of shape "
-                         f"({K}, {n // 2}), got {tuple(tw.shape)}")
-    if half < 1 or half & (half - 1) or 2 * half > n:
-        raise ValueError(f"butterfly_stage: half = {half} is no power of two "
-                         f"in [1, {n // 2}]")
-    if not x.is_cuda:
-        return butterfly_stage_plain(spec, x, tw, half)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = _lib().fr_butterfly_stage(
-            x.data_ptr(), tw.data_ptr(), out.data_ptr(), x.numel() // (K * n),
-            n, half, stream_ptr(x.device))
-    check_launch(code, "fr_butterfly_stage")
-    LAUNCHES["butterfly_fr"] += 1
-    return out
+                         f"({spec.num_limbs}, {n // 2}), got {tuple(tw.shape)}")
+    return butterfly_stages(spec, x, tw, half, 1)
 
 
 def batch_inverse(spec: FieldSpec, x, lanes: int):

@@ -1,11 +1,17 @@
 """Radix-2 Cooley-Tukey NTT over Fr (Montgomery domain), batched.
 
 Counterpart of the JAX package's ``ntt/ntt.py``.  The ladder is log2(n)
-butterfly stages over a (K, ..., n) limbs-first tensor; on the card each stage
-is one launch of the ``butterfly_stage`` kernel on the array where it lies
-(``fields/cuda_ops.py``), on the CPU the stage as the JAX package writes it.
-Large natural-order transforms on the card take the four-step of
-``ntt/cuda_ntt.py`` instead: two passes of the fused tile kernel.
+butterfly stages over a (K, ..., n) limbs-first tensor.  On the CPU each stage
+runs as the JAX package writes it.  On the card the first c stages never
+leave aligned runs of 2^c elements, so they are one launch of the NTT tile
+kernel on rows of 2^c (``ntt/cuda_ntt.py``; for natural input the tile reads
+the bit-reversed rows where they lie, as columns of x, so the ordering's bit
+reversal takes no pass), and the stages above c run a few at a time in one
+or two launches of the ``butterfly_stages`` kernel (``fields/cuda_ops.py``);
+``ladder_tile_log`` says which route a tensor takes.  The four-step of
+``ntt/cuda_ntt.py`` (two passes of the tile kernel) is there when asked for;
+``auto`` takes the ladder on the card up to 2^24, the largest size measured,
+where it was the faster on an H100 (``_FOURSTEP_AUTO_MIN``).
 
 Orderings NN/NR/RN/RR are explicit bit-reverse permutations around one DIT
 core.  Data is Montgomery-form Fr and must be canonical (< r).
@@ -27,26 +33,91 @@ class Ordering(enum.Enum):
     RR = "RR"  # bit-reversed in, bit-reversed out
 
 
-def _butterflies(x, tw, log_n: int):
-    """DIT butterfly ladder: expects bit-reversed input, yields natural output.
+# log2 of the ladder's tile rows on the card: rows of 2^11 run four values a
+# thread, rows of 2^12 (the tile's cap) eight (csrc/ntt.cuh); chip_smoke.py's
+# ntt_ladder_split line times the 2^22 ladder with each.
+LADDER_TILE_LOG = 11
 
-    x: (K, ..., n); tw: (K, n/2) Montgomery twiddles w^0..w^(n/2-1).
+
+def ladder_tile_log(x):
+    """log2 of the rows that the ladder's first stages take as one tile launch
+    on ``x``'s device: the card's (at most ``LADDER_TILE_LOG``); None on the
+    CPU, where every stage runs as the JAX package's.  A CPU test
+    monkeypatches it to drive the card's split through the plain versions."""
+    if not x.is_cuda:
+        return None
+    from .cuda_ntt import _cap_log
+
+    return min(_cap_log(x.device), LADDER_TILE_LOG)
+
+
+def ladder_split(log_n: int, c: int):
+    """The card's ladder for size 2^log_n: the tile's rows (2^c', c' =
+    min(log_n, c)), then the (log2 half, count) of each butterfly_stages
+    launch, the stages above c' cut into as few launches of at most
+    ``cuda_ops.MAX_STAGES`` as can be, as even as can be."""
+    c = min(log_n, c)
+    rest = log_n - c
+    launches = -(-rest // cuda_ops.MAX_STAGES)
+    out, s = [], c
+    for i in range(launches):
+        count = (rest + launches - 1 - i) // launches
+        out.append((s, count))
+        s += count
+    return c, out
+
+
+def _stage_table(tw, log_n: int, log_s: int):
+    """The size-2^log_s domain's twiddles, from the size-2^log_n table: every
+    2^(log_n - log_s)-th entry (``get_domain(log_s)``'s, since the roots
+    square down)."""
+    if log_s == log_n:
+        return tw
+    return tw[:, ::1 << (log_n - log_s)][:, :1 << (log_s - 1)].contiguous()
+
+
+def _butterflies(x, tw, log_n: int, scale=None, natural_in=False):
+    """DIT butterfly ladder: expects bit-reversed input (natural input with
+    ``natural_in``: the ladder bit-reverses it first), yields natural output,
+    times ``scale`` (None or one (K,) element) where given.
+
+    x: (K, ..., n); tw: (K, n/2) Montgomery twiddles w^0..w^(n/2-1).  On the
+    card the tile takes the first c stages on rows of 2^c: with
+    ``natural_in``, row j of the bit-reversed array is column brev(j) of x
+    seen as (2^c, 2^(log_n - c)), which the tile reads where it lies.
     """
-    x = x.contiguous()
-    for s in range(1, log_n + 1):
-        x = cuda_ops.butterfly_stage(FR, x, tw, 1 << (s - 1))
+    c = ladder_tile_log(x) if log_n > 0 else None
+    if c is None:
+        x = bit_reverse(x, axis=-1) if natural_in else x.contiguous()
+        for s in range(1, log_n + 1):
+            x = cuda_ops.butterfly_stage(FR, x, tw, 1 << (s - 1))
+        if scale is not None:
+            x = fast.mont_mul(FR, x, scale.reshape((FR.num_limbs,) + (1,) * (x.dim() - 1)))
+        return x
+    c, launches = ladder_split(log_n, c)
+    from .cuda_ntt import ntt_tile, ntt_tile_columns
+
+    shape, K = x.shape, FR.num_limbs
+    tile_scale = scale if not launches else None
+    if natural_in:
+        x = ntt_tile_columns(x.reshape(K, -1, 1 << c, 1 << (log_n - c)).contiguous(),
+                             _stage_table(tw, log_n, c), scale=tile_scale, brev_cols=True)
+    else:
+        x = ntt_tile(x.reshape(K, -1, 1 << c).contiguous(), _stage_table(tw, log_n, c),
+                     scale=tile_scale)
+    x = x.reshape(shape)
+    for i, (log_h, count) in enumerate(launches):
+        last = i == len(launches) - 1
+        x = cuda_ops.butterfly_stages(FR, x, _stage_table(tw, log_n, log_h + count),
+                                      1 << log_h, count, scale=scale if last else None)
     return x
 
 
 def _ntt_core(x, log_n: int, inverse: bool, ordering: Ordering, tw, n_inv):
-    if ordering in (Ordering.NN, Ordering.NR):
-        x = bit_reverse(x, axis=-1)
-    x = _butterflies(x, tw, log_n)
+    x = _butterflies(x, tw, log_n, n_inv if inverse else None,
+                     natural_in=ordering in (Ordering.NN, Ordering.NR))
     if ordering in (Ordering.NR, Ordering.RR):
         x = bit_reverse(x, axis=-1)
-    if inverse:
-        s = n_inv.reshape((FR.num_limbs,) + (1,) * (x.dim() - 1))
-        x = fast.mont_mul(FR, x, s)
     return x
 
 
@@ -63,9 +134,13 @@ def _resolve(x, domain):
 
 
 # Auto algorithm selection: from this size on the card takes the four-step.
-# The value is the JAX package's, found on a TPU; it is not measured on this
-# card (PERF.md says where chip_smoke.py found the two algorithms to cross).
-_FOURSTEP_AUTO_MIN = 1 << 16
+# Set from chip_smoke.py's ntt_crossover line on an H100 (PERF.md, PR 11):
+# the ladder (one tile launch, then butterfly_stages) won at 2^10, 2^12 and
+# from 2^20 to 2^24 in every turn, and the two were within 10% at 2^14 and
+# 2^16, so no size from which on the four-step wins exists there, and it is
+# kept only above the sizes measured.  The JAX package's value, found on a
+# TPU, is 2^16.
+_FOURSTEP_AUTO_MIN = 1 << 25
 
 
 def _route_fourstep(x, ordering: Ordering) -> bool:
