@@ -12,7 +12,8 @@ tile; the doubling chains ``pdbl``
 and ``pdbl2`` at every count a path gives them, ``madd`` with P == A planted
 in one lane, in a whole warp and in the last lane of a partial last warp,
 ``jadd`` with P == Q the same way, the batch inversion's three kernels at 2^16
-with zeros planted), sweeps the chains
+with zeros planted, the elementwise product with a (K, 1) column and on its
+one-lane path: n % 4 != 0 and a plane 4 bytes past a 16-byte boundary), sweeps the chains
 at the paths' widths (``chain_sweep``: one doubling on 2^20 lanes, G1 and G2,
 ``madd`` on 2^20 lanes against its build with the doubling in every lane,
 ``jac_ladder`` against its build that reads x and y again at each add,
@@ -20,7 +21,10 @@ at the paths' widths (``chain_sweep``: one doubling on 2^20 lanes, G1 and G2,
 columns), runs the golden n = 4096 G1
 MSM vector with GLV off and on, and drives the ported paths once each at
 full width: ``msm_g1`` on 2^20 points, checked against one host scalar
-multiplication, its tail's launches against the plan, then the tail's lane
+multiplication, its tail's launches against the plan, its result's affine
+conversion (``to_affine`` lines: ``MsmContext.to_affine`` with its one
+``field_inv`` launch, and on the launch-a-step route of the Fermat ladder,
+equal and the oracle's; likewise the batch of 4's results and ``msm_g2``'s), then the tail's lane
 scan (``padd_scan``) at its shapes and the ``tile_sweep`` (the scan kernel
 over three tiles of one window's adds, ``padd`` at two widths); the cached-bases path a prover calls (``g1_context()``:
 ``upload_bases`` with precompute factor 2, ``msm_with_bases``, ``msm_batch``,
@@ -476,12 +480,16 @@ def main() -> int:
             mod.reset_launches()
 
     def counts():
-        """Launches by kernel since the counts were set to 0, and
-        ``pdbl_doublings`` / ``pdbl2_doublings``, the doublings of those
-        ``pdbl`` / ``pdbl2`` launches."""
+        """Launches by kernel since the counts were set to 0,
+        ``mont_mul_col_fr`` / ``mont_mul_col_fq``, those of ``mont_mul`` with
+        a (K, 1) column, and ``pdbl_doublings`` / ``pdbl2_doublings``, the
+        doublings of those ``pdbl`` / ``pdbl2`` launches."""
         out = {}
         for mod in modules:
             out.update(mod.LAUNCHES)
+        for f in ("fr", "fq"):
+            out[f"mont_mul_col_{f}"] = sum(k for (f_, _), k in cuda_ops.COLUMN_LAUNCHES.items()
+                                           if f_ == f)
         out["pdbl_doublings"] = sum(t * k for t, k in cuda_g1.CHAIN_LAUNCHES.items())
         out["pdbl2_doublings"] = sum(t * k for t, k in cuda_g2.CHAIN_LAUNCHES.items())
         return out
@@ -602,15 +610,41 @@ def main() -> int:
               lambda: cuda_ops.mont_mul(spec, a, b),
               lambda: cuda_ops.mont_mul_plain(spec, a, b),
               lambda: cuda_ops.LAUNCHES[f"mont_mul_{sfx}"])
-        check(f"mont_sqr_{sfx}", "mont_sqr_kernel", N,
+        check(f"mont_sqr_{sfx}", "mont_mul_kernel", N,
               [cuda_ops.mont_sqr(spec, a)], [cuda_ops.mont_sqr_plain(spec, a)],
               lambda: cuda_ops.mont_sqr(spec, a),
               lambda: cuda_ops.mont_sqr_plain(spec, a),
               lambda: cuda_ops.LAUNCHES[f"mont_sqr_{sfx}"])
-        # from_mont is the product with 1 through the same kernel
+        # from_mont is the product with a (K, 1) column of 1 through the same
+        # kernel; a column in general; the one-lane path where n % 4 != 0
+        # (N - 3 lanes) and where a plane starts 4 bytes past a 16-byte
+        # boundary (every operand form on both)
         fm = fast.from_mont(spec, a)
         if not torch.equal(fm, ops.from_mont(spec, a)):
             raise AssertionError(f"from_mont {sfx}: kernel and plain differ")
+        col = rand_field(spec, 5)[:, 4:5].contiguous()
+        check(f"mont_mul_{sfx}[column]", "mont_mul_kernel", N,
+              [cuda_ops.mont_mul(spec, a, col)], [cuda_ops.mont_mul_plain(spec, a, col)],
+              lambda: cuda_ops.mont_mul(spec, a, col),
+              lambda: cuda_ops.mont_mul_plain(spec, a, col),
+              lambda: cuda_ops.COLUMN_LAUNCHES.get((sfx, N), 0))
+        three = lambda x_, y_: (cuda_ops.mont_mul(spec, x_, y_), cuda_ops.mont_mul(spec, x_, col),
+                                cuda_ops.mont_sqr(spec, x_))
+        three_plain = lambda x_, y_: (cuda_ops.mont_mul_plain(spec, x_, y_),
+                                      cuda_ops.mont_mul_plain(spec, x_, col),
+                                      cuda_ops.mont_sqr_plain(spec, x_))
+        a3, b3 = a[:, :N - 3].contiguous(), b[:, :N - 3].contiguous()
+        flat = torch.zeros(spec.num_limbs * N + 4, dtype=torch.int32, device=dev)
+        am = flat[1:1 + spec.num_limbs * N].view(spec.num_limbs, N)
+        am.copy_(a)
+        if am.data_ptr() % 16 != 4:
+            raise AssertionError("kernels: the misaligned copy is not 4 bytes off")
+        for what, x_, y_ in (("n % 4 != 0", a3, b3), ("misaligned", am, b)):
+            check(f"mont_mul_{sfx}[one lane a thread: {what}]", "mont_", x_.shape[1],
+                  three(x_, y_), three_plain(x_, y_), lambda: three(x_, y_),
+                  lambda: three_plain(x_, y_),
+                  lambda: cuda_ops.LAUNCHES[f"mont_mul_{sfx}"])
+        del a3, b3, am, flat
         # add, sub: lanes 0..2 hold 0, 1, p-1 against random values, the
         # last three lanes the same the other way round; lane 3 is
         # (p-1) + (p-1) (a sum >= p), lane 4 is 0 - 1 (a < b).
@@ -1212,6 +1246,7 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = counts()
+    columns = dict(cuda_ops.COLUMN_LAUNCHES)     # (field, lanes) -> launches
     scans = scan_counts()
     chains = chain_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1231,6 +1266,7 @@ def main() -> int:
           "seconds_each": secs, "seconds_first_call": first_s,
           **{k: geo[k] for k in ("glv", "w", "T", "L", "R", "nb", "tail_launches")},
           "launches": launches, "pdbl_launches_by_doublings": chains,
+          "mont_mul_column_launches_by_lanes": {f"{f} {l}": k for (f, l), k in columns.items()},
           "peak_bytes_allocated": peak,
           "stages_ms": {k: round(v, 3) for k, v in stages.items()},
           "host_points_seconds": round(host_points_s, 2), "card": smi})
@@ -1271,7 +1307,7 @@ def main() -> int:
               "kernel_launches_traced": sum(r[2] for r in by_kernel),
               "top_device_ms": [[k[:48], round(ms, 3), c]
                                 for k, ms, c in by_kernel[:10]]})
-    del s_std, Pj
+    del s_std
     torch.cuda.empty_cache()
 
     # ------------------------------------- kernels at the main path's shapes
@@ -1385,29 +1421,119 @@ def main() -> int:
                    call_s=seconds_median(lambda: vecops.batch_inverse(spec, x_)),
                    call_s_launch_a_step=seconds_median(pr6),
                    launches_launch_a_step=pr6_launches)
+    # The elementwise product at the MSM's width: Fr planes (no driven path
+    # multiplies two (16, 2^20) planes since msm_g1's from_mont takes a
+    # column: the row keeps the kernel's time at that shape); then the
+    # product with one (K, 1) column, which msm_g1 launches once each:
+    # from_mont's 1 on the Fr scalars, GLV's beta on the Fq x coordinates.
+    # Such a call moves two planes and the column.
+    MUL_TPU = "tpu_bls12_381/fields/pallas_ops.py:381"
     a16, b16 = rand_field(FR, n), rand_field(FR, n).flip(1).contiguous()
-    kernel_row("mont_mul_fr", "mont_mul_kernel", FIELD_SRC,
-               "tpu_bls12_381/fields/pallas_ops.py:381",
+    kernel_row("mont_mul_fr", "mont_mul_kernel", FIELD_SRC, MUL_TPU,
                [16, n], lambda: cuda_ops.mont_mul(FR, a16, b16),
                lambda: cuda_ops.mont_mul_plain(FR, a16, b16),
-               3 * 16 * n, 0, n * mul_mads(W_FR), 10,
-               path="msm_2e20: msm_g1")
-    del a16, b16
-    a24, b24 = rand_field(FQ, n), rand_field(FQ, n).flip(1).contiguous()
-    kernel_row("mont_mul_fq", "mont_mul_kernel", FIELD_SRC,
-               "tpu_bls12_381/fields/pallas_ops.py:381",
-               [24, n], lambda: cuda_ops.mont_mul(FQ, a24, b24),
-               lambda: cuda_ops.mont_mul_plain(FQ, a24, b24),
-               3 * 24 * n, 0, n * mul_mads(W_FQ), 10,
-               path="msm_2e20: msm_g1")
-    del a24, b24
+               3 * 16 * n, 0, n * mul_mads(W_FR), 10, n_launches=0,
+               path="kernels: two Fr planes at the MSM's width (msm_g1's from_mont: "
+                    "the column row)")
+    del b16
+    one16 = ops.constant_column(FR, int_to_limbs(1, 16), dev)
+    kernel_row("mont_mul_fr[from_mont]", "mont_mul_kernel", FIELD_SRC, MUL_TPU,
+               [16, n], lambda: cuda_ops.mont_mul(FR, a16, one16),
+               lambda: cuda_ops.mont_mul_plain(FR, a16, one16),
+               2 * 16 * n + 16, 0, n * mul_mads(W_FR), 10,
+               n_launches=columns.get(("fr", n), 0),
+               path="msm_2e20: msm_g1 (fast.from_mont)", column=[16, 1])
+    del a16
+    x24 = rand_field(FQ, n)
+    beta_col = ops.constant_column(
+        FQ, int_to_limbs(FQ.to_mont(glv_mod.beta()), 24), dev)
+    kernel_row("mont_mul_fq[glv]", "mont_mul_kernel", FIELD_SRC, MUL_TPU,
+               [24, n], lambda: cuda_ops.mont_mul(FQ, x24, beta_col),
+               lambda: cuda_ops.mont_mul_plain(FQ, x24, beta_col),
+               2 * 24 * n + 24, 0, n * mul_mads(W_FQ), 10,
+               n_launches=columns.get(("fq", n), 0),
+               path="msm_2e20: msm_g1 (glv.endomorphism)", column=[24, 1])
+    del x24
     z1 = rand_field(FQ, 4)[:, 3:4].contiguous()
-    kernel_row("mont_sqr_fq", "mont_sqr_kernel", FIELD_SRC,
+    kernel_row("mont_sqr_fq", "mont_mul_kernel", FIELD_SRC,
                "tpu_bls12_381/fields/pallas_ops.py:391",
                [24, 1], lambda: cuda_ops.mont_sqr(FQ, z1),
                lambda: cuda_ops.mont_sqr_plain(FQ, z1),
                2 * 24, 0, sqr_mads(W_FQ), 50,
                path="msm_2e20: msm_g1")
+
+    # The affine conversion of a result (MsmContext.to_affine): its one
+    # inversion is one field_inv launch, where the launch-a-step route (the
+    # Fermat ladder, a mont_sqr, and a mont_mul where the bit is set, a
+    # launch each for the bits of p - 2) makes 610.
+    INV_TPU = ("tpu_bls12_381/fields/pallas_ops.py:381 and :391 (as fields/ops.py "
+               "inv_mont chains them)")
+    kernel_inv = fast.inv_mont
+
+    def inv_launch_a_step(spec, a):
+        return ops.pow_const(spec, a, spec.modulus - 2, mul=fast.mont_mul, sqr=fast.mont_sqr)
+
+    def fermat_mads(spec, lanes):
+        """Multiply-adds of csrc's fp_inv_fermat on ``lanes`` lanes: the table's
+        14 products, then 4 squares a 4-bit digit of p - 2 below the top one
+        and a product for each such digit that is not 0."""
+        digits = [((spec.modulus - 2) >> (4 * i)) & 15 for i in range(4 * spec.num_limbs)]
+        squares, products = 4 * (len(digits) - 1), 14 + sum(1 for d in digits[:-1] if d)
+        w_ = spec.num_limbs // 2
+        return lanes * (squares * sqr_mads(w_) + products * mul_mads(w_))
+
+    def to_affine_case(what, ctx_, P_, want, curve_mod, max_mul):
+        """``ctx_.to_affine(P_)`` on the kernel route and on the launch-a-step
+        route (``fast.inv_mont`` the ladder on the field kernels): median
+        seconds, launches, the two equal (``torch.equal``) and the ints the
+        oracle's.  Fails unless ``field_inv_fq`` launched once, with at most
+        one ``mont_sqr_fq`` and ``max_mul`` ``mont_mul_fq`` launches, which
+        are ``jac_to_affine``'s own."""
+        reset_counts()
+        got_k = ctx_.to_affine(P_)
+        torch.cuda.synchronize()
+        launches_k = {k: v for k, v in counts().items() if v}
+        s_k = seconds_median(lambda: ctx_.to_affine(P_))
+        fast.inv_mont = inv_launch_a_step
+        try:
+            reset_counts()
+            got_s = ctx_.to_affine(P_)
+            torch.cuda.synchronize()
+            launches_s = {k: v for k, v in counts().items() if v}
+            s_s = seconds_median(lambda: ctx_.to_affine(P_))
+        finally:
+            fast.inv_mont = kernel_inv
+        same = all(torch.equal(x_, y_) for x_, y_ in zip(got_k, got_s))
+        oracle_ok = curve_mod.affine_to_ints(got_k) == want
+        launch_ok = (launches_k.get("field_inv_fq") == 1
+                     and launches_k.get("mont_sqr_fq", 0) <= 1
+                     and launches_k.get("mont_mul_fq", 0) <= max_mul)
+        emit({"phase": "to_affine", "what": what, "lanes": int(P_[0].shape[-1]),
+              "equal_routes": same, "equal_oracle": oracle_ok,
+              "seconds": s_k, "seconds_launch_a_step": s_s,
+              "launches": launches_k, "launches_launch_a_step": launches_s, "card": smi})
+        if not (same and oracle_ok and launch_ok):
+            raise AssertionError(f"to_affine of {what}: routes equal {same}, the oracle's "
+                                 f"{oracle_ok}, launches {launches_k} (field_inv_fq once, "
+                                 f"mont_sqr_fq <= 1, mont_mul_fq <= {max_mul})")
+        return launches_k
+
+    conv1 = to_affine_case("msm_2e20: the single shot's result", g1_context(),
+                           tuple(c[:, None] for c in Pj), [expected], g1, 3)
+    del Pj
+    kernel_row("field_inv_fq[to_affine]", "field_inv_kernel", FIELD_SRC, INV_TPU,
+               [24, 1], lambda: cuda_ops.field_inv(FQ, z1),
+               lambda: cuda_ops.field_inv_plain(FQ, z1),
+               2 * 24, 0, fermat_mads(FQ, 1), 20, n_launches=conv1["field_inv_fq"],
+               path="msm_2e20: MsmContext.to_affine of msm_g1's result")
+    x4096 = rand_field(FR, 4096)
+    kernel_row("field_inv_fr", "field_inv_kernel", FIELD_SRC, INV_TPU,
+               [16, 4096], lambda: cuda_ops.field_inv(FR, x4096),
+               lambda: cuda_ops.field_inv_plain(FR, x4096),
+               2 * 16 * 4096, 0, fermat_mads(FR, 4096), 10, n_launches=0,
+               path="kernels: Fr on 4096 lanes, 0, 1 and r - 1 among them (no driven "
+                    "path inverts Fr on fewer than 4096 lanes)")
+    del x4096
 
     # The scan at its (R, L) tile: one launch walks the R rows of every lane.
     # The plain version needs R dependent plain adds.
@@ -1749,6 +1875,11 @@ def main() -> int:
     scans_b4 = scan_counts()
     chains_b4 = chain_counts()
     ok_b = [g1_ints(P_) for P_ in batch4] == singles4 and singles4[0] == expected
+    # the batch's 4 results converted together (4 lanes): set 0 against the
+    # oracle's point, the others against their single calls
+    conv4 = to_affine_case("msm_ctx_2e20: the batch of 4's results", ctx1,
+                           tuple(torch.stack([P_[c] for P_ in batch4], dim=-1)
+                                 for c in range(3)), singles4, g1, 3)
     del batch4, sets4
 
     # One MSM under a budget that forces 4 pieces.
@@ -1855,7 +1986,22 @@ def main() -> int:
     xu = rand_field(FQ, nup)
     binv_row("batch_inverse[upload]", FQ, xu, launches_up["batch_inverse_fq"],
              "msm_ctx_2e20: upload_bases")
-    del xu
+    # the upload's affine products, on two Fq planes
+    yu = rand_field(FQ, nup).flip(1).contiguous()
+    kernel_row("mont_mul_fq", "mont_mul_kernel", FIELD_SRC, MUL_TPU,
+               [24, nup], lambda: cuda_ops.mont_mul(FQ, xu, yu),
+               lambda: cuda_ops.mont_mul_plain(FQ, xu, yu),
+               3 * 24 * nup, 0, nup * mul_mads(W_FQ), 10,
+               n_launches=launches_up["mont_mul_fq"] - launches_up["mont_mul_col_fq"],
+               path="msm_ctx_2e20: upload_bases (the affine products)")
+    del xu, yu
+    z4 = rand_field(FQ, 4)
+    kernel_row("field_inv_fq[to_affine batch4]", "field_inv_kernel", FIELD_SRC, INV_TPU,
+               [24, 4], lambda: cuda_ops.field_inv(FQ, z4),
+               lambda: cuda_ops.field_inv_plain(FQ, z4),
+               2 * 24 * 4, 0, fermat_mads(FQ, 4), 20, n_launches=conv4["field_inv_fq"],
+               path="msm_ctx_2e20: MsmContext.to_affine of msm_batch's 4 results "
+                    "(0, 1 and p - 1 among the row's lanes)")
     torch.cuda.empty_cache()
     if args.upto == "msm_ctx_2e20":
         return stop_early()
@@ -1902,6 +2048,10 @@ def main() -> int:
         if launches_g2[k] < 1:
             raise AssertionError(f"msm_g2_2e20: {k} never launched on the path")
     check_tail("msm_g2_2e20", launches_g2, geo2, chains_g2, kernel="pdbl2")
+    # Fq2: the norm's square and inverse, a product by it, then the Fq2
+    # square and three products: one Fq launch each
+    to_affine_case("msm_g2_2e20: msm_g2's result", g2_context(),
+                   tuple(c[..., None] for c in Pg2), [expected_g2], g2, 5)
     del Pg2
 
     # The same points as cached bases through g2_context(): factor 2 (no GLV
@@ -2537,6 +2687,11 @@ def main() -> int:
     del inv, prod, want
     binv_row("batch_inverse[vecops]", FR, xz, launches_inv_v["batch_inverse_fr"], "vecops")
     del xz
+    kernel_row("mont_mul_fr[vecops]", "mont_mul_kernel", FIELD_SRC, MUL_TPU, [16, n22],
+               lambda: cuda_ops.mont_mul(FR, x22, b22),
+               lambda: cuda_ops.mont_mul_plain(FR, x22, b22),
+               3 * 16 * n22, 0, n22 * mul_mads(W_FR), 10,
+               n_launches=launches_v["mont_mul_fr"], path="vecops: vector_mul")
     for op, symbol, line in (("add", "field_add_kernel", 401),
                              ("sub", "field_sub_kernel", 411)):
         kern, plain = getattr(cuda_ops, op), getattr(cuda_ops, f"{op}_plain")
@@ -2967,6 +3122,9 @@ def main() -> int:
     if not (launches_d16.get("pmadd_signed") and launches_d15.get("pmadd2")):
         raise AssertionError(f"entry: dispatch_msm ran no scan on the card: "
                              f"{launches_d16}, {launches_d15}")
+    if launches_d16.get("field_inv_fq") != 1 or launches_d15.get("field_inv_fq") != 1:
+        raise AssertionError(f"entry: dispatch_msm's affine result is not one field_inv "
+                             f"launch: {launches_d16}, {launches_d15}")
     del bases4, A, A_valid, on, sub, valid
     torch.cuda.empty_cache()
     # the MSM kernels at the factor-4 plan's shapes

@@ -330,12 +330,13 @@ def test_carry_chain_product_fr(lib):
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
 def test_fermat_inverse_host(lib, name):
-    """Phase 2's Fermat inverse (4-bit windows on the carry-chain product)
-    against the plain ``inv_mont`` on units."""
+    """Phase 2's Fermat inverse (4-bit windows on the carry-chain product,
+    the lane body of ``field_inv`` too) against the plain ``inv_mont`` on
+    units."""
     spec = SPECS[name][0]
     a = _elements(spec, 33, 40)[:, 1:].contiguous()
     out = torch.empty_like(a)
-    getattr(lib, f"{name}_inv_fermat")(_ptr(a), _ptr(out), SZ(a.shape[1]))
+    getattr(lib, f"{name}_field_inv")(_ptr(a), _ptr(out), SZ(a.shape[1]))
     assert torch.equal(out, ops.inv_mont(spec, a))
 
 

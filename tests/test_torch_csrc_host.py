@@ -28,7 +28,7 @@ from tpu_bls12_381_torch import oracle
 from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2, points as pt, projective as pj
 from tpu_bls12_381_torch.curves.field_adapters import FQ2_PLAIN, FQ_ADAPTER as F1, FQ_PLAIN
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
-from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
+from tpu_bls12_381_torch.fields.limbs import ints_to_limbs, limbs_to_ints
 from tpu_bls12_381_torch.ntt import cuda_ntt, get_domain
 from tpu_bls12_381_torch.vecops import bit_reverse
 
@@ -81,6 +81,86 @@ def test_mont_mul_and_sqr(lib, name):
     assert torch.equal(out, cuda_ops.mont_mul_plain(spec, a, a))
     getattr(lib, f"{name}_mont_sqr")(_ptr(a), _ptr(out), SZ(N))
     assert torch.equal(out, cuda_ops.mont_sqr_plain(spec, a))
+
+
+def _lanes(spec, n, seed):
+    """(K, n) canonical elements: 0, 1, p - 1 first, then random ones."""
+    rng = random.Random(seed)
+    p = spec.modulus
+    vals = ([0, 1, p - 1] + [rng.randrange(p) for _ in range(n)])[:n]
+    return torch.from_numpy(ints_to_limbs(vals, spec.num_limbs).astype(np.int32)).contiguous()
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
+    off = (-flat.data_ptr() // 4 + 1) % 4
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+MUL_PLANE, MUL_COLUMN, MUL_SQUARE = 0, 1, 2
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097])
+def test_elementwise_product_paths(lib, name, n):
+    """``field_kernels.cu``'s product and square (carry-chain product) on the
+    path the launcher takes and on each path forced (four lanes a thread,
+    16-byte accesses, only where n % 4 == 0; one lane a thread), with a plane,
+    a (K, 1) column and the square, against the plain versions.  The
+    launcher takes four lanes exactly for Fq where n % 4 == 0 and every
+    plane is 16-byte aligned."""
+    spec = {"fr": FR, "fq": FQ}[name]
+    K = spec.num_limbs
+    a = _lanes(spec, n, 41)
+    b = _lanes(spec, n, 42).flip(1).contiguous()
+    col = _lanes(spec, 5, 43)[:, 4:5].contiguous()
+    cases = {MUL_PLANE: (b, cuda_ops.mont_mul_plain(spec, a, b)),
+             MUL_COLUMN: (col, cuda_ops.mont_mul_plain(spec, a, col)),
+             MUL_SQUARE: (a, cuda_ops.mont_sqr_plain(spec, a))}
+    for mode, (y, want) in cases.items():
+        for path in (-1, 0, 1) if n % 4 == 0 else (-1, 0):
+            out = torch.full_like(a, -1)
+            lib.mont_mul_path(ctypes.c_int(K // 2), _ptr(a), _ptr(y), _ptr(out), SZ(n),
+                              ctypes.c_int(mode), ctypes.c_int(path))
+            assert torch.equal(out, want), (mode, path)
+        four = lib.mont_mul_four(ctypes.c_int(K // 2), SZ(n), ctypes.c_int(mode), _ptr(a),
+                                 _ptr(y), _ptr(out))
+        assert four == (name == "fq" and n % 4 == 0)
+        am, om = _misaligned(a), _misaligned(torch.full_like(a, -1))
+        assert lib.mont_mul_four(ctypes.c_int(K // 2), SZ(n), ctypes.c_int(mode), _ptr(am),
+                                 _ptr(y), _ptr(om)) == 0
+        lib.mont_mul_path(ctypes.c_int(K // 2), _ptr(am),
+                          _ptr(am if mode == MUL_SQUARE else y), _ptr(om), SZ(n),
+                          ctypes.c_int(mode), ctypes.c_int(-1))
+        assert torch.equal(om, want), mode
+    ym = _misaligned(b)                              # a plane's b alone misaligned
+    assert lib.mont_mul_four(ctypes.c_int(K // 2), SZ(n), ctypes.c_int(MUL_PLANE), _ptr(a),
+                             _ptr(ym), _ptr(out)) == 0
+    assert lib.mont_mul_four(ctypes.c_int(K // 2), SZ(n), ctypes.c_int(MUL_COLUMN), _ptr(a),
+                             _ptr(ym), _ptr(out)) == (name == "fq" and n % 4 == 0)
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_field_inv_lanes(lib, name):
+    """``field_inv``'s lane loop (the Fermat inverse in 4-bit windows on the
+    carry-chain product) against the plain ``inv_mont`` and against Python's
+    ``pow``: 0, 1, p - 1 and random lanes, inv(0) = 0."""
+    spec = {"fr": FR, "fq": FQ}[name]
+    p, R = spec.modulus, 1 << (16 * spec.num_limbs)
+    a = _lanes(spec, 9, 44)
+    out = torch.full_like(a, -1)
+    getattr(lib, f"{name}_field_inv")(_ptr(a), _ptr(out), SZ(9))
+    assert torch.equal(out, cuda_ops.field_inv_plain(spec, a))
+    # Montgomery form: the inverse of a R is a^-1 R = R^2 / (a R)
+    want = [0 if v == 0 else R * R * pow(v, p - 2, p) % p
+            for v in limbs_to_ints(a.numpy())]
+    assert limbs_to_ints(out.numpy()) == want
+    assert not out[:, 0].any()
 
 
 def test_fq_add_sub(lib):

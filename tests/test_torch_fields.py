@@ -173,6 +173,46 @@ def test_pow_const_and_inv_mont_match_jax(name):
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
+def test_field_inv_and_from_mont_column_match_jax(name):
+    """``cuda_ops.field_inv`` (on the CPU: its plain version) and
+    ``fast.from_mont`` (the product with a (K, 1) column of 1) equal the JAX
+    package's ``inv_mont`` and ``from_mont``; 0, 1 and p - 1 among the
+    lanes, inv(0) = 0."""
+    spec, jspec = SPECS[name]
+    a = _inputs(spec, 23)[:, :10]
+    ta = _t(a, spec)
+    inv = cuda_ops.field_inv(spec, ta)
+    np.testing.assert_array_equal(convert.to_numpy(inv),
+                                  np.asarray(jops.inv_mont(jspec, a)))
+    assert not inv[:, 0].any()
+    assert torch.equal(fast.inv_mont(spec, ta[:, 1:]), inv[:, 1:])  # a view laid out
+    a = _inputs(spec, 24)
+    np.testing.assert_array_equal(convert.to_numpy(fast.from_mont(spec, _t(a, spec))),
+                                  np.asarray(jops.from_mont(jspec, a)))
+
+
+@pytest.mark.parametrize("lanes,route", [(1, "field_inv"), (4095, "field_inv"),
+                                         (4096, "batch_inverse")])
+def test_fq_adapter_inv_routes_by_width(lanes, route, monkeypatch):
+    """``FqAdapter.inv`` below 4096 lanes is one ``cuda_ops.field_inv`` call
+    (one launch on the card: ``fast.inv_mont``), from 4096 lanes on one
+    ``vecops.batch_inverse`` call, as the JAX package's adapter switches.
+    Both wrappers are replaced by counting stubs, so the route is forced
+    without the card."""
+    from tpu_bls12_381_torch import vecops
+    from tpu_bls12_381_torch.curves.field_adapters import FQ_ADAPTER
+
+    calls = []
+    monkeypatch.setattr(cuda_ops, "field_inv",
+                        lambda spec, x: (calls.append(("field_inv", tuple(x.shape))), x)[1])
+    monkeypatch.setattr(vecops, "batch_inverse",
+                        lambda spec, x: (calls.append(("batch_inverse", tuple(x.shape))), x)[1])
+    x = ops.zeros(FQ, (lanes,), device="cpu")
+    assert FQ_ADAPTER.inv(x) is not None
+    assert calls == [(route, (24, lanes))]
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
 def test_predicates_and_select_match_jax(name):
     spec, jspec = SPECS[name]
     a = _inputs(spec, 6)
@@ -272,12 +312,15 @@ def test_cuda_header_constants(name):
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
-def test_wrappers_copy_nothing_and_fast_lays_out(name):
-    """The kernel wrappers raise on a view or on operands of two shapes;
-    ``fast`` broadcasts and lays out for them, with the same values."""
+def test_wrappers_copy_nothing_and_fast_lays_out(name, monkeypatch):
+    """The kernel wrappers raise on a view or on operands of two shapes (the
+    product takes a plane and a (K, 1) column besides); ``fast`` broadcasts
+    and lays out for them, with the same values, and hands a factor that is
+    one element to the product as that column, never as a plane."""
     spec = {"fr": FR, "fq": FQ}[name]
+    K = spec.num_limbs
     rng = np.random.default_rng(11)
-    a = torch.from_numpy(rng.integers(0, 1 << 16, size=(spec.num_limbs, 8),
+    a = torch.from_numpy(rng.integers(0, 1 << 16, size=(K, 8),
                                       dtype=np.int64).astype(np.int32))
     a[-1] = 0                                        # canonical: below p
     with pytest.raises(ValueError, match="contiguous"):
@@ -285,14 +328,29 @@ def test_wrappers_copy_nothing_and_fast_lays_out(name):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_ops.mont_sqr(spec, a[:, ::2])
     with pytest.raises(ValueError, match="shapes differ"):
-        cuda_ops.mont_mul(spec, a, a[:, :1].contiguous())
+        cuda_ops.mont_mul(spec, a, a[:, :2].contiguous())
+    col = a[:, :1].contiguous()
+    assert torch.equal(cuda_ops.mont_mul(spec, a, col), ops.mont_mul(spec, a, col))
+    seen = []
+    kernel = cuda_ops.mont_mul
+    monkeypatch.setattr(cuda_ops, "mont_mul", lambda s_, x, y: (
+        seen.append((tuple(x.shape), tuple(y.shape))), kernel(s_, x, y))[1])
     want = ops.mont_mul(spec, a[:, ::2], a[:, :1])
-    assert want.shape == (spec.num_limbs, 4)
+    assert want.shape == (K, 4)
     assert torch.equal(fast.mont_mul(spec, a[:, ::2], a[:, :1]), want)
+    assert torch.equal(fast.mont_mul(spec, a[:, :1], a[:, ::2]), want)
+    a3 = a.reshape(K, 2, 4)
+    assert torch.equal(fast.mont_mul(spec, a3, a[:, :1, None]),
+                       ops.mont_mul(spec, a3, a[:, :1, None]))
+    assert torch.equal(fast.mont_mul(spec, a3[:, :, :1], a3),
+                       ops.mont_mul(spec, a3[:, :, :1], a3))
+    assert seen == [((K, 4), (K, 1)), ((K, 4), (K, 1)), ((K, 2, 4), (K, 1)),
+                    ((K, 2, 4), (K, 2, 4))]
+    seen.clear()
+    assert torch.equal(fast.from_mont(spec, a[:, ::2]), ops.from_mont(spec, a[:, ::2]))
+    assert seen == [((K, 4), (K, 1))]
     assert torch.equal(fast.mont_sqr(spec, a[:, ::2]),
                        ops.mont_sqr(spec, a[:, ::2]))
-    assert torch.equal(fast.from_mont(spec, a[:, ::2]),
-                       ops.from_mont(spec, a[:, ::2]))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -301,13 +359,42 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         cuda_ops.mont_mul(FQ, a.to(torch.int64), a)
     with pytest.raises(ValueError):
         cuda_ops.mont_mul(FQ, a[:16], a)
+    with pytest.raises(ValueError, match="expected shape"):  # a column of Fr's height
+        cuda_ops.mont_mul(FQ, a, ops.zeros(FR, (1,), device="cpu"))
+    with pytest.raises(ValueError, match="shapes differ"):   # (K, 2): no column
+        cuda_ops.mont_mul(FQ, a, ops.zeros(FQ, (2,), device="cpu"))
     with pytest.raises(TypeError):
         cuda_ops.mont_sqr(FQ, a.numpy())
+    with pytest.raises(ValueError, match="expected shape"):
+        cuda_ops.field_inv(FQ, a[:16])
     with pytest.raises(ValueError):
         convert.scalars_from_numpy(np.zeros((24, 4), np.uint32), device="cpu")
     with pytest.raises(ValueError):
         convert.scalars_from_numpy(np.full((16, 4), 1 << 16, np.uint32),
                                    device="cpu")
+
+
+@pytest.mark.parametrize("build", ["one lane a thread for Fq too",
+                                   "four lanes a thread for Fr too",
+                                   "streaming loads and stores",
+                                   "a grid of the SMs' resident blocks"])
+def test_field_sweep_builds_change_statements_the_sources_hold(build):
+    """Each build that fields/sweeps.py times against the kept one replaces
+    statements that stand once in the sources."""
+    from tpu_bls12_381_torch import _build
+    from tpu_bls12_381_torch.fields import sweeps
+
+    for file_, old, new in sweeps.BUILDS[build]:
+        assert (_build.CSRC_DIR / file_).read_text().count(old) == 1, (file_, old)
+        assert old != new
+
+
+def test_field_sweeps_need_the_card(monkeypatch):
+    from tpu_bls12_381_torch.fields import sweeps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["sweeps"])
+    assert sweeps.main() == 1
 
 
 def test_convert_round_trip():

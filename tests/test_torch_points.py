@@ -380,6 +380,27 @@ def test_sum_reduce_of_seven_matches_jax_and_the_oracle(name):
     assert got == [oracle.jac_to_affine(acc, ops_)]
 
 
+def test_jac_to_affine_and_jacobian_to_ints_match_jax(curve, monkeypatch):
+    """The affine conversion behind ``MsmContext.to_affine`` and
+    ``jacobian_to_ints`` equals the JAX package's ``points.jac_to_affine``
+    limb for limb (identity lanes and points with Z != 1 among the lanes),
+    and its ints equal the JAX package's ``jacobian_to_ints``.  Its one
+    inversion is one ``cuda_ops.field_inv`` call (a launch on the card),
+    for G2 on the Fq2 norm."""
+    from tpu_bls12_381_torch.fields import cuda_ops
+
+    F, (P, Q, _) = curve
+    cm, _, _, jcm, JFa = _curve(F)
+    calls = []
+    inv = cuda_ops.field_inv
+    monkeypatch.setattr(cuda_ops, "field_inv",
+                        lambda spec, a: (calls.append(tuple(a.shape)), inv(spec, a))[1])
+    _assert_limbs_equal(pt.jac_to_affine(F, P), jpt.jac_to_affine(JFa, _to_jax(P, F)), F)
+    assert calls == [(24, N)]
+    assert cm.jacobian_to_ints(Q) == jcm.jacobian_to_ints(_to_jax(Q, F))
+    assert len(calls) == 2
+
+
 def test_jacobian_converters_carry_jax_points_across():
     P, _, A = _cases(F1, 3)
     back = convert.point_from_numpy(convert.point_to_numpy(P), device="cpu")

@@ -13,8 +13,9 @@
 //           products commute, so any partition gives the same inverses),
 //           writing the run's inclusive prefixes to `colinv`; the block
 //           scans the run products from both ends, one thread takes the
-//           single Fermat inverse of the total, and thread t walks its run
-//           backward, writing 1/col[l] to `colinv`;
+//           single Fermat inverse of the total (field_carry.cuh's
+//           fp_inv_fermat), and thread t walks its run backward, writing
+//           1/col[l] to `colinv`;
 //  phase 3  thread l walks its column up from 1/col[l]: the inverse of row
 //           r is (1 / prefix r) * prefix (r - 1), and 1 / prefix (r - 1) is
 //           (1 / prefix r) * x_r.
@@ -32,35 +33,6 @@ DEV El<F> binv_unit(const uint32_t* x, size_t n, size_t i) {
     if (i >= n) return fp_one<F>();
     El<F> v = fp_load<F>(x, n, i);
     return fp_cmov<F>(fp_is_zero<F>(v), fp_one<F>(), v);
-}
-
-// Word j of the exponent p - 2 of the Fermat inverse.
-template <class F>
-DEV constexpr uint32_t binv_exp_word(int j) {
-    return j == 0 ? cc_p_word<F>(0) - 2u
-         : j == 1 ? cc_p_word<F>(1) - (cc_p_word<F>(0) < 2u ? 1u : 0u)
-         : cc_p_word<F>(j);
-}
-
-// a^(p-2) = 1/a for a unit a: left to right in 4-bit windows from a table
-// of a^0 .. a^15 (about 380 squares and 95 products for Fq, 254 and 64 for
-// Fr).  One thread runs it; the table lies in local memory.
-template <class F>
-DEV El<F> fp_inv_fermat(const El<F>& a) {
-    El<F> tab[16];
-    tab[0] = fp_one<F>();
-    tab[1] = a;
-    for (int k = 2; k < 16; ++k) tab[k] = fp_mul_cc<F>(tab[k - 1], a);
-    const int top = 8 * F::W - 1;                  // the highest 4-bit digit
-    El<F> r = tab[(binv_exp_word<F>(top >> 3) >> ((top & 7) * 4)) & 15u];
-    ROLLED
-    for (int i = top - 1; i >= 0; --i) {
-        UNROLL
-        for (int s = 0; s < 4; ++s) r = fp_mul_cc<F>(r, r);
-        uint32_t d = (binv_exp_word<F>(i >> 3) >> ((i & 7) * 4)) & 15u;
-        if (d) r = fp_mul_cc<F>(r, tab[d]);
-    }
-    return r;
 }
 
 // Phase 1, column l.

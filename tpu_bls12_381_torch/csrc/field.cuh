@@ -306,19 +306,9 @@ DEV El<F> fp_sqr(const El<F>& a) {
 }
 
 // ---------------------------------------------------------------------------
-// Lane bodies: what one thread does (see g1.cuh).
+// Lane bodies: what one thread does (see g1.cuh; the product's and the
+// square's are field_carry.cuh's).
 // ---------------------------------------------------------------------------
-
-template <class F>
-DEV void mont_mul_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                       size_t n, size_t idx) {
-    fp_store<F>(out, n, idx, fp_mul<F>(fp_load<F>(a, n, idx), fp_load<F>(b, n, idx)));
-}
-
-template <class F>
-DEV void mont_sqr_lane(const uint32_t* a, uint32_t* out, size_t n, size_t idx) {
-    fp_store<F>(out, n, idx, fp_sqr<F>(fp_load<F>(a, n, idx)));
-}
 
 template <class F>
 DEV void add_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,

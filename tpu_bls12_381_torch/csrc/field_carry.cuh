@@ -24,6 +24,10 @@
 //
 // A canonical Montgomery product is unique, so the limbs equal fp_mul's bit
 // for bit.  A square is the product a*a.
+//
+// Below the product: the Fermat inverse of one element (batch_inverse.cu's
+// phase 2 and field_kernels.cu's field_inv), and the lane bodies of
+// field_kernels.cu's elementwise product and square.
 
 #pragma once
 
@@ -412,4 +416,148 @@ DEV El<Fr> fr_sub_cc(const El<Fr>& a, const El<Fr>& b) {
     }
 #endif
     return d;
+}
+
+// ---------------------------------------------------------------------------
+// The Fermat inverse
+// ---------------------------------------------------------------------------
+
+// Word j of the exponent p - 2 of the Fermat inverse.
+template <class F>
+DEV constexpr uint32_t binv_exp_word(int j) {
+    return j == 0 ? cc_p_word<F>(0) - 2u
+         : j == 1 ? cc_p_word<F>(1) - (cc_p_word<F>(0) < 2u ? 1u : 0u)
+         : cc_p_word<F>(j);
+}
+
+// a^(p-2) = 1/a for a unit a, and 0 for a = 0: left to right in 4-bit
+// windows from a table of a^0 .. a^15 (380 squares and 105 products for Fq,
+// 252 and 73 for Fr, the table's 14 among them).  The windows branch on the
+// public exponent only, never on a.  One thread runs it; the table lies in
+// local memory.
+template <class F>
+DEV El<F> fp_inv_fermat(const El<F>& a) {
+    El<F> tab[16];
+    tab[0] = fp_one<F>();
+    tab[1] = a;
+    for (int k = 2; k < 16; ++k) tab[k] = fp_mul_cc<F>(tab[k - 1], a);
+    const int top = 8 * F::W - 1;                  // the highest 4-bit digit
+    El<F> r = tab[(binv_exp_word<F>(top >> 3) >> ((top & 7) * 4)) & 15u];
+    ROLLED
+    for (int i = top - 1; i >= 0; --i) {
+        UNROLL
+        for (int s = 0; s < 4; ++s) r = fp_mul_cc<F>(r, r);
+        uint32_t d = (binv_exp_word<F>(i >> 3) >> ((i & 7) * 4)) & 15u;
+        if (d) r = fp_mul_cc<F>(r, tab[d]);
+    }
+    return r;
+}
+
+// field_inv's lane: the Montgomery-form inverse of element idx, inv(0) = 0.
+template <class F>
+DEV void field_inv_lane(const uint32_t* a, uint32_t* out, size_t n, size_t idx) {
+    fp_store<F>(out, n, idx, fp_inv_fermat<F>(fp_load<F>(a, n, idx)));
+}
+
+// ---------------------------------------------------------------------------
+// The elementwise product and square (field_kernels.cu's mont_mul, mont_sqr)
+// ---------------------------------------------------------------------------
+
+// What the second factor is: a (K, n) plane, one element (K, 1) that every
+// lane takes (held in registers), or the first factor again (the square).
+enum MulMode { MUL_PLANE = 0, MUL_COLUMN = 1, MUL_SQUARE = 2 };
+
+// Four neighbouring words of one plane: on the card one 16-byte access (p
+// is 16-byte aligned).  Plain loads and stores: the streaming hints
+// (__ldcs / __stcs) measured slower (fields/sweeps.py --builds).
+DEV void ld4(const uint32_t* p, uint32_t* w) {
+#ifdef __CUDA_ARCH__
+    uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+#else
+    for (int l = 0; l < 4; ++l) w[l] = p[l];
+#endif
+}
+
+DEV void st4(uint32_t* p, const uint32_t* w) {
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+#else
+    for (int l = 0; l < 4; ++l) p[l] = w[l];
+#endif
+}
+
+// Lanes i .. i+3 of a (K, n) plane as four elements, and back.
+template <class F>
+DEV void fp_load4(const uint32_t* base, size_t n, size_t i, El<F>* v) {
+    UNROLL
+    for (int j = 0; j < F::W; ++j) {
+        uint32_t lo[4], hi[4];
+        ld4(base + (size_t)(2 * j) * n + i, lo);
+        ld4(base + (size_t)(2 * j + 1) * n + i, hi);
+        UNROLL
+        for (int l = 0; l < 4; ++l) v[l].v[j] = (lo[l] & 0xffffu) | (hi[l] << 16);
+    }
+}
+
+template <class F>
+DEV void fp_store4(uint32_t* base, size_t n, size_t i, const El<F>* v) {
+    UNROLL
+    for (int j = 0; j < F::W; ++j) {
+        uint32_t lo[4], hi[4];
+        UNROLL
+        for (int l = 0; l < 4; ++l) {
+            lo[l] = v[l].v[j] & 0xffffu;
+            hi[l] = v[l].v[j] >> 16;
+        }
+        st4(base + (size_t)(2 * j) * n + i, lo);
+        st4(base + (size_t)(2 * j + 1) * n + i, hi);
+    }
+}
+
+// Lanes i .. i+3 (n % 4 == 0, every plane 16-byte aligned): per limb plane
+// one 16-byte load of each operand and one 16-byte store, neighbouring
+// threads on neighbouring addresses.  `bc` is the column's element
+// (MUL_COLUMN), unused otherwise.
+template <class F, int MODE>
+DEV void mont_mul_lanes4(const uint32_t* a, const uint32_t* b, const El<F>& bc,
+                         uint32_t* out, size_t n, size_t i) {
+    El<F> x[4];
+    fp_load4<F>(a, n, i, x);
+    if constexpr (MODE == MUL_PLANE) {
+        El<F> y[4];
+        fp_load4<F>(b, n, i, y);
+        UNROLL
+        for (int l = 0; l < 4; ++l) x[l] = fp_mul_cc<F>(x[l], y[l]);
+    } else {
+        UNROLL
+        for (int l = 0; l < 4; ++l)
+            x[l] = fp_mul_cc<F>(x[l], MODE == MUL_COLUMN ? bc : x[l]);
+    }
+    fp_store4<F>(out, n, i, x);
+}
+
+// Lane i alone: Fr's path, and Fq's where n % 4 != 0 or a plane is not
+// 16-byte aligned.
+template <class F, int MODE>
+DEV void mont_mul_lane1(const uint32_t* a, const uint32_t* b, const El<F>& bc,
+                        uint32_t* out, size_t n, size_t i) {
+    El<F> x = fp_load<F>(a, n, i);
+    El<F> y = MODE == MUL_PLANE ? fp_load<F>(b, n, i) : MODE == MUL_COLUMN ? bc : x;
+    fp_store<F>(out, n, i, fp_mul_cc<F>(x, y));
+}
+
+// Whether a launch takes the four-lane path: Fq only (Fr's lighter product
+// reads faster one lane a thread: fields/sweeps.py --builds), and only where
+// every plane of a, out and (for MUL_PLANE) b starts on a 16-byte boundary,
+// which needs n % 4 == 0 (the plane stride is 4n bytes) and 16-byte aligned
+// pointers.
+template <class F>
+inline bool mont_mul_takes_four(size_t n, int mode, const void* a, const void* b,
+                                const void* out) {
+    auto al = [](const void* p) { return ((size_t)p & 15u) == 0; };
+    return F::W == 12 && n % 4 == 0 && al(a) && al(out) && (mode != MUL_PLANE || al(b));
 }

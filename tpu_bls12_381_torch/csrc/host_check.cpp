@@ -20,6 +20,33 @@
 #include "lane_scan.cuh"
 #include "ntt.cuh"
 
+// The elementwise product's and square's lanes (field_kernels.cu's
+// mont_mul_kernel), on the path the launcher takes or on the one forced.
+template <class F, int MODE>
+static void host_mont_mul_at(const uint32_t* a, const uint32_t* b, const El<F>& bc,
+                             uint32_t* out, size_t n, size_t i, bool four) {
+    if (four)
+        mont_mul_lanes4<F, MODE>(a, b, bc, out, n, i);
+    else
+        mont_mul_lane1<F, MODE>(a, b, bc, out, n, i);
+}
+
+template <class F>
+static void host_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                          size_t n, int mode, int path) {
+    const El<F> bc = mode == MUL_COLUMN ? fp_load<F>(b, 1, 0) : fp_zero<F>();
+    const bool four = path < 0 ? mont_mul_takes_four<F>(n, mode, a, b, out) : path == 1;
+    if (four && n % 4 != 0) return;                 // no such launch
+    for (size_t i = 0; i < n; i += four ? 4 : 1) {
+        if (mode == MUL_PLANE)
+            host_mont_mul_at<F, MUL_PLANE>(a, b, bc, out, n, i, four);
+        else if (mode == MUL_COLUMN)
+            host_mont_mul_at<F, MUL_COLUMN>(a, b, bc, out, n, i, four);
+        else
+            host_mont_mul_at<F, MUL_SQUARE>(a, a, bc, out, n, i, four);
+    }
+}
+
 // The batch inversion's three phases (batch_inverse.cu), phase 2's block of
 // `threads` with its two Hillis-Steele scans as host loops (at step s, value
 // t takes t - s of the prefix scan and t + s of the suffix scan of the step
@@ -117,20 +144,39 @@ static void host_tile(const TileArgs& a, size_t per, uint32_t* sh) {
 
 extern "C" {
 
+// The elementwise product and square (field_kernels.cu): `mode` as MulMode
+// (b is one (K, 1) element for MUL_COLUMN, unused for MUL_SQUARE); `path`
+// -1 takes the path the launcher takes (mont_mul_takes_four), 0 the one-lane
+// path, 1 the four-lane path (n % 4 == 0), a thread's lanes in a loop.
+void mont_mul_path(int words, const uint32_t* a, const uint32_t* b, uint32_t* out,
+                   size_t n, int mode, int path) {
+    if (words == 8)
+        host_mont_mul<Fr>(a, b, out, n, mode, path);
+    else
+        host_mont_mul<Fq>(a, b, out, n, mode, path);
+}
+
+// 1 where the launcher takes the four-lane path for these pointers.
+int mont_mul_four(int words, size_t n, int mode, const uint32_t* a, const uint32_t* b,
+                  const uint32_t* out) {
+    return (words == 8 ? mont_mul_takes_four<Fr>(n, mode, a, b, out)
+                       : mont_mul_takes_four<Fq>(n, mode, a, b, out)) ? 1 : 0;
+}
+
 void fr_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) mont_mul_lane<Fr>(a, b, out, n, i);
+    host_mont_mul<Fr>(a, b, out, n, MUL_PLANE, -1);
 }
 
 void fq_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) mont_mul_lane<Fq>(a, b, out, n, i);
+    host_mont_mul<Fq>(a, b, out, n, MUL_PLANE, -1);
 }
 
 void fr_mont_sqr(const uint32_t* a, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) mont_sqr_lane<Fr>(a, out, n, i);
+    host_mont_mul<Fr>(a, a, out, n, MUL_SQUARE, -1);
 }
 
 void fq_mont_sqr(const uint32_t* a, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) mont_sqr_lane<Fq>(a, out, n, i);
+    host_mont_mul<Fq>(a, a, out, n, MUL_SQUARE, -1);
 }
 
 void fr_field_add(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
@@ -337,15 +383,14 @@ void fq_batch_inverse(const uint32_t* x, uint32_t* out, uint32_t* pre, uint32_t*
     host_batch_inverse<Fq>(x, out, pre, col, colinv, n, L, R, threads);
 }
 
-// The Fermat inverse of phase 2 on its own, elementwise.
-void fr_inv_fermat(const uint32_t* a, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i)
-        fp_store<Fr>(out, n, i, fp_inv_fermat<Fr>(fp_load<Fr>(a, n, i)));
+// field_kernels.cu's field_inv: the Fermat inverse a lane (batch_inverse.cu's
+// phase 2 runs the same fp_inv_fermat on one value).
+void fr_field_inv(const uint32_t* a, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) field_inv_lane<Fr>(a, out, n, i);
 }
 
-void fq_inv_fermat(const uint32_t* a, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i)
-        fp_store<Fq>(out, n, i, fp_inv_fermat<Fq>(fp_load<Fq>(a, n, i)));
+void fq_field_inv(const uint32_t* a, uint32_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) field_inv_lane<Fq>(a, out, n, i);
 }
 
 // Fq2 products, squares and 12(1+u) multiples on (24, 2, n) batches.

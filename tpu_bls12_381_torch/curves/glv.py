@@ -72,12 +72,12 @@ def beta() -> int:
 
 
 def endomorphism(F, A):
-    """phi(x, y) = (beta*x, y) on an affine batch (Montgomery form)."""
+    """phi(x, y) = (beta*x, y) on an affine batch (Montgomery form); beta is
+    one (24, 1) column, which the product kernel holds in registers."""
     x, y, inf = A
-    bm = ops.broadcast_constant(
-        FQ, int_to_limbs(FQ.to_mont(beta()), FQ.num_limbs),
-        F.batch_shape(x), x.device)
-    return (F.mul(x, bm), y, inf)
+    bm = ops.constant_column(FQ, int_to_limbs(FQ.to_mont(beta()), FQ.num_limbs),
+                             x.device)
+    return (F.mul(x, bm.reshape((FQ.num_limbs,) + (1,) * (x.dim() - 1))), y, inf)
 
 
 # -----------------------------------------------------------------------------

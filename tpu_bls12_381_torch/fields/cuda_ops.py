@@ -6,6 +6,10 @@ Counterpart of the JAX package's ``fields/pallas_ops.py``:
   (``fields/pallas_ops.py:381``, ``:436``);
 * ``mont_sqr`` takes the place of ``_build_sqr_kernel`` / ``mont_sqr``
   (``fields/pallas_ops.py:391``, ``:441``);
+* ``field_inv`` takes the place of the two as the JAX package's
+  ``fields/ops.py::inv_mont`` chains them (a^(p-2) in one jitted loop), where
+  the port ran the ladder one product or square a launch (610 launches for
+  Fq): one launch, a thread a lane;
 * ``add`` and ``sub`` take the place of ``_build_add_kernel`` / ``add`` and
   ``_build_sub_kernel`` / ``sub`` (``fields/pallas_ops.py:401``, ``:411``);
 * ``butterfly``, ``butterfly_stages`` and ``butterfly_stage`` take the place
@@ -22,26 +26,33 @@ Counterpart of the JAX package's ``fields/pallas_ops.py``:
   ``mont_sqr`` launch by launch.  Its wrapper and plain version are
   ``vecops.batch_inverse`` and ``vecops.batch_inverse_plain``.
 
-The kernels are CUDA C++ in ``csrc/field_kernels.cu`` (device code in
-``csrc/field.cuh``): one thread per element, 32-bit words in registers, CIOS
-with 64-bit running sums.  On an H100 the memory bounds them: an Fq product
-needs 144 bytes (three elements of 24 limbs of 16 bits) for 300 wide
-multiply-adds, and at the card's peak rates the bytes take longer, narrowly.
-As stored, a 16-bit limb takes a 32-bit slot, so the kernel moves 288 bytes
-and the memory binds it twice as hard.  ``add`` and ``sub`` move the same
-bytes for a few additions, and a butterfly moves five elements for one
-product, so the memory binds them outright (PERF.md has the reckoning).
+The kernels are CUDA C++ in ``csrc/field_kernels.cu``.  On an H100 the
+memory bounds the product: an Fq product needs 144 bytes (three elements of
+24 limbs of 16 bits) for 300 wide multiply-adds, and at the card's peak
+rates the bytes take longer, narrowly; as stored, a 16-bit limb takes a
+32-bit slot, so the kernel moves 288 bytes and the memory binds it twice as
+hard.  So ``mont_mul`` and ``mont_sqr`` run the carry-chain product
+(``csrc/field_carry.cuh``), for Fq four lanes a thread with a 16-byte access
+per limb plane (Fr's lighter product reads faster one lane a thread); a
+factor that is one element, a (K, 1) column, is read once a thread and held
+in registers, so such a call moves two planes.  ``add`` and ``sub`` move the same bytes for a few
+additions, and a butterfly moves five elements for one product, so the
+memory binds them outright (PERF.md has the reckoning); they are one thread
+an element on ``csrc/field.cuh``.
 
 Each wrapper takes its plain version (``*_plain``, over the int64 ops of
 ``fields/ops.py``) only for tensors on the CPU.  For CUDA tensors it launches
 the kernel or raises; there is no fallback.  The wrappers copy nothing:
-operands must be contiguous and of one shape, and anything else raises
-(``fields/fast.py`` broadcasts and lays out for them).  ``LAUNCHES`` counts
-kernel launches, and nothing else: the elementwise butterfly under
-``butterfly_fr`` / ``butterfly_fq``, the stages kernel (``butterfly_stage``
-too) under ``butterfly_stages`` and, by (half, count), in ``STAGE_LAUNCHES``;
-the batch inversion's three kernels under ``batch_inverse_fr`` /
-``batch_inverse_fq``.
+operands must be contiguous and of one shape (``mont_mul``: or a plane and a
+(K, 1) column), and anything else raises (``fields/fast.py`` broadcasts and
+lays out for them).  ``LAUNCHES`` counts kernel launches, and nothing else:
+those of ``mont_mul`` with a column also in ``COLUMN_LAUNCHES`` by (field,
+lanes); the
+elementwise butterfly under ``butterfly_fr`` / ``butterfly_fq``, the
+stages kernel (``butterfly_stage`` too) under ``butterfly_stages`` and, by
+(half, count), in ``STAGE_LAUNCHES``; the inverse under ``field_inv_fr`` /
+``field_inv_fq``; the batch inversion's three kernels under
+``batch_inverse_fr`` / ``batch_inverse_fq``.
 """
 
 from __future__ import annotations
@@ -58,9 +69,13 @@ LAUNCHES = {"mont_mul_fr": 0, "mont_mul_fq": 0,
             "mont_sqr_fr": 0, "mont_sqr_fq": 0,
             "add_fr": 0, "add_fq": 0, "sub_fr": 0, "sub_fq": 0,
             "butterfly_fr": 0, "butterfly_fq": 0, "butterfly_stages": 0,
+            "field_inv_fr": 0, "field_inv_fq": 0,
             "batch_inverse_fr": 0, "batch_inverse_fq": 0}
 # butterfly_stages' launches by (half, count)
 STAGE_LAUNCHES: dict = {}
+# mont_mul's launches with a (K, 1) column (counted in LAUNCHES too), by
+# (field, lanes)
+COLUMN_LAUNCHES: dict = {}
 
 # The most stages one butterfly_stages launch runs (csrc/ntt.cuh).
 MAX_STAGES = 6
@@ -75,14 +90,16 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     STAGE_LAUNCHES.clear()
+    COLUMN_LAUNCHES.clear()
 
 
 def _lib():
     global _CONFIGURED
     lib = _build.library("field_kernels")
     if not _CONFIGURED:
-        for name in ("fr_mont_mul", "fq_mont_mul", "fr_field_add",
-                     "fq_field_add", "fr_field_sub", "fq_field_sub"):
+        for name in ("fr_mont_mul", "fq_mont_mul", "fr_mont_mul_col",
+                     "fq_mont_mul_col", "fr_field_add", "fq_field_add",
+                     "fr_field_sub", "fq_field_sub"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR, _PTR, _PTR, ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
@@ -90,7 +107,7 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [_PTR] * 5 + [ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
-        for name in ("fr_mont_sqr", "fq_mont_sqr"):
+        for name in ("fr_mont_sqr", "fq_mont_sqr", "fr_field_inv", "fq_field_inv"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR, _PTR, ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
@@ -152,6 +169,13 @@ def mont_mul_plain(spec: FieldSpec, a, b):
 def mont_sqr_plain(spec: FieldSpec, a):
     """Plain PyTorch version of the ``mont_sqr`` kernel."""
     return ops.mont_sqr(spec, a)
+
+
+def field_inv_plain(spec: FieldSpec, a):
+    """Plain PyTorch version of the ``field_inv`` kernel: ``ops.inv_mont``,
+    the JAX package's ladder (a square at every bit of p - 2, a product where
+    the bit is set)."""
+    return ops.inv_mont(spec, a)
 
 
 def add_plain(spec: FieldSpec, a, b):
@@ -220,25 +244,48 @@ def _check_same(spec: FieldSpec, name: str, **operands) -> None:
                              f"{tuple(t.shape)})")
 
 
-def _binary(spec: FieldSpec, name: str, entry: str, plain, a, b):
-    """One elementwise kernel of two operands: ``{fr,fq}_<entry>``."""
-    _check_same(spec, name, a=a, b=b)
-    if not a.is_cuda:
-        return plain(spec, a, b)
+def _launch(spec: FieldSpec, name: str, entry: str, *operands):
+    """``{fr,fq}_<entry>`` on CUDA operands whose first is the output's
+    shape; counted under ``<name>_{fr,fq}``."""
+    first = operands[0]
     sfx = _suffix(spec)
-    out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
+    out = torch.empty_like(first)
+    with torch.cuda.device(first.device):
         code = getattr(_lib(), f"{sfx}_{entry}")(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            a.numel() // spec.num_limbs, stream_ptr(a.device))
+            *(t.data_ptr() for t in operands), out.data_ptr(),
+            first.numel() // spec.num_limbs, stream_ptr(first.device))
     check_launch(code, f"{sfx}_{entry}")
     LAUNCHES[f"{name}_{sfx}"] += 1
     return out
 
 
+def _binary(spec: FieldSpec, name: str, entry: str, plain, a, b):
+    """One elementwise kernel of two operands: ``{fr,fq}_<entry>``."""
+    _check_same(spec, name, a=a, b=b)
+    if not a.is_cuda:
+        return plain(spec, a, b)
+    return _launch(spec, name, entry, a, b)
+
+
 def mont_mul(spec: FieldSpec, a, b):
-    """Batched Montgomery product a*b*R^-1 mod p on (K, *batch) limbs."""
-    return _binary(spec, "mont_mul", "mont_mul", mont_mul_plain, a, b)
+    """Batched Montgomery product a*b*R^-1 mod p on (K, *batch) limbs.
+
+    ``b`` is a plane of ``a``'s shape, or one element as a (K, 1) column that
+    every lane of ``a`` takes: the kernel reads it once a thread and holds it
+    in registers, so it is never laid out as a plane."""
+    K = spec.num_limbs
+    if not (isinstance(b, torch.Tensor) and tuple(b.shape) == (K, 1)):
+        return _binary(spec, "mont_mul", "mont_mul", mont_mul_plain, a, b)
+    check_limbs(a, K, "mont_mul: a")
+    check_limbs(b, K, "mont_mul: b")
+    if a.device != b.device:
+        raise ValueError(f"mont_mul: devices differ ({a.device}, {b.device})")
+    if not a.is_cuda:
+        return mont_mul_plain(spec, a, b.reshape((K,) + (1,) * (a.dim() - 1)))
+    out = _launch(spec, "mont_mul", "mont_mul_col", a, b)
+    key = (_suffix(spec), a.numel() // K)
+    COLUMN_LAUNCHES[key] = COLUMN_LAUNCHES.get(key, 0) + 1
+    return out
 
 
 def add(spec: FieldSpec, a, b):
@@ -253,18 +300,28 @@ def sub(spec: FieldSpec, a, b):
 
 def mont_sqr(spec: FieldSpec, a):
     """Batched Montgomery square a*a*R^-1 mod p on (K, *batch) limbs."""
-    K = spec.num_limbs
-    check_limbs(a, K, "mont_sqr: a")
+    check_limbs(a, spec.num_limbs, "mont_sqr: a")
     if not a.is_cuda:
         return mont_sqr_plain(spec, a)
-    sfx = _suffix(spec)
-    out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        code = getattr(_lib(), f"{sfx}_mont_sqr")(
-            a.data_ptr(), out.data_ptr(), a.numel() // K, stream_ptr(a.device))
-    check_launch(code, f"{sfx}_mont_sqr")
-    LAUNCHES[f"mont_sqr_{sfx}"] += 1
-    return out
+    return _launch(spec, "mont_sqr", "mont_sqr", a)
+
+
+def field_inv(spec: FieldSpec, a):
+    """Batched Montgomery-form inverse on (K, *batch) limbs, inv(0) = 0, in
+    one launch: a thread a lane runs a^(p-2) on the carry-chain product
+    (``csrc/field_carry.cuh::fp_inv_fermat``), left to right in 4-bit windows
+    of p - 2 from a table of a^0 .. a^15.  The JAX package's ladder (and
+    ``field_inv_plain``) squares at every bit and multiplies and selects
+    where the bit is set; the windows branch on the public exponent only,
+    never on the base.  An inverse is unique and canonical, so the limbs
+    equal the ladder's bit for bit, 0 for 0.  Meant for few lanes (the
+    affine conversion of a few points): one thread's chain of 485
+    dependent products (Fq) bounds it; many lanes take
+    ``vecops.batch_inverse``."""
+    check_limbs(a, spec.num_limbs, "field_inv: a")
+    if not a.is_cuda:
+        return field_inv_plain(spec, a)
+    return _launch(spec, "field_inv", "field_inv", a)
 
 
 def butterfly(spec: FieldSpec, even, odd, w):

@@ -8,6 +8,8 @@ CUDA tensor to the plain version.
 The kernel wrappers take contiguous operands of one shape and raise on
 anything else; the functions here broadcast and lay out for them, so a caller
 may pass views and operands that broadcast, as the JAX package's callers do.
+A factor of the product that is one element is passed as a (K, 1) column,
+which the kernel reads once a thread: it is never laid out as a plane.
 """
 
 from __future__ import annotations
@@ -16,9 +18,21 @@ import torch
 
 from . import cuda_ops, ops
 from .field import FieldSpec
+from .limbs import int_to_limbs
+
+
+def _one_element(c, other) -> bool:
+    """``c`` is one element that broadcasts over ``other``: as many axes, all
+    of its batch axes of size 1."""
+    return c.dim() == other.dim() and all(d == 1 for d in c.shape[1:])
 
 
 def mont_mul(spec: FieldSpec, a, b):
+    if _one_element(a, b) and not _one_element(b, a):
+        a, b = b, a                                  # the product commutes
+    if _one_element(b, a):
+        return cuda_ops.mont_mul(spec, a.contiguous(),
+                                 b.reshape(spec.num_limbs, 1).contiguous())
     a, b = torch.broadcast_tensors(a, b)
     return cuda_ops.mont_mul(spec, a.contiguous(), b.contiguous())
 
@@ -45,13 +59,14 @@ def butterfly(spec: FieldSpec, even, odd, w):
 
 
 def inv_mont(spec: FieldSpec, a):
-    """Montgomery-form inverse by Fermat, a^(p-2); inv(0) = 0."""
-    return ops.pow_const(spec, a, spec.modulus - 2, mul=mont_mul, sqr=mont_sqr)
+    """Montgomery-form inverse by Fermat, a^(p-2); inv(0) = 0: one
+    ``field_inv`` launch on the card (the limbs equal the JAX package's
+    ladder's, ``cuda_ops.field_inv`` says why)."""
+    return cuda_ops.field_inv(spec, a.contiguous())
 
 
 def from_mont(spec: FieldSpec, a):
-    """Montgomery -> standard form via the multiply (a * 1 * R^-1)."""
-    a = a.contiguous()
-    one = torch.zeros_like(a)
-    one[0] = 1
-    return cuda_ops.mont_mul(spec, a, one)
+    """Montgomery -> standard form via the multiply (a * 1 * R^-1), the 1 a
+    (K, 1) column."""
+    one = ops.constant_column(spec, int_to_limbs(1, spec.num_limbs), a.device)
+    return cuda_ops.mont_mul(spec, a.contiguous(), one)

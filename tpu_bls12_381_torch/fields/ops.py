@@ -58,6 +58,13 @@ def broadcast_constant(spec: FieldSpec, limbs: np.ndarray, batch_shape=(),
     return col.expand((spec.num_limbs,) + batch_shape).contiguous()
 
 
+def constant_column(spec: FieldSpec, limbs: np.ndarray, device=None):
+    """Constant (K,) -> one (K, 1) element, cached on its device (shared:
+    read it, never write it).  ``cuda_ops.mont_mul`` reads such a factor once
+    a thread instead of a plane."""
+    return _const_limbs(limbs, 1, resolve_device(device), LIMB_DTYPE)
+
+
 def one_mont(spec: FieldSpec, batch_shape=(), device=None):
     return broadcast_constant(spec, spec.one_mont_limbs, batch_shape, device)
 
