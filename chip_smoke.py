@@ -13,7 +13,9 @@ and ``pdbl2`` at every count a path gives them, ``madd`` with P == A planted
 in one lane, in a whole warp and in the last lane of a partial last warp,
 ``jadd`` with P == Q the same way, the batch inversion's three kernels at 2^16
 with zeros planted, the elementwise product with a (K, 1) column and on its
-one-lane path: n % 4 != 0 and a plane 4 bytes past a 16-byte boundary), sweeps the chains
+one-lane path: n % 4 != 0 and a plane 4 bytes past a 16-byte boundary; the
+add and the sub in every operand form, two planes, a (K, 1) column on either
+side, the doubling and the negation, on both paths), sweeps the chains
 at the paths' widths (``chain_sweep``: one doubling on 2^20 lanes, G1 and G2,
 ``madd`` on 2^20 lanes against its build with the doubling in every lane,
 ``jac_ladder`` against its build that reads x and y again at each add,
@@ -42,7 +44,10 @@ on the columns), checked against host sums, round trips and each other, the
 launches asserted by tile load mode and by (half, count); then the ladder's
 tile at rows of 2^11 and 2^12 in turns (``ntt_ladder_split``), and both
 algorithms from 2^10 to 2^24 (``ntt_crossover``); then the vector ops at
-2^22.  (The NTT's folds and its builds not kept are timed by
+2^22 (``vector_sum`` one ``field_sum`` reduction, held to the host's sum and,
+on (16, 2, 2^16) with a row of r - 1, to the halving tree; whole calls of
+``vector_add``, ``vector_sub``, ``vector_sum`` and ``scalar_vec_add`` by CUDA
+events).  (The NTT's folds and its builds not kept are timed by
 ``python3 -m tpu_bls12_381_torch.ntt.sweeps``.)  Then SRS point validation
 (``points_2e20``): 2^20 G1 points with planted non-members, off-curve points and an identity, written to
 wire bytes and read back on the card, checked with ``is_on_curve_affine`` and
@@ -57,6 +62,13 @@ on 1,028 lanes; and the README's Quick start through ``global_accelerator()``
 factor 4, ``msm_with_bases`` and its async form against the host, the 2^22
 NTT round trip, ``dispatch_*`` on Python ints (every route must be ACCEL, and
 CPU under ``MIDNIGHT_DEVICE=cpu``), with ``MIDNIGHT_TRACE=msm,ntt`` spans.
+
+The generic ladders (G2's ``is_in_subgroup``, G1's ``scalar_mul`` through a
+fresh ``FqAdapter``) and the affine conversions are held to the field
+launches their formulas call, the doublings and negations among them.  The
+plain-call guard counts the calls of ``fields/ops.py``'s add, sub, mont_mul
+and mont_sqr on CUDA tensors inside the driven paths' calls (the
+``plain_guard`` line, by phase); the run fails where one is above 0.
 
 One JSON object per phase goes to standard output.  The last lines are the
 ``{"kernels": [...]}`` table, the card's name and power limit as ``nvidia-smi``
@@ -100,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -331,12 +344,51 @@ def main() -> int:
     t_start = time.perf_counter()
     rows = []              # the ``kernels`` line, filled phase by phase
 
+    # The plain-call guard: calls of fields/ops.py's add, sub, mont_mul and
+    # mont_sqr on CUDA tensors (a plain version running on the card) made
+    # inside guarded(phase), around the driven paths' calls; the plain-version
+    # checks run outside it.  The plain_guard line prints the counts by
+    # phase, and the run fails where one is above 0.
+    plain_calls = {}
+    guard_phase = [None]
+
+    def plain_counter(name, fn):
+        def counted_op(spec, a, *rest):
+            if guard_phase[0] is not None and isinstance(a, torch.Tensor) and a.is_cuda:
+                plain_calls[guard_phase[0]][name] += 1
+            return fn(spec, a, *rest)
+        return counted_op
+
+    for name_ in ("add", "sub", "mont_mul", "mont_sqr"):
+        setattr(ops, name_, plain_counter(name_, getattr(ops, name_)))
+
+    @contextlib.contextmanager
+    def guarded(phase):
+        plain_calls.setdefault(phase, dict.fromkeys(("add", "sub", "mont_mul", "mont_sqr"), 0))
+        outer, guard_phase[0] = guard_phase[0], phase
+        try:
+            yield
+        finally:
+            guard_phase[0] = outer
+
     def stop_early() -> int:
-        """The end of a partial run (``--upto``): the rows gathered so far,
-        no ok line, exit code 10."""
+        """The end of a partial run (``--upto``): the plain-call guard, the
+        rows gathered so far, no ok line, exit code 10."""
+        check_plain_guard()
         if rows:
             emit({"kernels_so_far": rows})
         return 10
+
+    def check_plain_guard() -> None:
+        """The plain_guard line: by phase, the calls of a plain field op on
+        CUDA tensors inside the driven paths' calls; fails where one is
+        above 0."""
+        emit({"phase": "plain_guard", "calls_on_the_card": plain_calls})
+        bad = {ph: {k: v for k, v in c.items() if v} for ph, c in plain_calls.items()
+               if any(c.values())}
+        if bad:
+            raise AssertionError(f"plain_guard: plain field ops ran on the card inside the "
+                                 f"driven paths: {bad}")
 
     # ------------------------------------------------------------------ device
     smi = subprocess.run(
@@ -475,6 +527,31 @@ def main() -> int:
 
     modules = (cuda_ops, cuda_g1, cuda_g2, cuda_ntt)
 
+    @contextlib.contextmanager
+    def field_shapes():
+        """Calls of ``cuda_ops.add`` / ``sub`` / ``double`` / ``neg`` while
+        open, by (kernel, the plane's shape): ``add_fq``, ``sub_fq[column]``
+        (the second operand a (K, 1) column), ``sub_fq[column left]`` (the
+        first), ``double_fq``, ..."""
+        seen, keep = {}, {}
+        for op_ in ("add", "sub", "double", "neg"):
+            keep[op_] = getattr(cuda_ops, op_)
+
+            def rec(spec, *args, op_=op_, fn_=keep[op_]):
+                plane = max(args, key=lambda t: t.numel())
+                form = ("" if len({tuple(t.shape) for t in args}) == 1 else
+                        "[column left]" if args[0] is not plane else "[column]")
+                key = (f"{op_}_{'fr' if spec.num_limbs == 16 else 'fq'}{form}",
+                       tuple(plane.shape))
+                seen[key] = seen.get(key, 0) + 1
+                return fn_(spec, *args)
+            setattr(cuda_ops, op_, rec)
+        try:
+            yield seen
+        finally:
+            for op_, fn_ in keep.items():
+                setattr(cuda_ops, op_, fn_)
+
     def reset_counts():
         for mod in modules:
             mod.reset_launches()
@@ -488,8 +565,8 @@ def main() -> int:
         for mod in modules:
             out.update(mod.LAUNCHES)
         for f in ("fr", "fq"):
-            out[f"mont_mul_col_{f}"] = sum(k for (f_, _), k in cuda_ops.COLUMN_LAUNCHES.items()
-                                           if f_ == f)
+            out[f"mont_mul_col_{f}"] = sum(v for (k_, _), v in cuda_ops.COLUMN_LAUNCHES.items()
+                                           if k_ == f"mont_mul_{f}")
         out["pdbl_doublings"] = sum(t * k for t, k in cuda_g1.CHAIN_LAUNCHES.items())
         out["pdbl2_doublings"] = sum(t * k for t, k in cuda_g2.CHAIN_LAUNCHES.items())
         return out
@@ -627,7 +704,7 @@ def main() -> int:
               [cuda_ops.mont_mul(spec, a, col)], [cuda_ops.mont_mul_plain(spec, a, col)],
               lambda: cuda_ops.mont_mul(spec, a, col),
               lambda: cuda_ops.mont_mul_plain(spec, a, col),
-              lambda: cuda_ops.COLUMN_LAUNCHES.get((sfx, N), 0))
+              lambda: cuda_ops.COLUMN_LAUNCHES.get((f"mont_mul_{sfx}", N), 0))
         three = lambda x_, y_: (cuda_ops.mont_mul(spec, x_, y_), cuda_ops.mont_mul(spec, x_, col),
                                 cuda_ops.mont_sqr(spec, x_))
         three_plain = lambda x_, y_: (cuda_ops.mont_mul_plain(spec, x_, y_),
@@ -652,11 +729,43 @@ def main() -> int:
         b[:, 3] = a[:, 2]
         a[:, 4] = a[:, 0]
         b[:, 4] = a[:, 1]
-        for op, symbol in (("add", "field_add_kernel"), ("sub", "field_sub_kernel")):
+        for op in ("add", "sub"):
             kern, plain = getattr(cuda_ops, op), getattr(cuda_ops, f"{op}_plain")
-            check(f"{op}_{sfx}", symbol, N, [kern(spec, a, b)], [plain(spec, a, b)],
+            check(f"{op}_{sfx}", "addsub_kernel", N, [kern(spec, a, b)], [plain(spec, a, b)],
                   lambda: kern(spec, a, b), lambda: plain(spec, a, b),
                   lambda: cuda_ops.LAUNCHES[f"{op}_{sfx}"])
+        # every operand form of the add and the sub: a (K, 1) column right of
+        # the plane and left of it (p - 1 and the random column), the plane
+        # alone (a + a, 0 - a; 0 in lane 0); for Fr on the four-lane path,
+        # then on the one-lane path where n % 4 != 0 and where a plane is
+        # misaligned (Fq takes one lane a thread on all three)
+        pm1 = a[:, 2:3].contiguous()
+
+        def forms(x_, y_):
+            return (cuda_ops.add(spec, x_, col), cuda_ops.add(spec, pm1, x_),
+                    cuda_ops.sub(spec, x_, col), cuda_ops.sub(spec, pm1, x_),
+                    cuda_ops.double(spec, x_), cuda_ops.neg(spec, x_),
+                    cuda_ops.add(spec, x_, y_), cuda_ops.sub(spec, x_, y_))
+
+        def forms_plain(x_, y_):
+            c_, p_ = col.expand_as(x_), pm1.expand_as(x_)
+            return (cuda_ops.add_plain(spec, x_, c_), cuda_ops.add_plain(spec, p_, x_),
+                    cuda_ops.sub_plain(spec, x_, c_), cuda_ops.sub_plain(spec, p_, x_),
+                    cuda_ops.double_plain(spec, x_), cuda_ops.neg_plain(spec, x_),
+                    cuda_ops.add_plain(spec, x_, y_), cuda_ops.sub_plain(spec, x_, y_))
+
+        a3, b3 = a[:, :N - 3].contiguous(), b[:, :N - 3].contiguous()
+        flat = torch.zeros(spec.num_limbs * N + 4, dtype=torch.int32, device=dev)
+        am = flat[1:1 + spec.num_limbs * N].view(spec.num_limbs, N)
+        am.copy_(a)
+        for what, x_, y_ in (("n % 4 == 0, aligned", a, b), ("n % 4 != 0", a3, b3),
+                             ("misaligned", am, b)):
+            check(f"add_sub_{sfx}[every form: {what}]", "addsub_kernel", x_.shape[1],
+                  forms(x_, y_), forms_plain(x_, y_), lambda: forms(x_, y_),
+                  lambda: forms_plain(x_, y_),
+                  lambda: {k: cuda_ops.LAUNCHES[f"{k}_{sfx}"]
+                           for k in ("add", "sub", "double", "neg")})
+        del a3, b3, am, flat
         # butterfly: w = 0 in lane 5, w = 1 (Montgomery) in lane 6, o = 0 in 7
         w = rand_field(spec, N).roll(7, 1).contiguous()
         w[:, 5] = 0
@@ -1242,11 +1351,12 @@ def main() -> int:
     geo = msm_geometry(n, device=dev)            # the plan msm_g1 follows
     reset_counts()
     t0 = time.perf_counter()
-    Pj = msm_g1(s_mont, A)                       # the main path, first call
-    torch.cuda.synchronize()
+    with guarded("msm_2e20"):
+        Pj = msm_g1(s_mont, A)                   # the main path, first call
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = counts()
-    columns = dict(cuda_ops.COLUMN_LAUNCHES)     # (field, lanes) -> launches
+    columns = dict(cuda_ops.COLUMN_LAUNCHES)     # (kernel, lanes) -> launches
     scans = scan_counts()
     chains = chain_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1254,11 +1364,12 @@ def main() -> int:
     ok = got == expected and all(tuple(c.shape) == (24,) for c in Pj)
 
     secs = []
-    for _ in range(3):
-        secs.append(tracing.timed_reps(1, lambda: msm_g1(s_mont, A)))
+    with guarded("msm_2e20"):
+        for _ in range(3):
+            secs.append(tracing.timed_reps(1, lambda: msm_g1(s_mont, A)))
+        with tracing.collect_stages() as stages:
+            msm_g1(s_mont, A)
     med = statistics.median(secs)
-    with tracing.collect_stages() as stages:
-        msm_g1(s_mont, A)
     on_path = ["mont_mul_fr", "mont_mul_fq", "mont_sqr_fq",
                "pmadd_signed", "padd", "pdbl", "padd_scan"]
     emit({"phase": "msm_2e20", "n": n, "equal": bool(ok),
@@ -1266,7 +1377,7 @@ def main() -> int:
           "seconds_each": secs, "seconds_first_call": first_s,
           **{k: geo[k] for k in ("glv", "w", "T", "L", "R", "nb", "tail_launches")},
           "launches": launches, "pdbl_launches_by_doublings": chains,
-          "mont_mul_column_launches_by_lanes": {f"{f} {l}": k for (f, l), k in columns.items()},
+          "column_launches_by_lanes": {f"{f} {l}": k for (f, l), k in columns.items()},
           "peak_bytes_allocated": peak,
           "stages_ms": {k: round(v, 3) for k, v in stages.items()},
           "host_points_seconds": round(host_points_s, 2), "card": smi})
@@ -1373,6 +1484,33 @@ def main() -> int:
         rows.append(row)
 
     FIELD_SRC = "tpu_bls12_381_torch/csrc/field_kernels.cu"
+    ADD_TPU, SUB_TPU = ("tpu_bls12_381/fields/pallas_ops.py:401",
+                        "tpu_bls12_381/fields/pallas_ops.py:411")
+
+    def addsub_row(key, shape, n_launches, path):
+        """A row of the add or sub kernel in one operand form (``key`` as
+        ``field_shapes`` names it: ``add_fq``, ``sub_fq[column left]``,
+        ``double_fq``, ...) at ``shape``, with a path's launches."""
+        op, form = key.split("_")[0], key[key.find("["):] if "[" in key else ""
+        spec = FR if key.split("[")[0].endswith("fr") else FQ
+        K_, lanes = spec.num_limbs, int(np.prod(shape[1:]))
+        x_ = rand_field(spec, max(lanes, 3))[:, :lanes].reshape(shape).contiguous()
+        y_ = rand_field(spec, max(lanes, 3))[:, -lanes:].flip(1).reshape(shape).contiguous()
+        c_ = rand_field(spec, 5)[:, 2:3].contiguous()          # p - 1
+        cb = c_.reshape((K_,) + (1,) * (len(shape) - 1))
+        kern, plain = getattr(cuda_ops, op), getattr(cuda_ops, f"{op}_plain")
+        if op in ("double", "neg"):
+            fn, pfn, planes = (lambda: kern(spec, x_)), (lambda: plain(spec, x_)), 2
+        elif form == "[column]":
+            fn, pfn, planes = (lambda: kern(spec, x_, c_)), (lambda: plain(spec, x_, cb)), 2
+        elif form == "[column left]":
+            fn, pfn, planes = (lambda: kern(spec, c_, x_)), (lambda: plain(spec, cb, x_)), 2
+        else:
+            fn, pfn, planes = (lambda: kern(spec, x_, y_)), (lambda: plain(spec, x_, y_)), 3
+        kernel_row(f"{key}[{path.split(':')[0]}]", "addsub_kernel", FIELD_SRC,
+                   ADD_TPU if op in ("add", "double") else SUB_TPU, list(shape), fn, pfn,
+                   planes * K_ * lanes + (K_ if form else 0), 0, 0, 20,
+                   n_launches=n_launches, path=path)
     G1_SRC = "tpu_bls12_381_torch/csrc/g1_kernels.cu"
     BINV_SRC = "tpu_bls12_381_torch/csrc/batch_inverse.cu"
     dbl_mads = 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ)     # one doubling, 6M + 2S
@@ -1441,7 +1579,7 @@ def main() -> int:
                [16, n], lambda: cuda_ops.mont_mul(FR, a16, one16),
                lambda: cuda_ops.mont_mul_plain(FR, a16, one16),
                2 * 16 * n + 16, 0, n * mul_mads(W_FR), 10,
-               n_launches=columns.get(("fr", n), 0),
+               n_launches=columns.get(("mont_mul_fr", n), 0),
                path="msm_2e20: msm_g1 (fast.from_mont)", column=[16, 1])
     del a16
     x24 = rand_field(FQ, n)
@@ -1451,7 +1589,7 @@ def main() -> int:
                [24, n], lambda: cuda_ops.mont_mul(FQ, x24, beta_col),
                lambda: cuda_ops.mont_mul_plain(FQ, x24, beta_col),
                2 * 24 * n + 24, 0, n * mul_mads(W_FQ), 10,
-               n_launches=columns.get(("fq", n), 0),
+               n_launches=columns.get(("mont_mul_fq", n), 0),
                path="msm_2e20: msm_g1 (glv.endomorphism)", column=[24, 1])
     del x24
     z1 = rand_field(FQ, 4)[:, 3:4].contiguous()
@@ -1482,18 +1620,32 @@ def main() -> int:
         w_ = spec.num_limbs // 2
         return lanes * (squares * sqr_mads(w_) + products * mul_mads(w_))
 
-    def to_affine_case(what, ctx_, P_, want, curve_mod, max_mul):
+    # The launches of jac_to_affine, from its text: the inverse of Z, its
+    # square, two products.  G1: one field_inv_fq, one mont_sqr_fq, three
+    # mont_mul_fq.  G2 (Fq2Adapter): the inverse is the norm's square (one Fq
+    # mont_sqr on both components), their sum, one Fq inverse, the product
+    # by it and the negation of c1; the square is the complex squaring (an
+    # add, a sub, a product, a doubling), each of the three products
+    # Karatsuba (2 adds, a product, 3 subs).
+    TO_AFFINE_LAUNCHES = {
+        "g1": {"field_inv_fq": 1, "mont_sqr_fq": 1, "mont_mul_fq": 3},
+        "g2": {"field_inv_fq": 1, "mont_sqr_fq": 1, "mont_mul_fq": 1 + 1 + 3,
+               "add_fq": 1 + 1 + 3 * 2, "sub_fq": 1 + 3 * 3, "double_fq": 1, "neg_fq": 1}}
+
+    def to_affine_case(what, ctx_, P_, want, curve_mod, curve):
         """``ctx_.to_affine(P_)`` on the kernel route and on the launch-a-step
         route (``fast.inv_mont`` the ladder on the field kernels): median
         seconds, launches, the two equal (``torch.equal``) and the ints the
-        oracle's.  Fails unless ``field_inv_fq`` launched once, with at most
-        one ``mont_sqr_fq`` and ``max_mul`` ``mont_mul_fq`` launches, which
-        are ``jac_to_affine``'s own."""
+        oracle's.  Fails unless the kernel route launched what
+        ``TO_AFFINE_LAUNCHES[curve]`` has, one ``field_inv_fq`` among them
+        (``mont_mul_col_fq`` counts those of its products with a column
+        again)."""
         reset_counts()
-        got_k = ctx_.to_affine(P_)
-        torch.cuda.synchronize()
-        launches_k = {k: v for k, v in counts().items() if v}
-        s_k = seconds_median(lambda: ctx_.to_affine(P_))
+        with guarded("to_affine"):
+            got_k = ctx_.to_affine(P_)
+            torch.cuda.synchronize()
+            launches_k = {k: v for k, v in counts().items() if v}
+            s_k = seconds_median(lambda: ctx_.to_affine(P_))
         fast.inv_mont = inv_launch_a_step
         try:
             reset_counts()
@@ -1505,21 +1657,20 @@ def main() -> int:
             fast.inv_mont = kernel_inv
         same = all(torch.equal(x_, y_) for x_, y_ in zip(got_k, got_s))
         oracle_ok = curve_mod.affine_to_ints(got_k) == want
-        launch_ok = (launches_k.get("field_inv_fq") == 1
-                     and launches_k.get("mont_sqr_fq", 0) <= 1
-                     and launches_k.get("mont_mul_fq", 0) <= max_mul)
+        launch_ok = ({k: v for k, v in launches_k.items() if not k.startswith("mont_mul_col")}
+                     == TO_AFFINE_LAUNCHES[curve])
         emit({"phase": "to_affine", "what": what, "lanes": int(P_[0].shape[-1]),
               "equal_routes": same, "equal_oracle": oracle_ok,
               "seconds": s_k, "seconds_launch_a_step": s_s,
               "launches": launches_k, "launches_launch_a_step": launches_s, "card": smi})
         if not (same and oracle_ok and launch_ok):
             raise AssertionError(f"to_affine of {what}: routes equal {same}, the oracle's "
-                                 f"{oracle_ok}, launches {launches_k} (field_inv_fq once, "
-                                 f"mont_sqr_fq <= 1, mont_mul_fq <= {max_mul})")
+                                 f"{oracle_ok}, launches {launches_k} (the formulas': "
+                                 f"{TO_AFFINE_LAUNCHES[curve]})")
         return launches_k
 
     conv1 = to_affine_case("msm_2e20: the single shot's result", g1_context(),
-                           tuple(c[:, None] for c in Pj), [expected], g1, 3)
+                           tuple(c[:, None] for c in Pj), [expected], g1, "g1")
     del Pj
     kernel_row("field_inv_fq[to_affine]", "field_inv_kernel", FIELD_SRC, INV_TPU,
                [24, 1], lambda: cuda_ops.field_inv(FQ, z1),
@@ -1826,8 +1977,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    bases = ctx1.upload_bases(A, precompute_factor=2)
-    torch.cuda.synchronize()
+    with guarded("msm_ctx_2e20"):
+        bases = ctx1.upload_bases(A, precompute_factor=2)
+        torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     launches_up = counts()
     geo_c = msm_geometry(n, bases.glv, F1, dev, bases.window_bits,
@@ -1838,19 +1990,20 @@ def main() -> int:
     span_up = geo_c["T"] * geo_c["w"]                  # doublings between blocks
     check_upload("msm_ctx_2e20: upload_bases", launches_up, slices_up, bases.factor, span_up)
     t0 = time.perf_counter()
-    ctx1.msm_with_bases(s_mont, bases)              # warm call
-    first_c = time.perf_counter() - t0
-    reset_counts()
-    Pc = ctx1.msm_with_bases(s_mont, bases)         # the main path
-    launches_ctx = counts()
-    scans_ctx = scan_counts()
-    chains_ctx = chain_counts()
+    with guarded("msm_ctx_2e20"):
+        ctx1.msm_with_bases(s_mont, bases)          # warm call
+        first_c = time.perf_counter() - t0
+        reset_counts()
+        Pc = ctx1.msm_with_bases(s_mont, bases)     # the main path
+        launches_ctx = counts()
+        scans_ctx = scan_counts()
+        chains_ctx = chain_counts()
+        secs_c = [tracing.timed_reps(1, lambda: ctx1.msm_with_bases(s_mont, bases))
+                  for _ in range(3)]
+        with tracing.collect_stages() as stages_c:
+            ctx1.msm_with_bases(s_mont, bases)
     got_c = g1_ints(Pc)
-    secs_c = [tracing.timed_reps(1, lambda: ctx1.msm_with_bases(s_mont, bases))
-              for _ in range(3)]
     med_c = statistics.median(secs_c)
-    with tracing.collect_stages() as stages_c:
-        ctx1.msm_with_bases(s_mont, bases)
     ok_c = got_c == expected and got_c == got
     if launches_ctx["pmadd_signed"] != geo_c["scan_launches"] or geo_c["pieces"] != 1:
         raise AssertionError(f"msm_ctx_2e20: {launches_ctx['pmadd_signed']} scan "
@@ -1859,17 +2012,19 @@ def main() -> int:
     # A batch of 4 scalar sets against the same bases, and the 4 single calls.
     sets4 = [s_mont] + [s_mont.roll(sh, dims=-1).contiguous() for sh in (1, 4097, 70001)]
     t0 = time.perf_counter()
-    singles4 = [ctx1.msm_with_bases(s_, bases) for s_ in sets4]
-    torch.cuda.synchronize()
+    with guarded("msm_ctx_2e20"):
+        singles4 = [ctx1.msm_with_bases(s_, bases) for s_ in sets4]
+        torch.cuda.synchronize()
     singles4_s = time.perf_counter() - t0
     singles4 = [g1_ints(P_) for P_ in singles4]
     geo_b = msm_geometry(n, bases.glv, F1, dev, bases.window_bits,
                          factor=bases.factor, batch=4, cached=True)
-    ctx1.msm_batch(sets4, bases)                    # warm call
-    reset_counts()
-    t0 = time.perf_counter()
-    batch4 = ctx1.msm_batch(sets4, bases)
-    torch.cuda.synchronize()
+    with guarded("msm_ctx_2e20"):
+        ctx1.msm_batch(sets4, bases)                # warm call
+        reset_counts()
+        t0 = time.perf_counter()
+        batch4 = ctx1.msm_batch(sets4, bases)
+        torch.cuda.synchronize()
     batch4_s = time.perf_counter() - t0
     launches_b4 = counts()
     scans_b4 = scan_counts()
@@ -1879,7 +2034,7 @@ def main() -> int:
     # oracle's point, the others against their single calls
     conv4 = to_affine_case("msm_ctx_2e20: the batch of 4's results", ctx1,
                            tuple(torch.stack([P_[c] for P_ in batch4], dim=-1)
-                                 for c in range(3)), singles4, g1, 3)
+                                 for c in range(3)), singles4, g1, "g1")
     del batch4, sets4
 
     # One MSM under a budget that forces 4 pieces.
@@ -1891,8 +2046,9 @@ def main() -> int:
                              factor=bases.factor, cached=True)
         reset_counts()
         t0 = time.perf_counter()
-        P4 = ctx1.msm_with_bases(s_mont, bases)
-        torch.cuda.synchronize()
+        with guarded("msm_ctx_2e20"):
+            P4 = ctx1.msm_with_bases(s_mont, bases)
+            torch.cuda.synchronize()
         pieces4_s = time.perf_counter() - t0
         launches_p4 = counts()
         scans_p4 = scan_counts()
@@ -2016,8 +2172,9 @@ def main() -> int:
     geo2 = msm_geometry(n, F=FQ2_ADAPTER, device=dev)
     reset_counts()
     t0 = time.perf_counter()
-    Pg2 = msm_g2(s_mont, A2)                        # the main path, first call
-    torch.cuda.synchronize()
+    with guarded("msm_g2_2e20"), field_shapes() as shapes_g2:
+        Pg2 = msm_g2(s_mont, A2)                    # the main path, first call
+        torch.cuda.synchronize()
     first_g2 = time.perf_counter() - t0
     launches_g2 = counts()
     chains_g2 = chain_counts(cuda_g2)
@@ -2025,10 +2182,11 @@ def main() -> int:
     peak_g2 = torch.cuda.max_memory_allocated()
     ok_g2 = (g2_ints(Pg2) == expected_g2
              and all(tuple(c.shape) == (24, 2) for c in Pg2))
-    secs_g2 = [tracing.timed_reps(1, lambda: msm_g2(s_mont, A2)) for _ in range(3)]
+    with guarded("msm_g2_2e20"):
+        secs_g2 = [tracing.timed_reps(1, lambda: msm_g2(s_mont, A2)) for _ in range(3)]
+        with tracing.collect_stages() as stages_g2:
+            msm_g2(s_mont, A2)
     med_g2 = statistics.median(secs_g2)
-    with tracing.collect_stages() as stages_g2:
-        msm_g2(s_mont, A2)
     emit({"phase": "msm_g2_2e20", "n": n, "equal": bool(ok_g2),
           "g2_msm_2e20_points_per_s": n / med_g2, "seconds_median_of_3": med_g2,
           "seconds_each": secs_g2, "seconds_first_call": first_g2,
@@ -2048,10 +2206,17 @@ def main() -> int:
         if launches_g2[k] < 1:
             raise AssertionError(f"msm_g2_2e20: {k} never launched on the path")
     check_tail("msm_g2_2e20", launches_g2, geo2, chains_g2, kernel="pdbl2")
-    # Fq2: the norm's square and inverse, a product by it, then the Fq2
-    # square and three products: one Fq launch each
-    to_affine_case("msm_g2_2e20: msm_g2's result", g2_context(),
-                   tuple(c[..., None] for c in Pg2), [expected_g2], g2, 5)
+    conv2 = to_affine_case("msm_g2_2e20: msm_g2's result", g2_context(),
+                           tuple(c[..., None] for c in Pg2), [expected_g2], g2, "g2")
+    # the add and sub kernels at the shapes msm_g2 gives them (the Fq and
+    # Fq2 formulas of its coordinate conversions), with its launches
+    emit({"phase": "msm_g2_2e20", "what": "add and sub calls by form and shape",
+          "calls": {f"{k} {list(sh)}": v for (k, sh), v in sorted(shapes_g2.items())}})
+    for (key, shape), k_ in sorted(shapes_g2.items()):
+        addsub_row(key, shape, k_, f"msm_g2_2e20: msm_g2, {k_} calls at this shape")
+    addsub_row("neg_fq", (24, 1), conv2["neg_fq"],
+               "to_affine: MsmContext.to_affine of msm_g2's result (c1 of the norm's "
+               "inverse times the conjugate)")
     del Pg2
 
     # The same points as cached bases through g2_context(): factor 2 (no GLV
@@ -2060,8 +2225,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    bases2 = ctx2.upload_bases(A2, precompute_factor=2)
-    torch.cuda.synchronize()
+    with guarded("msm_g2_2e20"):
+        bases2 = ctx2.upload_bases(A2, precompute_factor=2)
+        torch.cuda.synchronize()
     upload2_s = time.perf_counter() - t0
     launches_up2 = counts()
     chains_up2 = chain_counts(cuda_g2)
@@ -2073,13 +2239,14 @@ def main() -> int:
     check_upload("msm_g2_2e20: g2_context upload_bases", launches_up2, slices_up2,
                  bases2.factor, span_up2, kernel="pdbl2", sqr_each=1)
     t0 = time.perf_counter()
-    ctx2.msm_with_bases(s_mont, bases2)             # warm call
-    torch.cuda.synchronize()
-    first_g2c = time.perf_counter() - t0
-    reset_counts()
-    t0 = time.perf_counter()
-    Pg2c = ctx2.msm_with_bases(s_mont, bases2)      # the path
-    torch.cuda.synchronize()
+    with guarded("msm_g2_2e20"):
+        ctx2.msm_with_bases(s_mont, bases2)         # warm call
+        torch.cuda.synchronize()
+        first_g2c = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        Pg2c = ctx2.msm_with_bases(s_mont, bases2)  # the path
+        torch.cuda.synchronize()
     call_g2c = time.perf_counter() - t0
     launches_g2c = counts()
     chains_g2c = chain_counts(cuda_g2)
@@ -2359,9 +2526,10 @@ def main() -> int:
     torch.cuda.synchronize()
     w_table_s = time.perf_counter() - t0
 
-    def counted(fn):
+    def counted(fn, phase="ntt_2e22"):
         reset_counts()
-        out = fn()
+        with guarded(phase):
+            out = fn()
         return out, counts()
 
     tiles = lambda l_: l_["ntt_tile"] + l_["ntt_tile_w"]
@@ -2438,8 +2606,9 @@ def main() -> int:
     peak22 = torch.cuda.max_memory_allocated()
 
     def median_seconds(fn):
-        fn()
-        each = [tracing.timed_reps(1, fn) for _ in range(5)]
+        with guarded("ntt_2e22"):
+            fn()
+            each = [tracing.timed_reps(1, fn) for _ in range(5)]
         return statistics.median(each), each
 
     med4, each4 = median_seconds(lambda: ctx.forward(x22))      # auto's route
@@ -2653,38 +2822,68 @@ def main() -> int:
     zero_lanes = [0, 3, 4097, n22 - 1]            # lane 0 holds 0 already
     xz = x22.clone()
     xz[:, zero_lanes] = 0
-    (v_add, v_sub, v_mul, v_sum), launches_v = counted(lambda: (
+    s22 = rand_field(FR, 5)[:, 4]                 # one scalar (16,)
+    (v_add, v_sub, v_mul), launches_v = counted(lambda: (
         vecops.vector_add(FR, x22, b22), vecops.vector_sub(FR, x22, b22),
-        vecops.vector_mul(FR, x22, b22), vecops.vector_sum(FR, x22)))
+        vecops.vector_mul(FR, x22, b22)), "vecops")
+    v_sum, launches_sum_v = counted(lambda: vecops.vector_sum(FR, x22), "vecops")
+    v_sadd, launches_sadd = counted(lambda: vecops.scalar_vec_add(FR, s22, x22), "vecops")
+    sadd_columns = dict(cuda_ops.COLUMN_LAUNCHES)
     sum_ok = fr_ints(v_sum[:, None])[0] == want0
-    # (a + b) - b = a, and a*b against the plain product on a slice
+    # (a + b) - b = a, a*b and s + a against the plain versions on a slice
     algebra_ok = (torch.equal(vecops.vector_sub(FR, v_add, b22), x22)
                   and torch.equal(vecops.vector_add(FR, v_sub, b22), x22)
                   and torch.equal(v_mul[:, :4096],
-                                  ops.mont_mul(FR, x22[:, :4096], b22[:, :4096])))
-    del v_add, v_sub, v_mul
+                                  ops.mont_mul(FR, x22[:, :4096], b22[:, :4096]))
+                  and torch.equal(v_sadd[:, :4096], ops.add(FR, x22[:, :4096], s22[:, None])))
+    del v_add, v_sub, v_mul, v_sadd
+    # vector_sum held to its plain version (the halving tree) on (16, 2, 2^16):
+    # a row with 0, 1 and r - 1 among random lanes, a row of r - 1 in every lane
+    x16 = torch.stack([rand_field(FR, 1 << 16), rand_field(FR, 3)[:, 2:3].expand(16, 1 << 16)],
+                      dim=1).contiguous()
+    sum16 = vecops.vector_sum(FR, x16)
+    sum16_ok = torch.equal(sum16, cuda_ops.field_sum_plain(FR, x16))
+    G22 = cuda_ops._lib().field_sum_blocks_per_row(n22, 1)
+    # whole calls by CUDA events (the wrappers' host work included)
+    with guarded("vecops"):
+        vec_ms = {"vector_add": time_ms(lambda: vecops.vector_add(FR, x22, b22), 20),
+                  "vector_sub": time_ms(lambda: vecops.vector_sub(FR, x22, b22), 20),
+                  "vector_sum": time_ms(lambda: vecops.vector_sum(FR, x22), 20),
+                  "scalar_vec_add": time_ms(lambda: vecops.scalar_vec_add(FR, s22, x22), 20)}
     t0 = time.perf_counter()
-    inv, launches_inv_v = counted(lambda: vecops.batch_inverse(FR, xz))
+    inv, launches_inv_v = counted(lambda: vecops.batch_inverse(FR, xz), "vecops")
     torch.cuda.synchronize()
     inverse_s = time.perf_counter() - t0
     prod = vecops.vector_mul(FR, inv, xz)
     want = ops.one_mont(FR, (n22,), dev)
     want[:, zero_lanes] = 0
     inverse_ok = torch.equal(prod, want) and not bool(inv[:, zero_lanes].any())
-    vec_ok = sum_ok and algebra_ok and inverse_ok
+    vec_ok = sum_ok and sum16_ok and algebra_ok and inverse_ok
     emit({"phase": "vecops", "n": n22, "equal": bool(vec_ok), "vector_sum": sum_ok,
-          "add_sub_mul": algebra_ok, "batch_inverse": inverse_ok,
-          "batch_inverse_seconds": inverse_s, "launches": launches_v,
-          "launches_batch_inverse": launches_inv_v})
+          "vector_sum_equals_plain_2x2e16": sum16_ok,
+          "add_sub_mul_scalar_add": algebra_ok, "batch_inverse": inverse_ok,
+          "batch_inverse_seconds": inverse_s, "ms_by_cuda_events": vec_ms,
+          "launches": launches_v,
+          "launches_vector_sum": {k: v for k, v in launches_sum_v.items() if v},
+          "field_sum_blocks": G22,
+          "launches_scalar_vec_add": {k: v for k, v in launches_sadd.items() if v},
+          "launches_batch_inverse": launches_inv_v, "card": smi})
     if not vec_ok:
         raise AssertionError("vecops: a check failed (see the line above)")
-    if launches_v["add_fr"] < 1 or launches_v["sub_fr"] < 1:
-        raise AssertionError(f"vecops: add/sub kernels never launched: {launches_v}")
+    vec_launched = ({k: v for k, v in launches_v.items() if v},
+                    {k: v for k, v in launches_sum_v.items() if v},
+                    {k: v for k, v in launches_sadd.items() if v}, sadd_columns)
+    if vec_launched != ({"add_fr": 1, "sub_fr": 1, "mont_mul_fr": 1},
+                        {"sum_fr": 2 if G22 > 1 else 1},
+                        {"add_fr": 1}, {("add_fr", n22): 1}):
+        raise AssertionError(f"vecops: add, sub, mul, the sum and the scalar add did not "
+                             f"launch one kernel each (the sum 1 or 2 field_sum, no add_fr; "
+                             f"the scalar add one column add): {vec_launched}")
     binv_launched = {k: v for k, v in launches_inv_v.items() if v}
     if binv_launched != {"batch_inverse_fr": 3}:
         raise AssertionError(f"vecops: batch_inverse launched {binv_launched}, not its "
                              f"three kernels alone")
-    del inv, prod, want
+    del inv, prod, want, x16, sum16
     binv_row("batch_inverse[vecops]", FR, xz, launches_inv_v["batch_inverse_fr"], "vecops")
     del xz
     kernel_row("mont_mul_fr[vecops]", "mont_mul_kernel", FIELD_SRC, MUL_TPU, [16, n22],
@@ -2692,14 +2891,38 @@ def main() -> int:
                lambda: cuda_ops.mont_mul_plain(FR, x22, b22),
                3 * 16 * n22, 0, n22 * mul_mads(W_FR), 10,
                n_launches=launches_v["mont_mul_fr"], path="vecops: vector_mul")
-    for op, symbol, line in (("add", "field_add_kernel", 401),
-                             ("sub", "field_sub_kernel", 411)):
+    for op, tpu in (("add", ADD_TPU), ("sub", SUB_TPU)):
         kern, plain = getattr(cuda_ops, op), getattr(cuda_ops, f"{op}_plain")
-        kernel_row(f"{op}_fr", symbol, FIELD_SRC,
-                   f"tpu_bls12_381/fields/pallas_ops.py:{line}", [16, n22],
+        kernel_row(f"{op}_fr", "addsub_kernel", FIELD_SRC, tpu, [16, n22],
                    lambda: kern(FR, x22, b22), lambda: plain(FR, x22, b22),
                    3 * 16 * n22, 0, 0, 10, n_launches=launches_v[f"{op}_fr"],
-                   path="vecops")
+                   path=f"vecops: vector_{op}", torch_add_ms=time_ms(
+                       lambda: torch.add(x22, b22, out=torch.empty_like(x22)), 10))
+    s_col = s22[:, None].contiguous()
+    kernel_row("add_fr[column]", "addsub_kernel", FIELD_SRC, ADD_TPU, [16, n22],
+               lambda: cuda_ops.add(FR, x22, s_col), lambda: cuda_ops.add_plain(FR, x22, s_col),
+               2 * 16 * n22 + 16, 0, 0, 10, n_launches=launches_sadd["add_fr"],
+               path="vecops: scalar_vec_add (the scalar a (16, 1) column)",
+               torch_add_ms=time_ms(lambda: torch.add(x22, 1, out=torch.empty_like(x22)), 10))
+    # field_sum: its plain version is held on (16, 2, 2^16) above; at 2^22 the
+    # kernel is held to the host's sum of the same limbs (Python integers:
+    # a sum of Montgomery forms is the Montgomery form of the sum)
+
+    def host_sum(x_):
+        limbs = x_.cpu().numpy().astype(np.int64).sum(axis=1)
+        total = sum(int(v) << (16 * k) for k, v in enumerate(limbs)) % r_mod
+        return torch.from_numpy(ints_to_limbs([total], 16)[:, 0].astype(np.int32)).to(dev)
+
+    kernel_row("field_sum_fr[vecops]", "field_sum_kernel", FIELD_SRC, ADD_TPU, [16, n22],
+               lambda: cuda_ops.field_sum(FR, x22), lambda: host_sum(x22),
+               16 * n22 + 16, 0, 0, 10, n_launches=launches_sum_v["sum_fr"], per_call=1,
+               kernels_per_call=launches_sum_v["sum_fr"],
+               path="vecops: vector_sum (where the halving tree made 22 add_fr launches)",
+               plain_is="the host's sum of the limbs (Python integers); the halving tree "
+                        "on (16, 2, 2^16) is held equal with torch.equal",
+               blocks_per_row=G22,
+               torch_sum_ms=time_ms(lambda: torch.sum(x22, dim=-1, dtype=torch.int32), 10),
+               ptxas={k: v for k, v in registers.items() if "field_sum_kernel" in k})
     del x22, b22, x_std
     if args.upto == "vecops":
         return stop_early()
@@ -2712,6 +2935,20 @@ def main() -> int:
     # generic formulas; then G2 on 1,028 lanes through the generic Fq2 path.
     P_MOD, R_MOD = constants.FQ_MODULUS, constants.FR_MODULUS
     F1g = FqAdapter(FQ)            # the same field kernels, not routed to the Jacobian kernels
+
+    def generic_launches(fq2, bits):
+        """The field launches of ``bits`` steps of ``points.scalar_mul``'s
+        generic loop, from the formulas' text: a step is ``jac_double`` (5 S,
+        2 M, 2 adds, 5 subs, 7 doublings) and ``jac_add_affine`` (4 S, 7 M,
+        1 add, 9 subs, 5 doublings and a ``jac_double`` of its own).  On Fq
+        an S is a ``mont_sqr``; on Fq2 an M is Karatsuba (2 adds, a product,
+        3 subs) and an S the complex squaring (an add, a sub, a product, a
+        doubling)."""
+        S, M, A_, B_, D_ = 2 * 5 + 4, 2 * 2 + 7, 2 * 2 + 1, 2 * 5 + 9, 2 * 7 + 5
+        per = ({"add_fq": A_ + S + 2 * M, "sub_fq": B_ + S + 3 * M, "mont_mul_fq": S + M,
+                "double_fq": D_ + S} if fq2 else
+               {"add_fq": A_, "sub_fq": B_, "mont_mul_fq": M, "mont_sqr_fq": S, "double_fq": D_})
+        return {k: v * bits for k, v in per.items()}
 
     def g1_non_members(count):
         """Curve points outside G1: x = 5, 6, ... with x^3 + 4 a square."""
@@ -2751,13 +2988,14 @@ def main() -> int:
             c += 1
         return out
 
-    def timed(fn):
+    def timed(fn, phase="points_2e20"):
         """(result, seconds, launches by kernel) of one call, counts from 0."""
         reset_counts()
         torch.cuda.synchronize()
         t0_ = time.perf_counter()
-        out_ = fn()
-        torch.cuda.synchronize()
+        with guarded(phase):
+            out_ = fn()
+            torch.cuda.synchronize()
         return out_, time.perf_counter() - t0_, {k: v for k, v in counts().items() if v}
 
     torch.cuda.synchronize()
@@ -2864,6 +3102,19 @@ def main() -> int:
         raise AssertionError(f"points_2e20: the Jacobian kernels were not launched as the "
                              f"ladder and the tree need: {launches_sub}, {launches_sm}, "
                              f"{launches_sum}")
+    # the generic ladders (G2's is_in_subgroup, G1's scalar_mul through a
+    # fresh FqAdapter) launch the field kernels their formulas call, the
+    # doublings among them, and nothing else
+    want_gen = (generic_launches(True, 255), generic_launches(False, 255))
+    if (launches_sub2, launches_gen) != want_gen:
+        raise AssertionError(f"points_2e20: the generic ladders launched {launches_sub2} "
+                             f"(G2) and {launches_gen} (G1), the formulas call {want_gen}")
+    # the doubling and the negation at the G2 validation shape
+    addsub_row("double_fq", (24, 2, n2), launches_sub2["double_fq"],
+               "points_2e20: is_in_subgroup of 1,028 G2 points (generic Fq2 formulas)")
+    addsub_row("neg_fq", (24, 2, n2), 0,
+               "points_2e20: the G2 validation shape (the path negates in to_affine: the "
+               "neg_fq[to_affine] row)")
     del A2, A2_valid, S2, on2, sub2
 
     # ----------------- the Jacobian kernels at N = 2^16 with the edge lanes, and
@@ -2991,6 +3242,7 @@ def main() -> int:
     # with MIDNIGHT_TRACE=msm,ntt so that the spans are logged; then the
     # host-int surface (dispatch_*) a consumer without tensors calls.
     spans = []
+    timed_e = lambda fn: timed(fn, "entry")
     rdv = lambda r: r.route.value if r.error is None else f"{r.route.value}: {r.error!r}"
 
     class SpanLog(logging.Handler):
@@ -3009,12 +3261,13 @@ def main() -> int:
         acc = global_accelerator()
         info = backend_info()
         t0 = time.perf_counter()
-        acc.warmup(n=n, factor=4, ntt_log_n=NTT_LOG_N)   # 2^20 points, 2^22
-        torch.cuda.synchronize()
+        with guarded("entry"):
+            acc.warmup(n=n, factor=4, ntt_log_n=NTT_LOG_N)   # 2^20 points, 2^22
+            torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
         # scalars as wire bytes, standard form (the msm_2e20 phase's values)
         s_entry = wire.scalars_from_bytes(np.ascontiguousarray(words.T).tobytes(), device=dev)
-        bases4, upload4_s, launches_up4 = timed(
+        bases4, upload4_s, launches_up4 = timed_e(
             lambda: acc.g1.upload_bases(A_valid, precompute_factor=4))
         geo4 = msm_geometry(n, bases4.glv, F1, dev, bases4.window_bits,
                             factor=bases4.factor, cached=True)
@@ -3022,14 +3275,15 @@ def main() -> int:
         span_up4 = geo4["T"] * geo4["w"]
         check_upload("entry: upload_bases, factor 4", launches_up4,
                      -(-m_up4 // expand_cap), bases4.factor, span_up4)
-        P_e, call4_s, launches_e4 = timed(
+        P_e, call4_s, launches_e4 = timed_e(
             lambda: acc.g1.msm_with_bases(s_entry, bases4, scalars_montgomery=False))
         scans_e4 = scan_counts()
         chains_e4 = chain_counts()
-        handle = acc.g1.msm_with_bases_async(s_entry, bases4, scalars_montgomery=False)
-        P_async = handle.wait()
-        secs4 = [tracing.timed_reps(1, lambda: acc.g1.msm_with_bases(
-            s_entry, bases4, scalars_montgomery=False)) for _ in range(3)]
+        with guarded("entry"):
+            handle = acc.g1.msm_with_bases_async(s_entry, bases4, scalars_montgomery=False)
+            P_async = handle.wait()
+            secs4 = [tracing.timed_reps(1, lambda: acc.g1.msm_with_bases(
+                s_entry, bases4, scalars_montgomery=False)) for _ in range(3)]
         bad = nm_lanes + off_lanes + [id_lane]
         s_words = [sum(int(words[wi, l]) << (64 * wi) for wi in range(4)) for l in bad]
         k_entry = (host_scalar_total(ks)
@@ -3043,20 +3297,20 @@ def main() -> int:
         # NTT round trip at 2^22 through acc.ntt
         x_std = rand_field(FR, n22)
         xe = fr_mont(x_std)
-        ye, fwd_s, launches_fwd = timed(lambda: acc.ntt.forward(xe))
-        back, inv_s, _ = timed(lambda: acc.ntt.inverse(ye))
+        ye, fwd_s, launches_fwd = timed_e(lambda: acc.ntt.forward(xe))
+        back, inv_s, _ = timed_e(lambda: acc.ntt.inverse(ye))
         ntt_ok = (torch.equal(back, xe)
                   and fr_ints(ye[:, :1])[0] == limb_sum(x_std.cpu().numpy().astype(np.int64)) % R_MOD)
         del xe, ye, back, x_std
         # dispatch_msm from Python ints: G1 at 2^16, G2 at 2^15 points
         n16, n15 = 1 << 16, 1 << 15
         sc16 = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(n16)]
-        res16, d16_s, launches_d16 = timed(
+        res16, d16_s, launches_d16 = timed_e(
             lambda: dispatch_msm(sc16, [base_pts[i % M] for i in range(n16)]))
         want16 = oracle.jac_to_affine(oracle.scalar_mul(
             sum(s * int(ks[i % M]) for i, s in enumerate(sc16)) % R_MOD, G, oracle.FQ_OPS),
             oracle.FQ_OPS)
-        res15, d15_s, launches_d15 = timed(
+        res15, d15_s, launches_d15 = timed_e(
             lambda: dispatch_msm(sc16[:n15], [base_pts2[i % G2_HOST_POINTS]
                                               for i in range(n15)], "g2"))
         want15 = oracle.jac_to_affine(oracle.scalar_mul(
@@ -3064,15 +3318,15 @@ def main() -> int:
             G2gen, oracle.FQ2_OPS), oracle.FQ2_OPS)
         # dispatch_ntt at 2^14, dispatch_vecop("mul") at 2^13
         v14 = sc16[:1 << 14]
-        rn, dn_s, _ = timed(lambda: dispatch_ntt(v14))
-        rv, dv_s, _ = timed(lambda: dispatch_vecop("mul", sc16[:1 << 13], sc16[1 << 13:1 << 14]))
+        rn, dn_s, _ = timed_e(lambda: dispatch_ntt(v14))
+        rv, dv_s, _ = timed_e(lambda: dispatch_vecop("mul", sc16[:1 << 13], sc16[1 << 13:1 << 14]))
         ntt14_ok = rn.value == oracle.ntt(v14)
         vec13_ok = rv.value == [a * b % R_MOD for a, b in zip(sc16[:1 << 13], sc16[1 << 13:1 << 14])]
         # the host route under MIDNIGHT_DEVICE=cpu
         os.environ["MIDNIGHT_DEVICE"] = "cpu"
         reset_config_cache()
         try:
-            rc, dc_s, launches_dc = timed(
+            rc, dc_s, launches_dc = timed_e(
                 lambda: dispatch_msm(sc16[:1024], [base_pts[i] for i in range(1024)]))
         finally:
             os.environ.pop("MIDNIGHT_DEVICE")
@@ -3154,6 +3408,7 @@ def main() -> int:
     del Pup4
     torch.cuda.empty_cache()
 
+    check_plain_guard()
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -191,6 +191,85 @@ def test_field_add_sub_kernels(lib, name):
         assert torch.equal(out, cuda_ops.sub_plain(spec, x, y))
 
 
+AS_PLANES, AS_COLUMN, AS_COLUMN_LEFT, AS_ALONE = 0, 1, 2, 3
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097])
+def test_elementwise_add_sub_paths(lib, name, n):
+    """``field_kernels.cu``'s add and sub (``fp_add_cc`` / ``fp_sub_cc`` on
+    the carry flag) in every operand form: two planes, a (K, 1) column
+    right of the plane and (sub) left of it, and the plane alone (a + a, the
+    doubling; 0 - a, the negation), on the launcher's path (four lanes a
+    thread for Fr where n % 4 == 0 and the planes are aligned, one for Fq)
+    and on each path forced, against ``ops.add``,
+    ``ops.sub`` and ``ops.neg``.  The lanes hold 0, 1, p - 1 and
+    (p - 1) + (p - 1); the columns 0, p - 1 and a random element."""
+    spec = {"fr": FR, "fq": FQ}[name]
+    K = spec.num_limbs
+    a = _lanes(spec, n, 45)
+    b = _lanes(spec, n, 46).flip(1).contiguous()
+    b[:, min(2, n - 1)] = a[:, min(2, n - 1)]
+    for col in (a[:, :1], _lanes(spec, 3, 47)[:, 2:3], _lanes(spec, 5, 48)[:, 4:5]):
+        col = col.contiguous()
+        cb = col.expand_as(a)
+        cases = {(0, AS_PLANES): (b, ops.add(spec, a, b)),
+                 (1, AS_PLANES): (b, ops.sub(spec, a, b)),
+                 (0, AS_COLUMN): (col, ops.add(spec, a, cb)),
+                 (1, AS_COLUMN): (col, ops.sub(spec, a, cb)),
+                 (0, AS_COLUMN_LEFT): (col, ops.add(spec, cb, a)),
+                 (1, AS_COLUMN_LEFT): (col, ops.sub(spec, cb, a)),
+                 (0, AS_ALONE): (a, ops.add(spec, a, a)),
+                 (1, AS_ALONE): (a, ops.neg(spec, a))}
+        for (sub, mode), (y, want) in cases.items():
+            for path in (-1, 0, 1) if n % 4 == 0 else (-1, 0):
+                out = torch.full_like(a, -1)
+                lib.addsub_path(ctypes.c_int(K // 2), ctypes.c_int(sub), _ptr(a), _ptr(y),
+                                _ptr(out), SZ(n), ctypes.c_int(mode), ctypes.c_int(path))
+                assert torch.equal(out, want), (sub, mode, path)
+            assert lib.addsub_four(ctypes.c_int(K // 2), SZ(n), ctypes.c_int(mode), _ptr(a),
+                                   _ptr(y), _ptr(out)) == (name == "fr" and n % 4 == 0)
+            am, om = _misaligned(a), _misaligned(torch.full_like(a, -1))
+            assert lib.addsub_four(ctypes.c_int(K // 2), SZ(n), ctypes.c_int(mode), _ptr(am),
+                                   _ptr(y), _ptr(om)) == 0
+            lib.addsub_path(ctypes.c_int(K // 2), ctypes.c_int(sub), _ptr(am),
+                            _ptr(am if mode == AS_ALONE else y), _ptr(om), SZ(n),
+                            ctypes.c_int(mode), ctypes.c_int(-1))
+            assert torch.equal(om, want), (sub, mode)
+    assert not cases[(1, AS_ALONE)][1][:, 0].any()    # neg(0) = 0
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+@pytest.mark.parametrize("n,rows,blocks,four", [
+    (1, 1, 0, -1),                # one lane: one block, one pass
+    (7, 3, 0, -1),                # odd n, three rows, one lane a step
+    (300, 2, 0, -1),              # n % 4 == 0, two blocks a row: two passes
+    (4097, 1, 0, -1),             # 17 blocks of one row
+    (4096, 2, 5, 1),              # four lanes a step, forced grid
+    (4096, 2, 3, 0),              # one lane a step on the same rows
+    (1 << 13, 1, 64, -1),         # partials a multiple of four: both passes four
+])
+def test_field_sum_order(lib, name, n, rows, blocks, four):
+    """``field_sum``'s order of summation as the card runs it, emulated
+    with the same device functions (each thread's grid-stride run, the
+    shuffle trees over a warp's lanes and over the warps' partials, then a
+    second pass over the blocks' partials), equal to its plain version, the
+    JAX package's halving tree.  The first row holds p - 1 in every lane."""
+    spec = {"fr": FR, "fq": FQ}[name]
+    K = spec.num_limbs
+    v = _lanes(spec, rows * n, 49).reshape(K, rows, n)
+    v[:, 0] = torch.from_numpy(ints_to_limbs([spec.modulus - 1], K).astype(np.int32))
+    v = v.contiguous()
+    out = torch.full((K, rows), -1, dtype=torch.int32)
+    lib.field_sum(ctypes.c_int(K // 2), _ptr(v), _ptr(out), SZ(n), SZ(rows), SZ(blocks),
+                  ctypes.c_int(four))
+    assert torch.equal(out, cuda_ops.field_sum_plain(spec, v))
+    assert limbs_to_ints(out[:, :1].numpy())[0] == n * (spec.modulus - 1) % spec.modulus
+    lib.sum_blocks.restype = SZ
+    G = lib.sum_blocks(SZ(n), SZ(rows))
+    assert G == max(1, min(-(-n // 256), -(-1024 // rows)))
+
+
 def test_butterfly_elementwise(lib):
     e, o, w = _elements(FR, 13), _elements(FR, 14).flip(1).contiguous(), _elements(FR, 15)
     o[:, 5] = 0
@@ -455,9 +534,11 @@ def test_pmadd_signed_rows(lib, points):
 
 
 def test_host_compiled_kernels_match_the_jax_package(lib, points):
-    """``mont_mul`` (Fr and Fq), ``padd`` and the butterfly as the kernels
-    compute them, against ``fields/ops.py``, ``curves/projective.py`` and
-    ``fields/fast.py`` of the JAX package on the same limbs."""
+    """``mont_mul``, ``add`` and ``sub`` in each operand form (the doubling
+    and the negation among them; Fr and Fq), ``padd`` and the butterfly as
+    the kernels compute them, against ``fields/ops.py``,
+    ``curves/projective.py`` and ``fields/fast.py`` of the JAX package on
+    the same limbs."""
     import jax.numpy as jnp
 
     from tpu_bls12_381.curves import projective as jpj
@@ -473,6 +554,21 @@ def test_host_compiled_kernels_match_the_jax_package(lib, points):
         np.testing.assert_array_equal(
             out.numpy().astype(np.uint32),
             np.asarray(jops.mont_mul(jspec, j(a), j(b))))
+        # the add and the sub on the carry flag in each operand form
+        col = b[:, 2:3].contiguous()                 # p - 2, so sums wrap
+        jc = jnp.broadcast_to(j(col), (spec.num_limbs, N))
+        forms = {(0, AS_PLANES, b): jops.add(jspec, j(a), j(b)),
+                 (1, AS_PLANES, b): jops.sub(jspec, j(a), j(b)),
+                 (0, AS_COLUMN, col): jops.add(jspec, j(a), jc),
+                 (1, AS_COLUMN, col): jops.sub(jspec, j(a), jc),
+                 (1, AS_COLUMN_LEFT, col): jops.sub(jspec, jc, j(a)),
+                 (0, AS_ALONE, a): jops.double(jspec, j(a)),
+                 (1, AS_ALONE, a): jops.neg(jspec, j(a))}
+        for (sub, mode, y), want in forms.items():
+            lib.addsub_path(ctypes.c_int(spec.num_limbs // 2), ctypes.c_int(sub), _ptr(a),
+                            _ptr(y), _ptr(out), SZ(N), ctypes.c_int(mode), ctypes.c_int(-1))
+            np.testing.assert_array_equal(out.numpy().astype(np.uint32), np.asarray(want),
+                                          err_msg=str((name, sub, mode)))
     P, Q = points["P"], points["Q"]
     out = [torch.empty_like(P[0]) for _ in range(3)]
     lib.g1_padd(*[_ptr(t) for t in (*P, *Q, *out)], SZ(N))

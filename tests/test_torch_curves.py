@@ -326,3 +326,82 @@ def test_endomorphism_matches_jax_and_is_lambda_times_p(batch):
         lam_p = oracle.jac_to_affine(
             oracle.scalar_mul(glv.GLV_LAMBDA, p, oracle.FQ_OPS), oracle.FQ_OPS)
         assert q == lam_p
+
+
+# -----------------------------------------------------------------------------
+# The adapters' doubling and negation: values and routes
+# -----------------------------------------------------------------------------
+
+def _fq_edge_values(n, seed):
+    rng = random.Random(seed)
+    p = constants.FQ_MODULUS
+    vals = [0, 1, p - 1, (p - 1) // 2, (p + 1) // 2] + [rng.randrange(p) for _ in range(n)]
+    return ints_to_limbs(vals[:n], 24).astype(np.uint32)
+
+
+@pytest.mark.parametrize("field", ["fq", "fq2"])
+@pytest.mark.parametrize("adapter", ["routed", "plain"])
+def test_adapter_double_neg_and_fq2_forms_match_jax(field, adapter):
+    """``double`` and ``neg`` of the Fq and Fq2 adapters (the routed one and
+    the plain one), and the Fq2 square and inverse that call them, equal the
+    JAX package's adapters limb for limb: 0 stays 0, sums past p wrap."""
+    from tpu_bls12_381.curves.field_adapters import FQ2_ADAPTER as JF2
+    from tpu_bls12_381_torch.curves.field_adapters import FQ2_ADAPTER, FQ2_PLAIN
+
+    a0, a1 = _fq_edge_values(16, 31), _fq_edge_values(16, 32)[:, ::-1].copy()
+    if field == "fq":
+        Fp = F if adapter == "routed" else FQ_PLAIN
+        ta = convert.field_from_numpy(a0, FQ, device="cpu")
+        for op in ("double", "neg"):
+            np.testing.assert_array_equal(convert.to_numpy(getattr(Fp, op)(ta)),
+                                          np.asarray(getattr(JF, op)(jnp.asarray(a0))))
+        return
+    Fp = FQ2_ADAPTER if adapter == "routed" else FQ2_PLAIN
+    ta = convert.fq2_from_numpy((a0, a1), device="cpu")
+    ja = (jnp.asarray(a0), jnp.asarray(a1))
+    for op in ("double", "neg", "sqr", "inv"):
+        got = convert.fq2_to_numpy(getattr(Fp, op)(ta))
+        want = getattr(JF2, op)(ja)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=op)
+
+
+def test_adapter_doubling_and_negation_reach_the_kernel_wrappers(monkeypatch):
+    """``FQ_ADAPTER.double`` / ``neg`` (and through them the Fq2 square and
+    inverse, and the generic doubling's formulas) call the kernel wrappers
+    ``cuda_ops.double`` / ``neg``, which launch on a CUDA tensor; the plain
+    adapters ``FQ_PLAIN`` / ``FQ2_PLAIN``, which the kernels' plain versions
+    are written against, call no wrapper at all."""
+    from tpu_bls12_381_torch.curves import points as pt
+    from tpu_bls12_381_torch.curves.field_adapters import FQ2_ADAPTER, FQ2_PLAIN
+    from tpu_bls12_381_torch.fields import cuda_ops
+
+    calls = []
+    for name in ("add", "sub", "double", "neg", "mont_mul", "mont_sqr", "field_inv"):
+        fn = getattr(cuda_ops, name)
+        monkeypatch.setattr(cuda_ops, name, lambda *args, f_=fn, n_=name: (
+            calls.append(n_), f_(*args))[1])
+    a = convert.field_from_numpy(_fq_edge_values(8, 33), FQ, device="cpu")
+    a2 = torch.stack([a, a.flip(1)], dim=1)
+    F.double(a)
+    F.neg(a)
+    assert calls == ["double", "neg"]
+    calls.clear()
+    FQ2_ADAPTER.sqr(a2)
+    assert calls.count("double") == 1
+    calls.clear()
+    FQ2_ADAPTER.inv(a2)
+    assert calls.count("neg") == 1
+    calls.clear()
+    P = pt.affine_to_jac(F, (a, a.flip(1), torch.zeros(8, dtype=torch.bool)))
+    pt.jac_double(F, P)
+    assert calls.count("double") == 7 and "neg" not in calls
+    calls.clear()
+    for Fp, x in ((FQ_PLAIN, a), (FQ2_PLAIN, a2)):
+        for op in ("double", "neg", "sqr", "inv"):
+            getattr(Fp, op)(x)
+        Fp.mul(x, x)
+        Fp.add(x, x)
+        Fp.sub(x, x)
+    pt.jac_double(FQ_PLAIN, P)
+    assert calls == []

@@ -110,7 +110,11 @@ def test_add_sub_butterfly_wrappers_match_jax(name):
         with pytest.raises(ValueError, match="contiguous"):
             fn(spec, ta[:, ::2], tb[:, ::2])
         with pytest.raises(ValueError, match="shapes differ"):
-            fn(spec, ta, tb[:, :1].contiguous())
+            fn(spec, ta, tb[:, :2].contiguous())
+        # a (K, 1) column is one element every lane takes, not a plane
+        col = tb[:, :1].contiguous()
+        plain = getattr(cuda_ops, f"{fn.__name__}_plain")
+        assert torch.equal(fn(spec, ta, col), plain(spec, ta, col))
     with pytest.raises(ValueError, match="shapes differ"):
         cuda_ops.butterfly(spec, ta, tb, tw[:, :1].contiguous())
     assert cuda_ops.LAUNCHES == before
@@ -353,6 +357,46 @@ def test_wrappers_copy_nothing_and_fast_lays_out(name, monkeypatch):
                        ops.mont_sqr(spec, a[:, ::2]))
 
 
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_add_sub_take_columns_and_one_operand_forms(name, monkeypatch):
+    """``fast.add`` and ``fast.sub`` hand an operand that is one element to
+    the wrappers as a (K, 1) column, on either side of the sub (the add
+    swaps it to the right), never as a plane; ``fast.double`` and
+    ``fast.neg`` hand them one plane.  The values are the JAX package's add,
+    sub, double and neg (neg(0) = 0, sums past p, differences below 0)."""
+    spec, jspec = SPECS[name]
+    K = spec.num_limbs
+    a = _inputs(spec, 21)[:, :12].copy()
+    for col_lane in (0, 2, 9):                      # the column: 0, p - 1, a random one
+        c = _inputs(spec, 22)[:, col_lane:col_lane + 1].copy()
+        ta, tc = _t(a, spec), _t(c, spec)
+        jc = np.broadcast_to(c, a.shape).copy()
+        seen = []
+        for op in ("add", "sub"):
+            kernel = getattr(cuda_ops, op)
+            monkeypatch.setattr(cuda_ops, op, lambda s_, x, y, k_=kernel, o_=op: (
+                seen.append((o_, tuple(x.shape), tuple(y.shape))), k_(s_, x, y))[1])
+        same = lambda got, want: np.testing.assert_array_equal(convert.to_numpy(got),
+                                                               np.asarray(want))
+        same(fast.add(spec, ta, tc), jops.add(jspec, a, jc))
+        same(fast.add(spec, tc, ta), jops.add(jspec, jc, a))
+        same(fast.sub(spec, ta, tc), jops.sub(jspec, a, jc))
+        same(fast.sub(spec, tc, ta), jops.sub(jspec, jc, a))
+        t3, c3 = ta.reshape(K, 3, 4), tc.reshape(K, 1, 1)
+        same(fast.sub(spec, c3, t3), jops.sub(jspec, jc, a).reshape(K, 3, 4))
+        assert seen == [("add", (K, 12), (K, 1))] * 2 + [("sub", (K, 12), (K, 1)),
+                                                         ("sub", (K, 1), (K, 12)),
+                                                         ("sub", (K, 1), (K, 3, 4))]
+        monkeypatch.undo()
+    same(fast.double(spec, ta), jops.double(jspec, a))
+    same(fast.neg(spec, ta), jops.neg(jspec, a))
+    same(fast.neg(spec, ta[:, ::3]), jops.neg(jspec, a[:, ::3]))
+    assert not fast.neg(spec, ta[:, :1]).any()      # lane 0 holds 0
+    for fn in (cuda_ops.double, cuda_ops.neg):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(spec, ta[:, ::2])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     a = ops.zeros(FQ, (4,), device="cpu")
     with pytest.raises(TypeError):
@@ -377,7 +421,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("build", ["one lane a thread for Fq too",
                                    "four lanes a thread for Fr too",
                                    "streaming loads and stores",
-                                   "a grid of the SMs' resident blocks"])
+                                   "a grid of the SMs' resident blocks",
+                                   "add and sub one lane a thread for Fr too",
+                                   "add and sub four lanes a thread for Fq too",
+                                   "field_sum one lane a step",
+                                   "field_sum in one launch"])
 def test_field_sweep_builds_change_statements_the_sources_hold(build):
     """Each build that fields/sweeps.py times against the kept one replaces
     statements that stand once in the sources."""

@@ -55,7 +55,7 @@ def test_vector_algebra_matches_jax(name, n):
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
-@pytest.mark.parametrize("n", [1, 7, 64])
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 4097])
 def test_vector_sum_matches_jax(name, n):
     spec, jspec = SPECS[name]
     a = _rand(spec, n, 4)
@@ -70,6 +70,57 @@ def test_vector_sum_over_a_batch():
     got = vecops.vector_sum(FR, _t(a, FR))
     _same(got, jvecops.vector_sum(JFR, a))
     assert got.shape == (16, 3)
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+@pytest.mark.parametrize("n", [2, 7, 4097])
+def test_vector_sum_of_p_minus_1_over_a_batch(name, n):
+    """Every lane p - 1 (the sum wraps past p at nearly every add) in the
+    first row of a batch of 3, random lanes in the others: the JAX package's
+    sum, and n (p - 1) mod p in the first row."""
+    spec, jspec = SPECS[name]
+    p = spec.modulus
+    a = np.concatenate([ints_to_limbs([p - 1] * n, spec.num_limbs)[:, None],
+                        _rand(spec, 2 * n, 9).reshape(spec.num_limbs, 2, n)], axis=1)
+    got = vecops.vector_sum(spec, _t(a, spec))
+    assert got.shape == (spec.num_limbs, 3)
+    _same(got, jvecops.vector_sum(jspec, a))
+    assert limbs_to_ints(convert.to_numpy(got)[:, :1])[0] == n * (p - 1) % p
+
+
+def test_vector_sum_is_one_reduction(monkeypatch):
+    """``vector_sum`` calls ``cuda_ops.field_sum`` once on the whole vector
+    (one or two launches on the card) and, for n == 1, nothing."""
+    seen = []
+    fn = cuda_ops.field_sum
+    monkeypatch.setattr(cuda_ops, "field_sum", lambda s_, v: (
+        seen.append(tuple(v.shape)), fn(s_, v))[1])
+    a = _t(_rand(FQ, 30, 10), FQ).reshape(24, 3, 10)
+    assert torch.equal(vecops.vector_sum(FQ, a), cuda_ops.field_sum_plain(FQ, a))
+    assert torch.equal(vecops.vector_sum(FQ, a[..., :1]), a[..., 0])
+    assert seen == [(24, 3, 10)]
+    with pytest.raises(ValueError, match="n >= 1"):
+        cuda_ops.field_sum(FQ, a[..., :0].contiguous())
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_scalar_column_forms_match_jax(name):
+    """A scalar added to a batched vector and subtracted on either side (the
+    sub's column left and right), against the JAX package's ops on the
+    scalar broadcast out."""
+    from tpu_bls12_381.fields import ops as jops
+
+    spec, jspec = SPECS[name]
+    K = spec.num_limbs
+    v = _rand(spec, 24, 11).reshape(K, 2, 12)
+    for lane in (0, 2, 3):                          # 0, p - 1, a random scalar
+        s = _rand(spec, 4, 12)[:, lane]
+        sb = np.broadcast_to(s.reshape(K, 1, 1), v.shape).copy()
+        tv, ts = _t(v, spec), _t(s, spec)
+        _same(vecops.scalar_vec_add(spec, ts, tv), jvecops.scalar_vec_add(jspec, s, v))
+        col = ts.reshape(K, 1, 1)
+        _same(vecops.vector_sub(spec, tv, col), jops.sub(jspec, v, sb))
+        _same(vecops.vector_sub(spec, col, tv), jops.sub(jspec, sb, v))
 
 
 def test_bit_reverse_matches_jax():

@@ -306,21 +306,9 @@ DEV El<F> fp_sqr(const El<F>& a) {
 }
 
 // ---------------------------------------------------------------------------
-// Lane bodies: what one thread does (see g1.cuh; the product's and the
-// square's are field_carry.cuh's).
+// Lane bodies: what one thread does (see g1.cuh; the product's, the
+// square's, the add's and the sub's are field_carry.cuh's).
 // ---------------------------------------------------------------------------
-
-template <class F>
-DEV void add_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                  size_t n, size_t idx) {
-    fp_store<F>(out, n, idx, fp_add<F>(fp_load<F>(a, n, idx), fp_load<F>(b, n, idx)));
-}
-
-template <class F>
-DEV void sub_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                  size_t n, size_t idx) {
-    fp_store<F>(out, n, idx, fp_sub<F>(fp_load<F>(a, n, idx), fp_load<F>(b, n, idx)));
-}
 
 // The radix-2 butterfly: (e + w*o, e - w*o).
 template <class F>

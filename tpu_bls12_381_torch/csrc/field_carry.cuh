@@ -418,6 +418,117 @@ DEV El<Fr> fr_sub_cc(const El<Fr>& a, const El<Fr>& b) {
     return d;
 }
 
+// The same for Fq (12 words; p < 2^381, so a + b < 2^382 never leaves 12
+// words either): fq_add_cc and fq_sub_cc, one add chain, one subtract chain
+// and a select, on two helpers whose chains stay under the inline asm's
+// operand limit.
+
+// x += y on the carry flag, 12 words; the caller keeps the sum below 2^384.
+DEV void cc_add12(uint32_t* x, const uint32_t* y) {
+#ifdef __CUDA_ARCH__
+    asm("add.cc.u32 %0, %0, %12;\n\t"
+        "addc.cc.u32 %1, %1, %13;\n\t"
+        "addc.cc.u32 %2, %2, %14;\n\t"
+        "addc.cc.u32 %3, %3, %15;\n\t"
+        "addc.cc.u32 %4, %4, %16;\n\t"
+        "addc.cc.u32 %5, %5, %17;\n\t"
+        "addc.cc.u32 %6, %6, %18;\n\t"
+        "addc.cc.u32 %7, %7, %19;\n\t"
+        "addc.cc.u32 %8, %8, %20;\n\t"
+        "addc.cc.u32 %9, %9, %21;\n\t"
+        "addc.cc.u32 %10, %10, %22;\n\t"
+        "addc.u32 %11, %11, %23;"
+        : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]),
+          "+r"(x[6]), "+r"(x[7]), "+r"(x[8]), "+r"(x[9]), "+r"(x[10]), "+r"(x[11])
+        : "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]),
+          "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]), "r"(y[11]));
+#else
+    uint64_t c = 0;
+    for (int j = 0; j < 12; ++j) {
+        c += (uint64_t)x[j] + y[j];
+        x[j] = (uint32_t)c;
+        c >>= 32;
+    }
+#endif
+}
+
+// x -= y on the carry flag, 12 words; returns all ones where it borrowed
+// (x < y), else 0.
+DEV uint32_t cc_sub12(uint32_t* x, const uint32_t* y) {
+    uint32_t m;
+#ifdef __CUDA_ARCH__
+    asm("sub.cc.u32 %0, %0, %13;\n\t"
+        "subc.cc.u32 %1, %1, %14;\n\t"
+        "subc.cc.u32 %2, %2, %15;\n\t"
+        "subc.cc.u32 %3, %3, %16;\n\t"
+        "subc.cc.u32 %4, %4, %17;\n\t"
+        "subc.cc.u32 %5, %5, %18;\n\t"
+        "subc.cc.u32 %6, %6, %19;\n\t"
+        "subc.cc.u32 %7, %7, %20;\n\t"
+        "subc.cc.u32 %8, %8, %21;\n\t"
+        "subc.cc.u32 %9, %9, %22;\n\t"
+        "subc.cc.u32 %10, %10, %23;\n\t"
+        "subc.cc.u32 %11, %11, %24;\n\t"
+        "subc.u32 %12, 0, 0;"
+        : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]),
+          "+r"(x[6]), "+r"(x[7]), "+r"(x[8]), "+r"(x[9]), "+r"(x[10]), "+r"(x[11]),
+          "=r"(m)
+        : "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]),
+          "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]), "r"(y[11]));
+#else
+    uint32_t br = 0;
+    for (int j = 0; j < 12; ++j) {
+        uint64_t t = (uint64_t)x[j] - y[j] - br;
+        x[j] = (uint32_t)t;
+        br = (uint32_t)(t >> 63);
+    }
+    m = 0u - br;
+#endif
+    return m;
+}
+
+DEV El<Fq> fq_add_cc(const El<Fq>& a, const El<Fq>& b) {
+    El<Fq> s = a;
+    cc_add12(s.v, b.v);
+    uint32_t p[12];
+    UNROLL
+    for (int j = 0; j < 12; ++j) p[j] = fq_p_word(j);
+    El<Fq> d = s;
+    const uint32_t keep = cc_sub12(d.v, p);     // s < p: the sum stands
+    El<Fq> r;
+    UNROLL
+    for (int j = 0; j < 12; ++j) r.v[j] = (s.v[j] & keep) | (d.v[j] & ~keep);
+    return r;
+}
+
+DEV El<Fq> fq_sub_cc(const El<Fq>& a, const El<Fq>& b) {
+    El<Fq> d = a;
+    const uint32_t m = cc_sub12(d.v, b.v);      // a < b: add p back
+    uint32_t pm[12];
+    UNROLL
+    for (int j = 0; j < 12; ++j) pm[j] = fq_p_word(j) & m;
+    cc_add12(d.v, pm);
+    return d;
+}
+
+// (a + b) mod p and (a - b) mod p for canonical a, b of either field, limb
+// for limb field.cuh's fp_add and fp_sub: Fr's are the butterfly's.
+template <class F>
+DEV El<F> fp_add_cc(const El<F>& a, const El<F>& b) {
+    if constexpr (F::W == 8)
+        return fr_add_cc(a, b);
+    else
+        return fq_add_cc(a, b);
+}
+
+template <class F>
+DEV El<F> fp_sub_cc(const El<F>& a, const El<F>& b) {
+    if constexpr (F::W == 8)
+        return fr_sub_cc(a, b);
+    else
+        return fq_sub_cc(a, b);
+}
+
 // ---------------------------------------------------------------------------
 // The Fermat inverse
 // ---------------------------------------------------------------------------
@@ -560,4 +671,117 @@ inline bool mont_mul_takes_four(size_t n, int mode, const void* a, const void* b
                                 const void* out) {
     auto al = [](const void* p) { return ((size_t)p & 15u) == 0; };
     return F::W == 12 && n % 4 == 0 && al(a) && al(out) && (mode != MUL_PLANE || al(b));
+}
+
+// ---------------------------------------------------------------------------
+// The elementwise add and sub (field_kernels.cu's field_add, field_sub)
+// ---------------------------------------------------------------------------
+
+// What the operands are: two (K, n) planes; a plane and one (K, 1) column
+// that every lane takes (read once a thread, held in registers), right of
+// the plane (a + c, a - c) or left of it (c - a: the sub does not commute);
+// or the plane alone: a + a (the doubling) and 0 - a (the negation), which
+// read one plane and write one.
+enum AddSubMode { AS_PLANES = 0, AS_COLUMN = 1, AS_COLUMN_LEFT = 2, AS_ALONE = 3 };
+
+// One lane's sum or difference; y is the plane's element or the column.
+template <class F, bool SUB, int MODE>
+DEV El<F> addsub_cc(const El<F>& x, const El<F>& y) {
+    if constexpr (MODE == AS_ALONE) {
+        if constexpr (SUB)
+            return fp_sub_cc<F>(fp_zero<F>(), x);
+        else
+            return fp_add_cc<F>(x, x);
+    } else {
+        const El<F>& l = MODE == AS_COLUMN_LEFT ? y : x;
+        const El<F>& r = MODE == AS_COLUMN_LEFT ? x : y;
+        if constexpr (SUB)
+            return fp_sub_cc<F>(l, r);
+        else
+            return fp_add_cc<F>(l, r);
+    }
+}
+
+// Lanes i .. i+3 (n % 4 == 0, every plane 16-byte aligned), as the
+// product's mont_mul_lanes4: a 16-byte access a plane and operand.
+template <class F, bool SUB, int MODE>
+DEV void addsub_lanes4(const uint32_t* a, const uint32_t* b, const El<F>& c,
+                       uint32_t* out, size_t n, size_t i) {
+    El<F> x[4];
+    fp_load4<F>(a, n, i, x);
+    if constexpr (MODE == AS_PLANES) {
+        El<F> y[4];
+        fp_load4<F>(b, n, i, y);
+        UNROLL
+        for (int l = 0; l < 4; ++l) x[l] = addsub_cc<F, SUB, MODE>(x[l], y[l]);
+    } else {
+        UNROLL
+        for (int l = 0; l < 4; ++l) x[l] = addsub_cc<F, SUB, MODE>(x[l], c);
+    }
+    fp_store4<F>(out, n, i, x);
+}
+
+// Lane i alone: Fq's path, and Fr's where n % 4 != 0 or a plane is not
+// 16-byte aligned.
+template <class F, bool SUB, int MODE>
+DEV void addsub_lane1(const uint32_t* a, const uint32_t* b, const El<F>& c,
+                      uint32_t* out, size_t n, size_t i) {
+    const El<F> x = fp_load<F>(a, n, i);
+    const El<F> y = MODE == AS_PLANES ? fp_load<F>(b, n, i) : c;
+    fp_store<F>(out, n, i, addsub_cc<F, SUB, MODE>(x, y));
+}
+
+// Whether a launch takes the four-lane path: Fr only (Fq's add and sub read
+// as fast or faster one lane a thread, the reverse of the product:
+// fields/sweeps.py --builds), and only where every plane of a, out and
+// (AS_PLANES) b starts on a 16-byte boundary, which needs n % 4 == 0.
+template <class F>
+inline bool addsub_takes_four(size_t n, int mode, const void* a, const void* b,
+                              const void* out) {
+    auto al = [](const void* p) { return ((size_t)p & 15u) == 0; };
+    return F::W == 8 && n % 4 == 0 && al(a) && al(out) && (mode != AS_PLANES || al(b));
+}
+
+// ---------------------------------------------------------------------------
+// The modular sum of a vector (field_kernels.cu's field_sum)
+// ---------------------------------------------------------------------------
+
+// Threads of a field_sum block, and the blocks a first pass aims at over all
+// its rows (8 resident blocks on each of an H100's 132 SMs, rounded).
+#define SUM_THREADS 256
+#define SUM_BLOCKS_TARGET 1024
+
+// Blocks a row of n lanes (rows rows): enough to fill the card, none
+// without a lane for each of its threads.  1: one pass writes the sums.
+inline size_t field_sum_blocks(size_t n, size_t rows) {
+    const size_t by_lanes = (n + SUM_THREADS - 1) / SUM_THREADS;
+    const size_t by_card = (SUM_BLOCKS_TARGET + rows - 1) / rows;
+    const size_t g = by_lanes < by_card ? by_lanes : by_card;
+    return g ? g : 1;
+}
+
+// Whether a pass over rows of n lanes at v reads four neighbouring lanes a
+// step with one 16-byte access a plane: n % 4 == 0 keeps every row and
+// plane on a 16-byte boundary where v starts on one.
+inline bool field_sum_takes_four(size_t n, const void* v) {
+    return n % 4 == 0 && ((size_t)v & 15u) == 0;
+}
+
+// One thread's run over one row (plane stride `stride`): lanes t, t + step,
+// ... in registers; with FOUR, t and step count groups of four neighbouring
+// lanes, summed pairwise before they join the run.
+template <class F, bool FOUR>
+DEV El<F> sum_run(const uint32_t* row, size_t stride, size_t n, size_t t, size_t step) {
+    El<F> acc = fp_zero<F>();
+    if constexpr (FOUR) {
+        for (size_t u = t; u < n / 4; u += step) {
+            El<F> x[4];
+            fp_load4<F>(row, stride, 4 * u, x);
+            acc = fp_add_cc<F>(acc, fp_add_cc<F>(fp_add_cc<F>(x[0], x[1]),
+                                                 fp_add_cc<F>(x[2], x[3])));
+        }
+    } else {
+        for (size_t i = t; i < n; i += step) acc = fp_add_cc<F>(acc, fp_load<F>(row, stride, i));
+    }
+    return acc;
 }

@@ -47,6 +47,84 @@ static void host_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
     }
 }
 
+// The elementwise add's and sub's lanes (field_kernels.cu's addsub_kernel),
+// on the path the launcher takes or on the one forced.
+template <class F, bool SUB, int MODE>
+static void host_addsub_mode(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n,
+                             bool four) {
+    const El<F> c = MODE == AS_COLUMN || MODE == AS_COLUMN_LEFT ? fp_load<F>(b, 1, 0)
+                                                                 : fp_zero<F>();
+    for (size_t i = 0; i < n; i += four ? 4 : 1) {
+        if (four)
+            addsub_lanes4<F, SUB, MODE>(a, b, c, out, n, i);
+        else
+            addsub_lane1<F, SUB, MODE>(a, b, c, out, n, i);
+    }
+}
+
+template <class F, bool SUB>
+static void host_addsub(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n,
+                        int mode, int path) {
+    const bool four = path < 0 ? addsub_takes_four<F>(n, mode, a, b, out) : path == 1;
+    if (four && n % 4 != 0) return;                 // no such launch
+    if (mode == AS_PLANES)
+        host_addsub_mode<F, SUB, AS_PLANES>(a, b, out, n, four);
+    else if (mode == AS_COLUMN)
+        host_addsub_mode<F, SUB, AS_COLUMN>(a, b, out, n, four);
+    else if (mode == AS_COLUMN_LEFT)
+        host_addsub_mode<F, SUB, AS_COLUMN_LEFT>(a, b, out, n, four);
+    else
+        host_addsub_mode<F, SUB, AS_ALONE>(a, a, out, n, four);
+}
+
+// field_sum's shuffle tree: at each offset, lane l adds lane l + off's
+// value, or its own where l + off is past the warp (what __shfl_down_sync
+// returns there).
+template <class F>
+static El<F> host_sum_warp(std::vector<El<F>> x) {
+    for (int off = 16; off > 0; off >>= 1) {
+        std::vector<El<F>> y = x;
+        for (int l = 0; l < 32; ++l) x[l] = fp_add_cc<F>(y[l], y[l + off < 32 ? l + off : l]);
+    }
+    return x[0];
+}
+
+// One field_sum pass (field_kernels.cu's field_sum_kernel), block by block:
+// each thread's run, the warps' trees, the tree over the warps' partials.
+template <class F>
+static void host_sum_pass(const uint32_t* v, uint32_t* out, size_t n, size_t rows,
+                          size_t G, bool four) {
+    for (size_t k = 0; k < rows * G; ++k) {
+        const size_t b = k / G, g = k % G;
+        std::vector<El<F>> part(32, fp_zero<F>());
+        for (size_t w = 0; w < SUM_THREADS / 32; ++w) {
+            std::vector<El<F>> lanes(32);
+            for (size_t l = 0; l < 32; ++l) {
+                const size_t t = g * SUM_THREADS + 32 * w + l, step = G * SUM_THREADS;
+                lanes[l] = four ? sum_run<F, true>(v + b * n, rows * n, n, t, step)
+                                : sum_run<F, false>(v + b * n, rows * n, n, t, step);
+            }
+            part[w] = host_sum_warp<F>(lanes);
+        }
+        fp_store<F>(out, rows * G, k, host_sum_warp<F>(part));
+    }
+}
+
+// field_sum's two passes as the launcher runs them, or with G blocks a row
+// and (four: 0 or 1) the lanes a step forced.
+template <class F>
+static void host_field_sum(const uint32_t* v, uint32_t* out, size_t n, size_t rows,
+                           size_t G, int four) {
+    if (G == 0) G = field_sum_blocks(n, rows);
+    auto takes = [&](size_t m, const uint32_t* p) {
+        return four < 0 ? field_sum_takes_four(m, p) : four == 1 && m % 4 == 0;
+    };
+    std::vector<uint32_t> scratch((size_t)F::K * rows * G);
+    uint32_t* first = G == 1 ? out : scratch.data();
+    host_sum_pass<F>(v, first, n, rows, G, takes(n, v));
+    if (G > 1) host_sum_pass<F>(first, out, G, rows, 1, takes(G, first));
+}
+
 // The batch inversion's three phases (batch_inverse.cu), phase 2's block of
 // `threads` with its two Hillis-Steele scans as host loops (at step s, value
 // t takes t - s of the prefix scan and t + s of the suffix scan of the step
@@ -179,21 +257,55 @@ void fq_mont_sqr(const uint32_t* a, uint32_t* out, size_t n) {
     host_mont_mul<Fq>(a, a, out, n, MUL_SQUARE, -1);
 }
 
+// The elementwise add and sub (field_kernels.cu): `sub` 0 or 1, `mode` as
+// AddSubMode (b is one (K, 1) element for AS_COLUMN and AS_COLUMN_LEFT,
+// unused for AS_ALONE), `path` as mont_mul_path's.
+void addsub_path(int words, int sub, const uint32_t* a, const uint32_t* b, uint32_t* out,
+                 size_t n, int mode, int path) {
+    if (words == 8) {
+        if (sub) host_addsub<Fr, true>(a, b, out, n, mode, path);
+        else host_addsub<Fr, false>(a, b, out, n, mode, path);
+    } else {
+        if (sub) host_addsub<Fq, true>(a, b, out, n, mode, path);
+        else host_addsub<Fq, false>(a, b, out, n, mode, path);
+    }
+}
+
+// 1 where the launcher takes the four-lane path for these pointers.
+int addsub_four(int words, size_t n, int mode, const uint32_t* a, const uint32_t* b,
+                const uint32_t* out) {
+    return (words == 8 ? addsub_takes_four<Fr>(n, mode, a, b, out)
+                       : addsub_takes_four<Fq>(n, mode, a, b, out)) ? 1 : 0;
+}
+
 void fr_field_add(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) add_lane<Fr>(a, b, out, n, i);
+    host_addsub<Fr, false>(a, b, out, n, AS_PLANES, -1);
 }
 
 void fq_field_add(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) add_lane<Fq>(a, b, out, n, i);
+    host_addsub<Fq, false>(a, b, out, n, AS_PLANES, -1);
 }
 
 void fr_field_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) sub_lane<Fr>(a, b, out, n, i);
+    host_addsub<Fr, true>(a, b, out, n, AS_PLANES, -1);
 }
 
 void fq_field_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, size_t n) {
-    for (size_t i = 0; i < n; ++i) sub_lane<Fq>(a, b, out, n, i);
+    host_addsub<Fq, true>(a, b, out, n, AS_PLANES, -1);
 }
+
+// field_sum (field_kernels.cu) over (K, rows, n) into (K, rows): `blocks`
+// a row (0: the launcher's field_sum_blocks), `four` -1 the launcher's
+// choice of lanes a step, 0 one, 1 four; field_sum_blocks for the tests.
+void field_sum(int words, const uint32_t* v, uint32_t* out, size_t n, size_t rows,
+               size_t blocks, int four) {
+    if (words == 8)
+        host_field_sum<Fr>(v, out, n, rows, blocks, four);
+    else
+        host_field_sum<Fq>(v, out, n, rows, blocks, four);
+}
+
+size_t sum_blocks(size_t n, size_t rows) { return field_sum_blocks(n, rows); }
 
 void fr_butterfly(const uint32_t* e, const uint32_t* o, const uint32_t* w,
                   uint32_t* hi, uint32_t* lo, size_t n) {

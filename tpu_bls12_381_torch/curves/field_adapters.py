@@ -53,10 +53,10 @@ class FqAdapter:
         return fast.mont_sqr(self.spec, a)
 
     def neg(self, a):
-        return ops.neg(self.spec, a)
+        return fast.neg(self.spec, a)
 
     def double(self, a):
-        return ops.add(self.spec, a, a)
+        return fast.double(self.spec, a)
 
     def inv(self, a):
         """Inverse (inv(0) = 0).  From 4096 elements on by Montgomery's trick
@@ -106,6 +106,12 @@ class PlainFqAdapter(FqAdapter):
 
     def sqr(self, a):
         return ops.mont_sqr(self.spec, a)
+
+    def neg(self, a):
+        return ops.neg(self.spec, a)
+
+    def double(self, a):
+        return ops.add(self.spec, a, a)
 
     def inv(self, a):
         return ops.inv_mont(self.spec, a)

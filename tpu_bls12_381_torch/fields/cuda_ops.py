@@ -11,7 +11,12 @@ Counterpart of the JAX package's ``fields/pallas_ops.py``:
   the port ran the ladder one product or square a launch (610 launches for
   Fq): one launch, a thread a lane;
 * ``add`` and ``sub`` take the place of ``_build_add_kernel`` / ``add`` and
-  ``_build_sub_kernel`` / ``sub`` (``fields/pallas_ops.py:401``, ``:411``);
+  ``_build_sub_kernel`` / ``sub`` (``fields/pallas_ops.py:401``, ``:411``),
+  with one operand a (K, 1) column where it is one element; ``double``
+  (a + a) and ``neg`` (0 - a) are the same kernels on one plane;
+* ``field_sum`` takes the place of the add kernel as the JAX package's
+  ``vecops.vector_sum`` chains it (a halving round a launch): the modular
+  sum along the last axis in one or two launches;
 * ``butterfly``, ``butterfly_stages`` and ``butterfly_stage`` take the place
   of ``_build_butterfly_kernel`` / ``butterfly`` (``fields/pallas_ops.py:421``,
   ``:453``).  ``butterfly`` is the TPU kernel's elementwise contract;
@@ -35,19 +40,25 @@ hard.  So ``mont_mul`` and ``mont_sqr`` run the carry-chain product
 (``csrc/field_carry.cuh``), for Fq four lanes a thread with a 16-byte access
 per limb plane (Fr's lighter product reads faster one lane a thread); a
 factor that is one element, a (K, 1) column, is read once a thread and held
-in registers, so such a call moves two planes.  ``add`` and ``sub`` move the same bytes for a few
-additions, and a butterfly moves five elements for one product, so the
-memory binds them outright (PERF.md has the reckoning); they are one thread
-an element on ``csrc/field.cuh``.
+in registers, so such a call moves two planes.  ``add`` and ``sub`` move the
+same bytes for a few additions, so the memory binds them outright: they run
+on the carry flag (``fp_add_cc`` / ``fp_sub_cc`` in ``csrc/field_carry.cuh``),
+four lanes a thread for Fr and one for Fq, and each operand form moves only
+its planes (a column is read once a thread; the doubling and the negation
+read one plane).  A butterfly moves five elements for one product (PERF.md
+has the reckoning); it is one thread an element on ``csrc/field.cuh``.
 
 Each wrapper takes its plain version (``*_plain``, over the int64 ops of
 ``fields/ops.py``) only for tensors on the CPU.  For CUDA tensors it launches
 the kernel or raises; there is no fallback.  The wrappers copy nothing:
-operands must be contiguous and of one shape (``mont_mul``: or a plane and a
-(K, 1) column), and anything else raises (``fields/fast.py`` broadcasts and
-lays out for them).  ``LAUNCHES`` counts kernel launches, and nothing else:
-those of ``mont_mul`` with a column also in ``COLUMN_LAUNCHES`` by (field,
-lanes); the
+operands must be contiguous and of one shape (``mont_mul``, ``add``, ``sub``:
+or a plane and a (K, 1) column), and anything else raises
+(``fields/fast.py`` broadcasts and lays out for them).  ``LAUNCHES`` counts
+kernel launches, and nothing else: those of ``mont_mul``, ``add`` and
+``sub`` with a column also in ``COLUMN_LAUNCHES`` by (kernel, lanes); the
+doubling and the negation under ``double_fr`` / ``double_fq`` and
+``neg_fr`` / ``neg_fq``; ``field_sum``'s one or two under ``sum_fr`` /
+``sum_fq``; the
 elementwise butterfly under ``butterfly_fr`` / ``butterfly_fq``, the
 stages kernel (``butterfly_stage`` too) under ``butterfly_stages`` and, by
 (half, count), in ``STAGE_LAUNCHES``; the inverse under ``field_inv_fr`` /
@@ -68,13 +79,15 @@ from .field import FieldSpec
 LAUNCHES = {"mont_mul_fr": 0, "mont_mul_fq": 0,
             "mont_sqr_fr": 0, "mont_sqr_fq": 0,
             "add_fr": 0, "add_fq": 0, "sub_fr": 0, "sub_fq": 0,
+            "double_fr": 0, "double_fq": 0, "neg_fr": 0, "neg_fq": 0,
+            "sum_fr": 0, "sum_fq": 0,
             "butterfly_fr": 0, "butterfly_fq": 0, "butterfly_stages": 0,
             "field_inv_fr": 0, "field_inv_fq": 0,
             "batch_inverse_fr": 0, "batch_inverse_fq": 0}
 # butterfly_stages' launches by (half, count)
 STAGE_LAUNCHES: dict = {}
-# mont_mul's launches with a (K, 1) column (counted in LAUNCHES too), by
-# (field, lanes)
+# the launches with a (K, 1) column (counted in LAUNCHES too), by (kernel,
+# lanes): "mont_mul_fr", "add_fq", "sub_fq", "sub_fq[column left]", ...
 COLUMN_LAUNCHES: dict = {}
 
 # The most stages one butterfly_stages launch runs (csrc/ntt.cuh).
@@ -97,17 +110,24 @@ def _lib():
     global _CONFIGURED
     lib = _build.library("field_kernels")
     if not _CONFIGURED:
-        for name in ("fr_mont_mul", "fq_mont_mul", "fr_mont_mul_col",
-                     "fq_mont_mul_col", "fr_field_add", "fq_field_add",
-                     "fr_field_sub", "fq_field_sub"):
+        for name in ("mont_mul", "mont_mul_col", "field_add", "field_add_col",
+                     "field_sub", "field_sub_col", "field_sub_col_left"):
+            for sfx in ("fr", "fq"):
+                fn = getattr(lib, f"{sfx}_{name}")
+                fn.argtypes = [_PTR, _PTR, _PTR, ctypes.c_longlong, _PTR]
+                fn.restype = ctypes.c_int
+        for name in ("fr_field_sum", "fq_field_sum"):
             fn = getattr(lib, name)
-            fn.argtypes = [_PTR, _PTR, _PTR, ctypes.c_longlong, _PTR]
+            fn.argtypes = [_PTR] * 3 + [ctypes.c_longlong] * 2 + [_PTR]
             fn.restype = ctypes.c_int
+        lib.field_sum_blocks_per_row.argtypes = [ctypes.c_longlong] * 2
+        lib.field_sum_blocks_per_row.restype = ctypes.c_longlong
         for name in ("fr_butterfly", "fq_butterfly"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR] * 5 + [ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
-        for name in ("fr_mont_sqr", "fq_mont_sqr", "fr_field_inv", "fq_field_inv"):
+        for name in ("fr_mont_sqr", "fq_mont_sqr", "fr_field_inv", "fq_field_inv",
+                     "fr_field_double", "fq_field_double", "fr_field_neg", "fq_field_neg"):
             fn = getattr(lib, name)
             fn.argtypes = [_PTR, _PTR, ctypes.c_longlong, _PTR]
             fn.restype = ctypes.c_int
@@ -186,6 +206,33 @@ def add_plain(spec: FieldSpec, a, b):
 def sub_plain(spec: FieldSpec, a, b):
     """Plain PyTorch version of the ``sub`` kernel."""
     return ops.sub(spec, a, b)
+
+
+def double_plain(spec: FieldSpec, a):
+    """Plain PyTorch version of ``double``: a + a."""
+    return ops.add(spec, a, a)
+
+
+def neg_plain(spec: FieldSpec, a):
+    """Plain PyTorch version of ``neg``: 0 - a."""
+    return ops.neg(spec, a)
+
+
+def field_sum_plain(spec: FieldSpec, v):
+    """Plain PyTorch version of ``field_sum``: the JAX package's
+    ``vecops.vector_sum`` on the plain add, log2 n halving rounds along the
+    last axis (an odd element out carried to the next round)."""
+    n = v.shape[-1]
+    while n > 1:
+        half = n // 2
+        red = ops.add(spec, v[..., :half], v[..., half:2 * half])
+        if n % 2:
+            red = torch.cat([red, v[..., -1:]], dim=-1)
+            n = half + 1
+        else:
+            n = half
+        v = red
+    return v[..., 0]
 
 
 def butterfly_plain(spec: FieldSpec, even, odd, w):
@@ -267,35 +314,114 @@ def _binary(spec: FieldSpec, name: str, entry: str, plain, a, b):
     return _launch(spec, name, entry, a, b)
 
 
+def _is_column(spec: FieldSpec, t) -> bool:
+    return isinstance(t, torch.Tensor) and tuple(t.shape) == (spec.num_limbs, 1)
+
+
+def _with_column(spec: FieldSpec, name: str, entry: str, plain, plane, col, key: str = ""):
+    """``{fr,fq}_<entry>`` on a plane and one (K, 1) column that every lane
+    takes (read once a thread, never laid out as a plane); on the CPU
+    ``plain(plane, the column broadcast)``.  Counted under ``<name>_{fr,fq}``
+    and in ``COLUMN_LAUNCHES`` under (``<name>_{fr,fq}<key>``, lanes)."""
+    K = spec.num_limbs
+    check_limbs(plane, K, f"{name}: plane")
+    check_limbs(col, K, f"{name}: column")
+    if plane.device != col.device:
+        raise ValueError(f"{name}: devices differ ({plane.device}, {col.device})")
+    if not plane.is_cuda:
+        return plain(plane, col.reshape((K,) + (1,) * (plane.dim() - 1)))
+    out = _launch(spec, name, entry, plane, col)
+    k = (f"{name}_{_suffix(spec)}{key}", plane.numel() // K)
+    COLUMN_LAUNCHES[k] = COLUMN_LAUNCHES.get(k, 0) + 1
+    return out
+
+
 def mont_mul(spec: FieldSpec, a, b):
     """Batched Montgomery product a*b*R^-1 mod p on (K, *batch) limbs.
 
     ``b`` is a plane of ``a``'s shape, or one element as a (K, 1) column that
-    every lane of ``a`` takes: the kernel reads it once a thread and holds it
-    in registers, so it is never laid out as a plane."""
-    K = spec.num_limbs
-    if not (isinstance(b, torch.Tensor) and tuple(b.shape) == (K, 1)):
-        return _binary(spec, "mont_mul", "mont_mul", mont_mul_plain, a, b)
-    check_limbs(a, K, "mont_mul: a")
-    check_limbs(b, K, "mont_mul: b")
-    if a.device != b.device:
-        raise ValueError(f"mont_mul: devices differ ({a.device}, {b.device})")
-    if not a.is_cuda:
-        return mont_mul_plain(spec, a, b.reshape((K,) + (1,) * (a.dim() - 1)))
-    out = _launch(spec, "mont_mul", "mont_mul_col", a, b)
-    key = (_suffix(spec), a.numel() // K)
-    COLUMN_LAUNCHES[key] = COLUMN_LAUNCHES.get(key, 0) + 1
-    return out
+    every lane of ``a`` takes."""
+    if _is_column(spec, b):
+        return _with_column(spec, "mont_mul", "mont_mul_col",
+                            lambda p, c: mont_mul_plain(spec, p, c), a, b)
+    return _binary(spec, "mont_mul", "mont_mul", mont_mul_plain, a, b)
 
 
 def add(spec: FieldSpec, a, b):
-    """Batched (a + b) mod p on (K, *batch) limbs, canonical in and out."""
+    """Batched (a + b) mod p on (K, *batch) limbs, canonical in and out.
+
+    ``a`` and ``b`` are planes of one shape, or one of them is one element
+    as a (K, 1) column that every lane of the other takes (read once a
+    thread, never laid out as a plane)."""
+    if _is_column(spec, a) and not _is_column(spec, b):
+        a, b = b, a                                  # the sum commutes
+    if _is_column(spec, b):
+        return _with_column(spec, "add", "field_add_col",
+                            lambda p, c: add_plain(spec, p, c), a, b)
     return _binary(spec, "add", "field_add", add_plain, a, b)
 
 
 def sub(spec: FieldSpec, a, b):
-    """Batched (a - b) mod p on (K, *batch) limbs, canonical in and out."""
+    """Batched (a - b) mod p on (K, *batch) limbs, canonical in and out;
+    either operand may be one element as a (K, 1) column."""
+    if _is_column(spec, b):
+        return _with_column(spec, "sub", "field_sub_col",
+                            lambda p, c: sub_plain(spec, p, c), a, b)
+    if _is_column(spec, a):
+        return _with_column(spec, "sub", "field_sub_col_left",
+                            lambda p, c: sub_plain(spec, c, p), b, a, "[column left]")
     return _binary(spec, "sub", "field_sub", sub_plain, a, b)
+
+
+def double(spec: FieldSpec, a):
+    """Batched (a + a) mod p: the ``add`` kernel on one plane, which it
+    reads once."""
+    check_limbs(a, spec.num_limbs, "double: a")
+    if not a.is_cuda:
+        return double_plain(spec, a)
+    return _launch(spec, "double", "field_double", a)
+
+
+def neg(spec: FieldSpec, a):
+    """Batched (0 - a) mod p, 0 for 0: the ``sub`` kernel on one plane."""
+    check_limbs(a, spec.num_limbs, "neg: a")
+    if not a.is_cuda:
+        return neg_plain(spec, a)
+    return _launch(spec, "neg", "field_neg", a)
+
+
+def field_sum(spec: FieldSpec, v):
+    """The modular sum along the last axis: (K, *batch, n) -> (K, *batch),
+    canonical in and out, n >= 1, ``v`` contiguous.
+
+    On the card one pass over ``v`` (a block sums a grid-stride part of a
+    row in registers, shuffle trees over the warps and their partials, one
+    partial a block) and a second over the partials, or one where a row
+    takes one block: one or two launches, counted under ``sum_{fr,fq}``.
+    Modular addition of canonical values is exact, so the limbs equal the
+    halving tree's (``field_sum_plain``) bit for bit."""
+    K = spec.num_limbs
+    check_limbs(v, K, "field_sum: v")
+    if v.dim() < 2 or v.shape[-1] < 1:
+        raise ValueError(f"field_sum: expected ({K}, *batch, n) with n >= 1, got "
+                         f"{tuple(v.shape)}")
+    if not v.is_cuda:
+        return field_sum_plain(spec, v)
+    n = v.shape[-1]
+    rows = v.numel() // (K * n)
+    out = torch.empty((K,) + tuple(v.shape[1:-1]), dtype=v.dtype, device=v.device)
+    if rows == 0:
+        return out
+    lib, sfx = _lib(), _suffix(spec)
+    G = lib.field_sum_blocks_per_row(n, rows)
+    scratch = (torch.empty((K, rows, G), dtype=v.dtype, device=v.device).data_ptr()
+               if G > 1 else None)
+    with torch.cuda.device(v.device):
+        code = getattr(lib, f"{sfx}_field_sum")(v.data_ptr(), out.data_ptr(), scratch,
+                                                n, rows, stream_ptr(v.device))
+    check_launch(code, f"{sfx}_field_sum")
+    LAUNCHES[f"sum_{sfx}"] += 2 if G > 1 else 1
+    return out
 
 
 def mont_sqr(spec: FieldSpec, a):

@@ -8,8 +8,9 @@ CUDA tensor to the plain version.
 The kernel wrappers take contiguous operands of one shape and raise on
 anything else; the functions here broadcast and lay out for them, so a caller
 may pass views and operands that broadcast, as the JAX package's callers do.
-A factor of the product that is one element is passed as a (K, 1) column,
-which the kernel reads once a thread: it is never laid out as a plane.
+An operand of the product, the add or the sub that is one element is passed
+as a (K, 1) column, which the kernel reads once a thread: it is never laid
+out as a plane.  The doubling and the negation are one-operand launches.
 """
 
 from __future__ import annotations
@@ -27,12 +28,15 @@ def _one_element(c, other) -> bool:
     return c.dim() == other.dim() and all(d == 1 for d in c.shape[1:])
 
 
+def _as_column(spec: FieldSpec, c):
+    return c.reshape(spec.num_limbs, 1).contiguous()
+
+
 def mont_mul(spec: FieldSpec, a, b):
     if _one_element(a, b) and not _one_element(b, a):
         a, b = b, a                                  # the product commutes
     if _one_element(b, a):
-        return cuda_ops.mont_mul(spec, a.contiguous(),
-                                 b.reshape(spec.num_limbs, 1).contiguous())
+        return cuda_ops.mont_mul(spec, a.contiguous(), _as_column(spec, b))
     a, b = torch.broadcast_tensors(a, b)
     return cuda_ops.mont_mul(spec, a.contiguous(), b.contiguous())
 
@@ -42,13 +46,31 @@ def mont_sqr(spec: FieldSpec, a):
 
 
 def add(spec: FieldSpec, a, b):
+    if _one_element(a, b) and not _one_element(b, a):
+        a, b = b, a                                  # the sum commutes
+    if _one_element(b, a):
+        return cuda_ops.add(spec, a.contiguous(), _as_column(spec, b))
     a, b = torch.broadcast_tensors(a, b)
     return cuda_ops.add(spec, a.contiguous(), b.contiguous())
 
 
 def sub(spec: FieldSpec, a, b):
+    if _one_element(b, a) and not _one_element(a, b):
+        return cuda_ops.sub(spec, a.contiguous(), _as_column(spec, b))
+    if _one_element(a, b) and not _one_element(b, a):
+        return cuda_ops.sub(spec, _as_column(spec, a), b.contiguous())
     a, b = torch.broadcast_tensors(a, b)
     return cuda_ops.sub(spec, a.contiguous(), b.contiguous())
+
+
+def double(spec: FieldSpec, a):
+    """a + a, one launch reading one plane on the card."""
+    return cuda_ops.double(spec, a.contiguous())
+
+
+def neg(spec: FieldSpec, a):
+    """0 - a (0 for 0), one launch reading one plane on the card."""
+    return cuda_ops.neg(spec, a.contiguous())
 
 
 def butterfly(spec: FieldSpec, even, odd, w):

@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``vecops.py``: add/sub/mul/scalar-mul/
 scalar-add, the modular sum, the bit-reverse permutation, and batch inversion
 by Montgomery's trick.  The field ops go through ``fields/fast.py``, so on
-CUDA tensors every add, sub and product is one of the port's kernels; what
-lies between them (slices, concatenations, gathers, selects) is plain torch.
+CUDA tensors every add, sub and product is one of the port's kernels (a
+scalar is read as a (K, 1) column, never laid out as a vector); what lies
+between them (slices, concatenations, gathers, selects) is plain torch.  The
+modular sum is one reduction (``cuda_ops.field_sum``: one or two launches on
+the card) where the JAX package makes a halving round of adds a launch.
 
 Batch inversion keeps the JAX package's three phases (inclusive prefix
 products down the rows of an (R, L) tiling, one Fermat inversion of the grand
@@ -56,20 +59,14 @@ def scalar_vec_add(spec: FieldSpec, s, v):
 def vector_sum(spec: FieldSpec, v):
     """Modular sum of a field vector (K, ..., n) -> (K, ...).
 
-    A tree of log2(n) halving rounds of modular adds; an odd element out is
-    carried to the next round.
+    One reduction along the last axis (``cuda_ops.field_sum``; on the CPU its
+    plain version, the JAX package's tree of log2(n) halving rounds).  A
+    sum is exact, so the limbs are the tree's whatever the association.
+    n == 1 returns ``v[..., 0]`` and launches nothing, as the tree does.
     """
-    n = v.shape[-1]
-    while n > 1:
-        half = n // 2
-        red = fast.add(spec, v[..., :half], v[..., half:2 * half])
-        if n % 2:
-            red = torch.cat([red, v[..., -1:]], dim=-1)
-            n = half + 1
-        else:
-            n = half
-        v = red
-    return v[..., 0]
+    if v.shape[-1] == 1:
+        return v[..., 0]
+    return cuda_ops.field_sum(spec, v.contiguous())
 
 
 # -- bit reverse ---------------------------------------------------------------
