@@ -47,7 +47,22 @@ algorithms from 2^10 to 2^24 (``ntt_crossover``); then the vector ops at
 2^22 (``vector_sum`` one ``field_sum`` reduction, held to the host's sum and,
 on (16, 2, 2^16) with a row of r - 1, to the halving tree; whole calls of
 ``vector_add``, ``vector_sub``, ``vector_sum`` and ``scalar_vec_add`` by CUDA
-events).  (The NTT's folds and its builds not kept are timed by
+events); then the scale-out layer (``parallel``) on one rank over NCCL (a
+group of one on a TCP store at 127.0.0.1, destroyed at the phase's end;
+``init_distributed()`` with no coordinator returns False first):
+``msm_g1_sharded`` over 4 chunks of msm_2e20's points with GLV, the factor-2
+form as ``precompute`` lays it out (GLV-extended, expanded, 4 segments a
+chunk) and the points as one chunk, each held by value to ``msm_g1`` and to
+the host's point, the launches to 4 times a chunk's plan, the ``all_gather``
+and ``jadd`` counts; ``msm_g2_sharded`` over 4 chunks of 2^16 G2 points
+against ``msm_g2``; ``ntt_sharded`` at 2^22 natural and
+transposed, both inverses, the coset forms and ``ntt_batch_sharded`` on
+(16, 4, 2^20), each held with ``torch.equal`` to ``ntt``, ``coset_ntt`` or
+the input, with 3 (transposed: 2) ``all_to_all_single`` calls; each timed in
+turns with its one-device call by CUDA events; then a row for each kernel
+shape of these paths that no row had (the chunks' scans, tail adds and
+doubling chains, the combine's ``jadd`` on 2 and 1 lanes, the add and sub
+forms), and a line naming the rows that already held the others.  (The NTT's folds and its builds not kept are timed by
 ``python3 -m tpu_bls12_381_torch.ntt.sweeps``.)  Then SRS point validation
 (``points_2e20``): 2^20 G1 points with planted non-members, off-curve points and an identity, written to
 wire bytes and read back on the card, checked with ``is_on_curve_affine`` and
@@ -145,7 +160,7 @@ LOG_N = 20             # the MSM path's point count, 2^20: never cut
 NTT_LOG_N = 22         # the NTT path's size, 2^22 Fr elements: never cut
 PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_ctx_small",
           "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
-          "points_2e20", "entry"]
+          "parallel", "points_2e20", "entry"]
 G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
 PLAIN_ONCE_MS = 5_000   # a plain call this long is timed once (kernel_row)
 LATE = "g2_padd_scan"   # the source the build phase does not wait for
@@ -1515,6 +1530,10 @@ def main() -> int:
     BINV_SRC = "tpu_bls12_381_torch/csrc/batch_inverse.cu"
     dbl_mads = 6 * mul_mads(W_FQ) + 2 * sqr_mads(W_FQ)     # one doubling, 6M + 2S
     dbl2_mads = 22 * mul_mads(W_FQ)                        # one G2 doubling, 22 Fq products
+    # jadd: the sum with its doubling (13M + 10S), the add alone (11M + 5S)
+    jadd_mads = 13 * mul_mads(W_FQ) + 10 * sqr_mads(W_FQ)
+    jadd_add_mads = 11 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
+    JAC_SRC = "tpu_bls12_381_torch/csrc/g1_jac_kernels.cu"
 
     def seconds_median(fn, reps=3):
         """Median host seconds of ``fn()`` to a synchronised end."""
@@ -2927,6 +2946,355 @@ def main() -> int:
     if args.upto == "vecops":
         return stop_early()
 
+    # ---------------------------------------------------------------- parallel
+    # The scale-out layer (parallel/, msm_chunked) on one rank over NCCL: a
+    # world of one on the card, whose collectives run through the group.
+    # Each sharded result is held to its one-device counterpart: the MSMs by
+    # value (the chunks' association changes Z), the NTT forms with
+    # torch.equal.  Times in turns with the one-device calls, by CUDA events.
+    import socket
+
+    import torch.distributed as dist
+
+    from tpu_bls12_381_torch import parallel
+    from tpu_bls12_381_torch.msm import expand_bases, pippenger
+    from tpu_bls12_381_torch.parallel import mesh as mesh_mod
+    from tpu_bls12_381_torch.parallel.msm import chunk_msm_inputs
+    from tpu_bls12_381_torch.parallel.ntt import release_sharded_caches, split_sizes
+
+    def events_ms(fn):
+        """One call of ``fn`` in milliseconds, by CUDA events."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def in_turns(fns, rounds):
+        """{name: median ms} of ``rounds`` rounds, each calling every fn once
+        in order (a warm call each first), and each round's readings."""
+        for fn in fns.values():
+            fn()
+        each = {k: [] for k in fns}
+        for _ in range(rounds):
+            for k, fn in fns.items():
+                each[k].append(events_ms(fn))
+        return {k: statistics.median(v) for k, v in each.items()}, each
+
+    def counted_par(fn, shapes=None):
+        """``fn()`` inside the guard, with the kernel launches and the
+        collectives counted from 0; the add and sub calls by form and shape
+        are added to ``shapes`` (``field_shapes``)."""
+        reset_counts()
+        mesh_mod.reset_collectives()
+        with guarded("parallel"), field_shapes() as seen_:
+            out = fn()
+            torch.cuda.synchronize()
+        if shapes is not None:
+            for k_, v_ in seen_.items():
+                shapes[k_] = shapes.get(k_, 0) + v_
+        return out, {k: v for k, v in counts().items() if v}, dict(mesh_mod.COLLECTIVES)
+
+    saved_env = {k: os.environ.pop(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                                                  "RANK", "LOCAL_RANK") if k in os.environ}
+    t_par = time.perf_counter()
+    no_coordinator = parallel.init_distributed()
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    joined = parallel.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    shapes_par = {"g1": {}, "g2": {}}
+    try:
+        mesh = parallel.default_mesh()
+        mesh_ok = (mesh.rank, mesh.size, mesh.device, mesh.group is not None,
+                   dist.get_backend()) == (0, 1, dev, True, "nccl")
+        if no_coordinator or not joined or not mesh_ok:
+            raise AssertionError(f"parallel: init_distributed without a coordinator "
+                                 f"{no_coordinator}, with one {joined}, mesh {mesh}")
+        # G1: msm_2e20's points and scalars
+        s_std = torch.from_numpy(limbs).to(dev)
+        s_mont = cuda_ops.mont_mul(FR, s_std, ops.broadcast_constant(FR, FR.r2_limbs, (n,), dev))
+        del s_std
+        A = tiled_affine(n)
+        expected = oracle.jac_to_affine(
+            oracle.scalar_mul(host_scalar_total(ks), G, oracle.FQ_OPS), oracle.FQ_OPS)
+        ints1 = lambda P: g1.jacobian_to_ints(tuple(c[:, None] for c in P))[0]
+        D = 4
+        sc4, A4 = chunk_msm_inputs(s_mont, A, D)
+        nloc = n // D
+        geo_c = msm_geometry(nloc, True, F=FQ_ADAPTER, device=dev)   # a chunk's plan
+        w_c = geo_c["w"]
+        P1 = msm_g1(s_mont, A)
+        Ps, launches_s, coll_s = counted_par(
+            lambda: parallel.msm_g1_sharded(sc4, A4, mesh, glv=True), shapes_par["g1"])
+        scans_s, chains_s = scan_counts(), chain_counts()
+        # factor 2 as precompute lays it out: GLV-extend, expand, 4 segments a chunk
+        w_f = pippenger.window_bits_for(2 * nloc, FQ_ADAPTER, dev)
+        with guarded("parallel"):
+            Ae = expand_bases(FQ_ADAPTER, pippenger.glv_extend_bases(FQ_ADAPTER, A), w_f, 2,
+                              pippenger.GLV_HALF_BITS_STATIC)
+        scf, Af = chunk_msm_inputs(s_mont, Ae, D, segments=4)
+        del Ae
+        Pf, launches_f, coll_f = counted_par(
+            lambda: parallel.msm_g1_sharded(scf, Af, mesh, window_bits=w_f, glv=True, factor=2),
+            shapes_par["g1"])
+        scans_f, chains_f = scan_counts(), chain_counts()
+        geo_f = msm_geometry(nloc, True, F=FQ_ADAPTER, device=dev, window_bits=w_f,
+                             factor=2, cached=True)
+        sc1, A1 = chunk_msm_inputs(s_mont, A, 1)
+        Pp, launches_p, coll_p = counted_par(
+            lambda: parallel.msm_g1_sharded(sc1, A1, mesh, glv=True), shapes_par["g1"])
+        # the chunk points that the combine's jadd rows take
+        with guarded("parallel"):
+            P_chunks = tuple(c.movedim(0, -1).contiguous() for c in pippenger.msm_chunked(
+                FQ_ADAPTER, sc4, A4, glv=True))                          # (24, D) leaves
+        got = {"msm_g1": ints1(P1), "sharded_4": ints1(Ps), "factor2_4": ints1(Pf),
+               "one_chunk": ints1(Pp)}
+        g1_ok = all(v == expected for v in got.values())
+        with guarded("parallel"):
+            ms_g1, each_g1 = in_turns({
+                "msm_g1": lambda: msm_g1(s_mont, A),
+                "msm_g1_sharded_4": lambda: parallel.msm_g1_sharded(sc4, A4, mesh, glv=True),
+                "msm_g1_sharded_factor2_4": lambda: parallel.msm_g1_sharded(
+                    scf, Af, mesh, window_bits=w_f, glv=True, factor=2),
+                "msm_g1_sharded_1": lambda: parallel.msm_g1_sharded(sc1, A1, mesh,
+                                                                    glv=True)}, 3)
+        del P1, Ps, Pf, Pp, A, sc1, A1
+        # the launches against a chunk's plan: D times its scans and tail
+        tail_c = geo_c["tail_launches"]
+        plan_ok = (launches_s.get("pmadd_signed") == D * geo_c["scan_launches"]
+                   and launches_s.get("padd_scan") == D * tail_c["padd_scan"]
+                   and launches_f.get("pmadd_signed") == D * geo_f["scan_launches"]
+                   and launches_s.get("jadd") == 2 and launches_f.get("jadd") == 2
+                   and coll_s["all_gather"] == 3
+                   and launches_p.get("jadd", 0) == 0 and coll_p["all_gather"] == 3)
+        emit({"phase": "parallel", "what": "G1 MSM, 2^20 points", "equal": g1_ok,
+              "launches_as_planned": plan_ok, "mesh": [mesh.rank, mesh.size, str(mesh.device)],
+              "chunks": D, "chunk_plan": {k: geo_c[k] for k in ("glv", "w", "T", "L", "R",
+                                                                 "scan_launches",
+                                                                 "tail_launches")},
+              "factor2_window": w_f,
+              "factor2_chunk_plan": {k: geo_f[k] for k in ("w", "T", "L", "R", "nb",
+                                                            "scan_launches")},
+              "ms_median_of_3_in_turns": ms_g1, "ms_each": each_g1,
+              "launches_sharded_4": launches_s, "launches_factor2_4": launches_f,
+              "launches_one_chunk": launches_p,
+              "collectives": {"sharded_4": coll_s, "factor2_4": coll_f, "one_chunk": coll_p},
+              "jadd": {"sharded_4": launches_s.get("jadd", 0),
+                       "factor2_4": launches_f.get("jadd", 0),
+                       "one_chunk": launches_p.get("jadd", 0)}, "card": smi})
+        if not (g1_ok and plan_ok):
+            raise AssertionError(f"parallel: the sharded G1 MSM differs or did not follow "
+                                 f"the chunks' plan: {got} (host {expected}), {plan_ok}")
+        # G2: 2^16 points at D = 4
+        n16 = 1 << 16
+        A2s, s16 = tiled_affine_g2(n16), s_mont[:, :n16].contiguous()
+        sc2, A24 = chunk_msm_inputs(s16, A2s, D)
+        geo_c2 = msm_geometry(n16 // D, F=FQ2_ADAPTER, device=dev)
+        with guarded("parallel"):
+            P2 = msm_g2(s16, A2s)
+        P2s, launches_2s, coll_2s = counted_par(lambda: parallel.msm_g2_sharded(sc2, A24, mesh),
+                                                shapes_par["g2"])
+        scans_2s, chains_2s = scan_counts(cuda_g2), chain_counts(cuda_g2)
+        g2_ok = g2_ints(P2s) == g2_ints(P2)
+        plan2_ok = (launches_2s.get("pmadd2") == D * geo_c2["scan_launches"]
+                    and launches_2s.get("padd2_scan") == D * geo_c2["tail_launches"]["padd2_scan"]
+                    and coll_2s["all_gather"] == 3)
+        with guarded("parallel"):
+            ms_g2, each_g2 = in_turns({
+                "msm_g2": lambda: msm_g2(s16, A2s),
+                "msm_g2_sharded_4": lambda: parallel.msm_g2_sharded(sc2, A24, mesh)}, 3)
+        emit({"phase": "parallel", "what": "G2 MSM, 2^16 points", "equal": g2_ok,
+              "launches_as_planned": plan2_ok, "chunks": D,
+              "chunk_plan": {k: geo_c2[k] for k in ("w", "T", "L", "R", "scan_launches",
+                                                     "tail_launches")},
+              "ms_median_of_3_in_turns": ms_g2, "ms_each": each_g2,
+              "launches_sharded_4": launches_2s, "collectives": coll_2s, "card": smi})
+        if not (g2_ok and plan2_ok):
+            raise AssertionError("parallel: the sharded G2 MSM differs from msm_g2 or did not "
+                                 "follow the chunks' plan")
+        del P2, P2s, A2s, s16, sc2, A24, s_mont
+        # NTT at 2^22
+        x22 = rand_field(FR, n22)
+        nA22, nB22 = split_sizes(NTT_LOG_N, mesh.size)
+        shift = constants.FR_MULTIPLICATIVE_GENERATOR
+        with guarded("parallel"):
+            nat = ntt(x22)
+            y_n, launches_n, coll_n = counted_par(lambda: parallel.ntt_sharded(x22, mesh))
+            y_t, launches_t, coll_t = counted_par(
+                lambda: parallel.ntt_sharded(x22, mesh, transposed_out=True))
+            # launches of a call once the step twiddles are cached
+            _, launches_n2, _ = counted_par(lambda: parallel.ntt_sharded(x22, mesh))
+            checks = {
+                "natural": torch.equal(y_n, nat),
+                "transposed": torch.equal(y_t.reshape(16, nB22, nA22),
+                                          nat.reshape(16, nA22, nB22).transpose(1, 2)),
+                "intt natural": torch.equal(parallel.intt_sharded(y_n, mesh), x22),
+                "intt transposed": torch.equal(
+                    parallel.intt_sharded(y_t, mesh, transposed_in=True), x22)}
+            del nat, y_n, y_t
+            ev = coset_ntt(x22, shift)
+            checks["coset_ntt"] = torch.equal(parallel.coset_ntt_sharded(x22, mesh, shift), ev)
+            checks["coset_intt"] = torch.equal(parallel.coset_intt_sharded(ev, mesh, shift),
+                                               coset_intt(ev, shift))
+            del ev
+            xb = x22.reshape(16, 4, n22 // 4)
+            checks["ntt_batch_sharded"] = torch.equal(parallel.ntt_batch_sharded(xb, mesh),
+                                                      ntt(xb))
+            ms_ntt, each_ntt = in_turns({
+                "ntt_sharded": lambda: parallel.ntt_sharded(x22, mesh),
+                "ntt_sharded_transposed": lambda: parallel.ntt_sharded(
+                    x22, mesh, transposed_out=True),
+                "ntt": lambda: ntt(x22)}, 5)
+        ntt_plan_ok = ((coll_n["all_to_all_single"], coll_t["all_to_all_single"]) == (3, 2)
+                       and launches_n2 == {"ntt_tile": 2, "mont_mul_fr": 1})
+        emit({"phase": "parallel", "what": "NTT, 2^22", "equal": all(checks.values()),
+              "checks": checks, "split": [nA22, nB22], "collectives_as_planned": ntt_plan_ok,
+              "ms_median_of_5_in_turns": ms_ntt, "ms_each": each_ntt,
+              "launches_first_call": launches_n, "launches_cached": launches_n2,
+              "launches_transposed": launches_t,
+              "collectives": {"natural": coll_n, "transposed": coll_t}, "card": smi})
+        if not (all(checks.values()) and ntt_plan_ok):
+            raise AssertionError(f"parallel: the sharded NTT: {checks}, collectives "
+                                 f"{coll_n}, {coll_t}, launches {launches_n2}")
+        del x22, xb
+        release_sharded_caches()
+        release_domain()
+        release_coset_cache()
+    finally:
+        dist.destroy_process_group()
+        os.environ.update(saved_env)
+    emit({"phase": "parallel", "what": "the phase", "seconds": time.perf_counter() - t_par,
+          "process_group_destroyed": not dist.is_initialized()})
+    torch.cuda.empty_cache()
+    # A row for each kernel shape of the phase's paths that no row has yet;
+    # the shapes that a row already holds are named in a line.
+    def row_at(kernel, shape, **match):
+        """The name of a row of ``kernel`` (named ``kernel`` or
+        ``kernel[...]``) at ``shape`` and the ``match`` values, or None."""
+        for r in rows:
+            base = r["name"].rsplit("[", 1)[0] if r["name"].endswith("]") else r["name"]
+            if (base == kernel and list(r["shape"]) == list(shape)
+                    and all(r.get(k) == v for k, v in match.items())):
+                return r["name"]
+        return None
+
+    covered = {}
+
+    def new_scan_shapes(kernel, by_shape):
+        """The (mode, shape) entries of ``by_shape`` that no row of
+        ``kernel`` has (its rows' mode and shape)."""
+        have = {(json.dumps(r.get("mode"), sort_keys=True), tuple(r["shape"]))
+                for r in rows if r["name"].startswith(kernel + "[")}
+        out = {}
+        for (mode_name, shape_), k_ in by_shape.items():
+            key = (json.dumps(scan_kw[mode_name], sort_keys=True), tuple(shape_))
+            if key not in have:
+                out[(mode_name, shape_)] = k_
+            else:
+                covered[f"{kernel} {mode_name} {list(shape_)}"] = "a padd_scan row"
+        return out
+
+    def tail_add_row(curve, tag, path, nb_, n_launches):
+        """``padd`` (G2: ``padd2``) at a chunk tail's widest call, 2 nb lanes."""
+        kernel_, F_, tiled_, elem_ = (("padd2", FQ2_PLAIN, tiled_affine_g2, 48) if curve == "g2"
+                                      else ("padd", FQ_PLAIN, tiled_affine, 24))
+        shape_ = [24, 2, 2 * nb_] if curve == "g2" else [24, 2 * nb_]
+        have_ = row_at(kernel_, shape_)
+        if have_:
+            covered[f"{kernel_} {shape_} ({tag})"] = have_
+            return
+        A_ = tiled_(2 * nb_)
+        P_ = contig(pj.proj_double(F_, pj.affine_to_proj(F_, A_)))
+        Q_ = contig(pj.affine_to_proj(F_, roll(A_, 1)))
+        kern_, plain_ = ((cuda_g2.padd2, cuda_g2.padd2_plain) if curve == "g2"
+                         else (cuda_g1.padd, cuda_g1.padd_plain))
+        kernel_row(f"{kernel_}[{tag}]", f"{kernel_}_kernel",
+                   G2_SRC + "g2_padd.cu" if curve == "g2" else G1_SRC,
+                   "tpu_bls12_381/curves/pallas_g2.py:201" if curve == "g2"
+                   else "tpu_bls12_381/curves/pallas_g1.py:465", shape_,
+                   lambda: kern_(P_, Q_), lambda: plain_(P_, Q_),
+                   9 * elem_ * 2 * nb_, 0,
+                   2 * nb_ * (36 if curve == "g2" else 12) * mul_mads(W_FQ), 20,
+                   n_launches=n_launches, path=path)
+
+    def chain_rows(curve, tag, path, by_times):
+        """``pdbl`` (G2: ``pdbl2``) on one lane at each chain length the path
+        ran that no row has, with the path's launches of that length."""
+        kernel_ = "pdbl2" if curve == "g2" else "pdbl"
+        shape_ = [24, 2, 1] if curve == "g2" else [24, 1]
+        P_ = proj_points((1,), curve)
+        kern_, plain_ = ((cuda_g2.pdbl2, cuda_g2.pdbl2_plain) if curve == "g2"
+                         else (cuda_g1.pdbl, cuda_g1.pdbl_plain))
+        for times, k_ in sorted(by_times.items()):
+            have_ = row_at(kernel_, shape_, times=times)
+            if have_:
+                covered[f"{kernel_} times={times} ({tag})"] = have_
+                continue
+            kernel_row(f"{kernel_}[{tag}: times {times}]", f"{kernel_}_kernel",
+                       G2_SRC + "g2_pdbl.cu" if curve == "g2" else G1_SRC,
+                       "tpu_bls12_381/curves/pallas_g2.py:219" if curve == "g2"
+                       else "tpu_bls12_381/curves/pallas_g1.py:478", shape_,
+                       lambda: kern_(P_, times), lambda: plain_(P_, times),
+                       6 * (48 if curve == "g2" else 24), 0,
+                       times * (dbl2_mads if curve == "g2" else dbl_mads), 50,
+                       n_launches=k_, path=path, times=times,
+                       equal_at_2e16=chain_equal(times, curve))
+
+    path_s = "parallel: msm_g1_sharded, 4 chunks of 2^18"
+    path_f = "parallel: msm_g1_sharded factor 2, 4 chunks of 2^18"
+    path_2 = "parallel: msm_g2_sharded, 4 chunks of 2^14"
+    scan_row_g1("pmadd_signed[parallel]", path_s, geo_c["R"], geo_c["L"],
+                launches_s.get("pmadd_signed", 0))
+    fresh = new_scan_shapes("padd_scan", scans_s)
+    scan_rows("parallel", path_s, fresh, sum(fresh.values()))
+    if row_at("pmadd_signed", [geo_f["R"], 24, geo_f["L"]]):
+        covered[f"pmadd_signed {[geo_f['R'], 24, geo_f['L']]} (factor 2)"] = row_at(
+            "pmadd_signed", [geo_f["R"], 24, geo_f["L"]])
+    else:
+        scan_row_g1("pmadd_signed[parallel factor2]", path_f, geo_f["R"], geo_f["L"],
+                    launches_f.get("pmadd_signed", 0))
+    fresh_f = new_scan_shapes("padd_scan", scans_f)
+    scan_rows("parallel factor2", path_f, fresh_f, sum(fresh_f.values()))
+    tail_add_row("g1", "parallel", path_s, geo_c["nb"], launches_s.get("padd", 0))
+    tail_add_row("g1", "parallel factor2", path_f, geo_f["nb"], launches_f.get("padd", 0))
+    chain_rows("g1", "parallel", path_s, chains_s)
+    chain_rows("g1", "parallel factor2", path_f, chains_f)
+    # the combine: sum_reduce of the 4 chunk points, jadd on 2 lanes then 1
+    # (no lane with P == Q, so the add alone bounds it)
+    for lanes_, Jl_, Jr_ in ((2, contig(c[:, :2] for c in P_chunks),
+                              contig(c[:, 2:] for c in P_chunks)),
+                             (1, contig(c[:, :1] for c in P_chunks),
+                              contig(c[:, 1:2] for c in P_chunks))):
+        kernel_row(f"jadd[parallel: {lanes_} lane{'s' if lanes_ > 1 else ''}]", "jadd_kernel",
+                   JAC_SRC, "tpu_bls12_381/curves/pallas_g1.py:252", [24, lanes_],
+                   lambda: cuda_g1.jadd(Jl_, Jr_), lambda: cuda_g1.jadd_plain(Jl_, Jr_),
+                   9 * 24 * lanes_, 0, lanes_ * jadd_add_mads, 20, n_launches=1,
+                   path=f"{path_s}: the combine of the chunk points (one launch a "
+                        f"round; the factor-2 run the same)", equal=True,
+                   bound_ms_with_doubling=bound(9 * 24 * lanes_ * LIMB_BYTES,
+                                                lanes_ * jadd_mads)[0])
+    del P_chunks
+    scan_row_g2("pmadd2[parallel]", path_2, geo_c2["R"], geo_c2["L"],
+                launches_2s.get("pmadd2", 0))
+    fresh2 = new_scan_shapes("padd2_scan", scans_2s)
+    scan_rows("parallel", path_2, fresh2, sum(fresh2.values()), curve="g2")
+    tail_add_row("g2", "parallel", path_2, geo_c2["nb"], launches_2s.get("padd2", 0))
+    chain_rows("g2", "parallel", path_2, chains_2s)
+    for curve_, path_ in (("g1", "parallel: the G1 runs"), ("g2", path_2)):
+        for (key, shape), k_ in sorted(shapes_par[curve_].items()):
+            have_ = row_at(key, shape)
+            if have_:
+                covered[f"{key} {list(shape)}"] = have_
+            else:
+                addsub_row(key, shape, k_, f"{path_}, {k_} calls at this shape")
+    emit({"phase": "parallel", "what": "kernel shapes that a row already held",
+          "covered": covered})
+    if args.upto == "parallel":
+        return stop_early()
+
     # -------------------------------------------------------------- points_2e20
     # SRS point validation, what a prover runs on an SRS it has read as bytes:
     # 2^20 G1 points (a K=20 circuit's SRS) written to wire bytes and read back
@@ -3121,10 +3489,8 @@ def main() -> int:
     # at the shapes points_2e20 gives them.  Since the ladder, no driven path
     # launches madd or jdbl (their routers, jac_add_affine_fast and
     # jac_double_fast, have no caller there): their rows say 0 launches.
-    JAC_SRC = "tpu_bls12_381_torch/csrc/g1_jac_kernels.cu"
     jdbl_mads = 2 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
     madd_mads = 9 * mul_mads(W_FQ) + 9 * sqr_mads(W_FQ)
-    jadd_mads = 13 * mul_mads(W_FQ) + 10 * sqr_mads(W_FQ)
     # The doubling inside madd and jadd serves only the P == A (P == Q) lanes,
     # and both compute it only in a warp that holds such a lane.  madd's rows
     # have no such lane past warp 0, so their bound is the add alone (7M + 4S),
@@ -3133,7 +3499,6 @@ def main() -> int:
     # round every lane, since the tiled points repeat every 4096 lanes): their
     # bound counts the doubling, the add alone (11M + 5S) beside it.
     madd_add_mads = 7 * mul_mads(W_FQ) + 4 * sqr_mads(W_FQ)
-    jadd_add_mads = 11 * mul_mads(W_FQ) + 5 * sqr_mads(W_FQ)
     madd_with = lambda lanes: bound(8 * 24 * lanes * LIMB_BYTES + lanes,
                                     lanes * madd_mads)[0]
     jadd_alone = lambda lanes: bound(9 * 24 * lanes * LIMB_BYTES, lanes * jadd_add_mads)[0]

@@ -48,8 +48,9 @@ few lanes; that part is bound by launch latency.  A chain of doublings
 span) is, on the card, one launch (``projective.proj_double_n_fast``:
 ``pdbl`` for G1, ``pdbl2`` for G2).
 
-Not ported: ``msm_chunked`` and ``msm_traceable`` (the JAX package's
-pmap/trace forms).
+``msm_chunked`` runs the same pipeline over a leading chunk axis, one partial
+MSM a chunk (the scale-out layer's local step, ``parallel/msm.py``).  Not
+ported: ``msm_traceable`` (the JAX package's one-trace form).
 """
 
 from __future__ import annotations
@@ -727,7 +728,7 @@ def msm(F, scalars, A, *, window_bits: int | None = None,
     Horner ladder and the Jacobian conversion run once.
     """
     _check_inputs(F, scalars, A)
-    x, y, inf = A
+    inf = A[2]
     n = inf.shape[-1]
     if n > (1 << constants.MAX_MSM_LOG_SIZE):
         raise ValueError(f"MSM size {n} exceeds 2^{constants.MAX_MSM_LOG_SIZE}")
@@ -735,14 +736,22 @@ def msm(F, scalars, A, *, window_bits: int | None = None,
         with stage("from_mont"):
             scalars = fast.from_mont(FR, scalars)
     geo = msm_geometry(n, glv, F, inf.device, window_bits)
-    w, per = geo["w"], geo["per"]
+    w = geo["w"]
+    return _horner_to_jac(F, _pieces_window_sums(F, scalars, A, w, geo["glv"], geo["per"]), w)
+
+
+def _pieces_window_sums(F, scalars_std, A, w: int, glv: bool, per: int):
+    """Window sums over sequential point-chunks of ``per`` points (the
+    budget's pieces): each piece's sums fold into a running total."""
+    x, y, inf = A
+    n = inf.shape[-1]
     Ws = None
     for s in range(0, n, per):
         e = min(s + per, n)
         Ai = (x[..., s:e], y[..., s:e], inf[s:e])
-        Wi = _msm_window_sums(F, scalars[..., s:e], Ai, w, geo["glv"])
+        Wi = _msm_window_sums(F, scalars_std[..., s:e], Ai, w, glv)
         Ws = Wi if Ws is None else _r_ws_add(F, Ws, Wi)
-    return _horner_to_jac(F, Ws, w)
+    return Ws
 
 
 def _window_sums_from_keys(F, keys, A, w: int):
@@ -984,3 +993,71 @@ def msm_batch_shared(F, scalars_b, A, *, window_bits: int | None = None,
              for s in range(0, B, geo["per_group"])]
     Ws = tuple(torch.cat([p[c] for p in parts], dim=-1) for c in range(3))
     return _horner_to_jac(F, Ws, w)
+
+
+# -----------------------------------------------------------------------------
+# Chunked MSM: the same pipeline over a leading chunk axis, one partial MSM a
+# chunk.  The scale-out layer's local step (parallel/msm.py): a rank runs its
+# chunks here, and the chunk points are gathered and summed there.
+# -----------------------------------------------------------------------------
+
+
+def _chunk_msm(F, scalars, A, w: int, scalars_montgomery: bool, glv: bool,
+               factor: int):
+    """One chunk's partial MSM at window bits w, in pieces where the chunk
+    does not fit the memory budget: :func:`msm`'s pipeline for factor 1
+    (GLV-extending the chunk's bases here), :func:`msm_precomputed`'s against
+    bases the caller expanded (and GLV-extended) for factor > 1."""
+    inf = A[2]
+    if factor > 1:
+        n = inf.shape[-1] // (factor * (2 if glv else 1))
+        geo = msm_geometry(n, glv, F, inf.device, w, factor=factor, cached=True)
+        scalars, num_bits = _cached_scalars(scalars, scalars_montgomery, glv)
+        Ws = _sliced_window_sums(F, scalars, A, w, factor, num_bits, geo["per"])
+    else:
+        if scalars_montgomery:
+            with stage("from_mont"):
+                scalars = fast.from_mont(FR, scalars)
+        geo = msm_geometry(inf.shape[-1], glv, F, inf.device, w)
+        Ws = _pieces_window_sums(F, scalars, A, w, glv, geo["per"])
+    return _horner_to_jac(F, Ws, w)
+
+
+def msm_chunked(F, scalars_c, A_c, *, window_bits: int | None = None,
+                scalars_montgomery: bool = True, glv: bool = False,
+                factor: int = 1):
+    """MSM over chunked inputs; returns per-chunk Jacobian points (D leading).
+
+    scalars_c: (D, 16, mloc) int32; A_c leaves (D, *elem, nloc) / inf
+    (D, nloc), as ``parallel.msm.chunk_msm_inputs`` lays them out.  Result: a
+    Jacobian point batch with leaves (D, *elem), one partial MSM a chunk;
+    group-add them for the total (``parallel/msm.py::_combine_chunks``).
+
+    Every chunk shares one geometry, the JAX package's: window bits from the
+    chunk's points (after the GLV extension, over the factor), and the window
+    count of the scalars' bit length.  ``glv`` (G1 only) splits each chunk's
+    scalars to the GLV halves and, for factor 1, extends its bases with the
+    endomorphism image in the chunk.  ``factor`` > 1: ``A_c`` holds bases
+    already expanded by :func:`expand_bases` (with this ``window_bits`` and
+    ``factor`` and, when ``glv``, GLV-extended before the expansion), chunked
+    with ``segments = factor * (2 if glv else 1)``.  A chunk that does not fit
+    the device's memory budget runs in sequential pieces, as :func:`msm` does.
+
+    The D chunks run on the inputs' device, one after another (the JAX
+    package's ``mapper="vmap"``).  There is no ``mapper``: several devices
+    are several processes, one a device, each passing its own chunks
+    (``parallel/msm.py``).
+    """
+    x, y, inf = A_c
+    D, nloc = inf.shape[0], inf.shape[-1]
+    if not (scalars_c.shape[0] == x.shape[0] == y.shape[0] == D):
+        raise ValueError("msm_chunked: scalars, x, y and inf disagree on the chunk count")
+    glv = glv and F is FQ_ADAPTER
+    factor = max(int(factor), 1)
+    # points per chunk after the in-chunk GLV extension (factor > 1 bases
+    # arrive extended)
+    n_eff = nloc * (2 if glv and factor == 1 else 1)
+    w = window_bits or window_bits_for(n_eff // factor, F, inf.device)
+    out = [_chunk_msm(F, scalars_c[d], (x[d], y[d], inf[d]), w, scalars_montgomery,
+                      glv, factor) for d in range(D)]
+    return tuple(torch.stack([P[c] for P in out]) for c in range(3))

@@ -244,17 +244,23 @@ def _step_w(log_n: int, nA: int, nB: int, inverse: bool, device):
     w = root_of_unity(log_n)
     if inverse:
         w = pow(w, FR.modulus - 2, FR.modulus)
-    cur = _powers_on_device(w, nA, device)               # (K, nA) = w^a
-    Pm = ops.one_mont(FR, (nA, 1), device)
+    W = step_rows(_powers_on_device(w, nA, device), nB)  # rows from w^a
+    with _LOCK:
+        _W_CACHE[key] = W
+    return W
+
+
+def step_rows(cur, nB: int):
+    """Rows [v^0, v^1, .., v^(nB-1)] for each entry v of ``cur`` (K, rows),
+    Montgomery, (K, rows, nB): log2(nB) doubling steps, each a product of the
+    columns so far by v^(their count) and a square of that."""
+    Pm = ops.one_mont(FR, (cur.shape[-1], 1), cur.device)
     total = 1
     while total < nB:
         Pm = torch.cat([Pm, fast.mont_mul(FR, Pm, cur[:, :, None])], dim=-1)
         cur = fast.mont_sqr(FR, cur)
         total *= 2
-    W = Pm[:, :, :nB].contiguous()
-    with _LOCK:
-        _W_CACHE[key] = W
-    return W
+    return Pm[:, :, :nB].contiguous()
 
 
 def release_fourstep_cache() -> None:

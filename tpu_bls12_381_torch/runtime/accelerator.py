@@ -61,7 +61,10 @@ class Accelerator:
         return torch.cuda.is_available()
 
     def backend_info(self) -> str:
+        from ..parallel.mesh import default_mesh
+
         cfg = config()
+        mesh = default_mesh(device=self.device)
         if self.device.type == "cuda":
             platform_line = (f"  platform: cuda x{torch.cuda.device_count()}"
                              f" ({torch.cuda.get_device_name(self.device)})")
@@ -74,6 +77,7 @@ class Accelerator:
             f"  device policy: {cfg.device.value}"
             f" (msm>=2^{cfg.msm_min_k}, ntt>=2^{cfg.ntt_min_k})",
             f"  precompute factor: {cfg.precompute_factor}",
+            f"  mesh: rank {mesh.rank} of {mesh.size}",
         ]
         return "\n".join(lines)
 
