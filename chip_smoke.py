@@ -35,7 +35,13 @@ an MSM forced into 4 pieces) on the same 2^20 points, and ``msm_g2`` and
 their tails' launches against the plan (the G2 lane scan ``padd2_scan``, held
 to its plain version in every mode on 2^16 - 3 and 3 x 1,001 lanes, then at
 each of the paths' shapes), then the ``tile_sweep_g2`` (the G2 scan kernel
-over four tiles of one window's adds, ``padd2`` at two widths); and the Fr NTT
+over four tiles of one window's adds, ``padd2`` at two widths), then the GLV
+ladder (``scalar_mul_glv`` is one ``glv_ladder`` launch in ``msm_ctx_small``;
+its row at (24, 4096) held to the plain ladder on every lane; the
+``glv_vs_jac_ladder`` line: ``points.scalar_mul`` and ``scalar_mul_glv`` on the
+same 2^20 lanes with per-lane scalars below r, one launch each, equal as
+affine points on every lane, timed in turns; the row at (24, 2^20) held limb
+for limb to the routed loop of elementwise kernels it replaces); and the Fr NTT
 on 2^22 elements
 through ``NttContext`` (``auto``'s route, the ladder on the card: one tile
 launch reading the bit-reversed rows as columns of x, then two
@@ -113,7 +119,9 @@ warp that holds one: ``madd``'s rows hold no such lane past warp 0, so their
 sum and the doubling; ``jadd``'s rows hold them in most warps, so their bound
 counts the doubling and ``bound_ms_without_doubling`` is the add's alone.
 A ``jac_ladder`` row's bound counts 255 doublings a lane and an add for each
-set bit of the lane's scalar (``set_bits``).  An NTT tile row's bound counts
+set bit of the lane's scalar (``set_bits``); a ``glv_ladder`` row's, 128
+doublings and 256 mixed adds a lane, which the constant-time ladder computes
+whatever the bits.  An NTT tile row's bound counts
 no product by the twiddle w^0 = 1 (``bound_ms_all_products`` counts them), a
 ``butterfly_stages`` row's the twiddle entries its launch needs.  A
 phase's line ends with ``seconds_since_start``.  Any failing phase raises,
@@ -1967,8 +1975,8 @@ def main() -> int:
             batch=3, **cached)
     del bases
 
-    # scalar_mul_glv: 4,096 lanes, a few of them against the host; every step
-    # is one pdbl and two pmadd launches.
+    # scalar_mul_glv: 4,096 lanes, a few of them against the host; the whole
+    # joint ladder is one glv_ladder launch (no pdbl or pmadd a bit).
     k_std = fast.from_mont(FR, sv)
     reset_counts()
     t0 = time.perf_counter()
@@ -1981,10 +1989,10 @@ def main() -> int:
     want_k = [oracle.jac_to_affine(oracle.scalar_mul(vals[i], pts[i], oracle.FQ_OPS),
                                    oracle.FQ_OPS) if vals[i] else None for i in lanes]
     ctx_case("scalar_mul_glv on 4096 lanes", got_k == want_k
-             and launches_glv["pmadd"] == 2 * glv_mod.GLV_HALF_BITS
-             and launches_glv["pdbl"] == glv_mod.GLV_HALF_BITS,
-             seconds=glv_s, pmadd_launches=launches_glv["pmadd"],
-             pdbl_launches=launches_glv["pdbl"])
+             and launches_glv["glv_ladder"] == 1
+             and launches_glv["pmadd"] == 0 and launches_glv["pdbl"] == 0,
+             seconds=glv_s, glv_ladder_launches=launches_glv["glv_ladder"],
+             pmadd_launches=launches_glv["pmadd"], pdbl_launches=launches_glv["pdbl"])
     del Pk
     if args.upto == "msm_ctx_small":
         return stop_early()
@@ -2295,21 +2303,115 @@ def main() -> int:
     G2_SRC = "tpu_bls12_381_torch/csrc/"
     Ak = tiled_affine(n_v)
     Pk = contig(pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, roll(Ak, 1))))
+    # pmadd and pdbl at scalar_mul_glv's shape: no driven path launches them
+    # since glv_ladder runs the whole ladder (their rows say 0 launches);
+    # glv._glv_steps over FQ_ADAPTER, the routed loop, is their one caller.
+    g1_ptxas = lambda kernel: {k: v for k, v in registers.items() if kernel in k}
+    no_path_glv = ("msm_ctx_small: scalar_mul_glv's shape (glv_ladder runs the ladder; "
+                   "the routed loop glv._glv_steps is its caller, no driven path)")
     kernel_row("pmadd", "pmadd_kernel", G1_SRC,
                "tpu_bls12_381/curves/pallas_g1.py:413",
                [24, n_v], lambda: cuda_g1.pmadd(Pk, Ak),
                lambda: cuda_g1.pmadd_plain(Pk, Ak),
                8 * 24 * n_v, n_v, n_v * 11 * mul_mads(W_FQ), 50,
-               n_launches=launches_glv["pmadd"],
-               path="msm_ctx_small: scalar_mul_glv")
+               n_launches=launches_glv["pmadd"], path=no_path_glv,
+               ptxas=g1_ptxas("pmadd_kernel"))
     Pk1 = tuple(c.contiguous() for c in pj.affine_to_proj(FQ_PLAIN, Ak))
     kernel_row("pdbl[glv]", "pdbl_kernel", G1_SRC,
                "tpu_bls12_381/curves/pallas_g1.py:478", [24, n_v],
                lambda: cuda_g1.pdbl(Pk1), lambda: cuda_g1.pdbl_plain(Pk1),
                6 * 24 * n_v, 0, n_v * dbl_mads, 50,
-               n_launches=launches_glv["pdbl"], path="msm_ctx_small: scalar_mul_glv",
+               n_launches=launches_glv["pdbl"], path=no_path_glv,
                times=1, equal_at_2e16=chain_equal(1))
     del Ak, Pk, Pk1
+
+    # The GLV ladder.  Its bound counts what the constant-time ladder does
+    # whatever the bits: num_bits doublings and 2 num_bits mixed adds a lane
+    # (128 x (6M + 2S) + 256 x 11M); it moves x, y, beta x, the mask, k1's 16
+    # and k2's limbs once and the projective result.
+    glv_add_mads = 11 * mul_mads(W_FQ)
+    GLV_REPLACES_WITH = ("tpu_bls12_381/curves/pallas_g1.py:413, two launches and a launch "
+                         "of _pdbl_kernel (:478) a bit in tpu_bls12_381/curves/glv.py:186")
+
+    def glv_row(name, k1_, k2_, A_, phi_, path, n_launches, plain_fn, reps, **extra):
+        lanes, bits = A_[0].shape[-1], glv_mod.GLV_HALF_BITS
+        kernel_row(name, "glv_ladder_kernel", G1_SRC,
+                   "tpu_bls12_381/curves/pallas_g1.py:413", [24, lanes],
+                   lambda: cuda_g1.glv_ladder(k1_, k2_, A_, phi_), plain_fn,
+                   (3 * 24 + 3 * 24 + k1_.shape[0] + k2_.shape[0]) * lanes, lanes,
+                   lanes * bits * (dbl_mads + 2 * glv_add_mads), reps,
+                   n_launches=n_launches, path=path, equal=True,
+                   replaces_with=GLV_REPLACES_WITH, num_bits=bits,
+                   k2_limbs=int(k2_.shape[0]), ptxas=g1_ptxas("glv_ladder"), **extra)
+
+    # At msm_ctx_small's shape, on its inputs, held to the plain ladder on
+    # every lane (some 10 s of plain work, timed once).
+    k1_v, k2_v = glv_mod.decompose(k_std)
+    phi_v = glv_mod.endomorphism(F1, Av)[0].contiguous()
+    Avc = contig(Av)
+    glv_row("glv_ladder", k1_v, k2_v, Avc, phi_v, "msm_ctx_small: scalar_mul_glv",
+            launches_glv["glv_ladder"],
+            lambda: cuda_g1.glv_ladder_plain(k1_v, k2_v, Avc, phi_v), 10)
+    del k1_v, k2_v, phi_v, Avc
+
+    # The two ladders on the same 2^20 lanes with per-lane random scalars
+    # below r: points.scalar_mul (one jac_ladder launch, 255 bits; with
+    # per-lane bits every warp adds at every bit) against scalar_mul_glv (one
+    # glv_ladder launch, 128 bits of k1 and k2).  Equal as affine points: the
+    # canonical affine limbs of both, every lane, and the host's on a few.
+    n20 = 1 << LOG_N
+    A20 = tiled_affine(n20)
+    limbs20 = rng.integers(0, 1 << 16, size=(16, n20), dtype=np.int64)
+    limbs20[15] %= constants.FR_MODULUS >> 240     # top limb below r's: k < r
+    k20 = torch.from_numpy(limbs20.astype(np.int32)).to(dev)
+    probe20 = [0, 1, n20 // 2 + 1, n20 - 1]
+    ks20 = [sum(int(limbs20[j, l]) << (16 * j) for j in range(16)) for l in probe20]
+    ladders = {"scalar_mul": lambda: pt.scalar_mul(FQ_ADAPTER, k20, A20),
+               "scalar_mul_glv": lambda: glv_mod.scalar_mul_glv(k20, A20)}
+    launches_l, results_l, times_l = {}, {}, {k: [] for k in ladders}
+    for name_, fn_ in ladders.items():               # first calls, counted
+        reset_counts()
+        results_l[name_] = fn_()
+        torch.cuda.synchronize()
+        launches_l[name_] = counts()
+    for _ in range(3):                               # then in turns, by events
+        for name_, fn_ in ladders.items():
+            times_l[name_].append(time_ms(fn_, 1, warm=False))
+    aff = {k: pt.jac_to_affine(FQ_ADAPTER, P_) for k, P_ in results_l.items()}
+    same20 = trees_equal(aff["scalar_mul"], aff["scalar_mul_glv"])
+    host20 = [oracle.jac_to_affine(oracle.scalar_mul(ks20[i], base_pts[l % M], oracle.FQ_OPS),
+                                   oracle.FQ_OPS) for i, l in enumerate(probe20)]
+    probed20 = all(g1.jacobian_to_ints(tuple(c[:, probe20] for c in P_)) == host20
+                   for P_ in results_l.values())
+    med_l = {k: statistics.median(v) for k, v in times_l.items()}
+    gl, jl = launches_l["scalar_mul_glv"], launches_l["scalar_mul"]
+    launches_ok = ((gl["glv_ladder"], gl["pmadd"], gl["pdbl"], jl["jac_ladder"])
+                   == (1, 0, 0, 1))
+    emit({"phase": "glv_vs_jac_ladder", "n": n20, "equal_affine": bool(same20),
+          "probed_lanes_equal_host": bool(probed20),
+          "ms_scalar_mul": med_l["scalar_mul"], "ms_scalar_mul_glv": med_l["scalar_mul_glv"],
+          "ms_all": times_l,
+          "ratio_scalar_mul_over_glv": med_l["scalar_mul"] / med_l["scalar_mul_glv"],
+          "launches_scalar_mul": {k: v for k, v in jl.items() if v},
+          "launches_scalar_mul_glv": {k: v for k, v in gl.items() if v}, "card": smi})
+    if not (same20 and probed20 and launches_ok):
+        raise AssertionError("glv_vs_jac_ladder: the two ladders differ, or a ladder was "
+                             "not one launch")
+    del results_l, aff
+
+    # At 2^20 lanes, held limb for limb on every lane to the routed loop of
+    # elementwise kernels it replaces (glv._glv_steps over FQ_ADAPTER: 128
+    # pdbl and 256 pmadd launches and the selects), whose time is plain_ms.
+    k1_20, k2_20 = glv_mod.decompose(k20)
+    phi_20 = glv_mod.endomorphism(F1, A20)[0].contiguous()
+    glv_row("glv_ladder[2e20]", k1_20, k2_20, A20, phi_20,
+            "glv_vs_jac_ladder: scalar_mul_glv on 2^20 lanes, per-lane scalars",
+            gl["glv_ladder"],
+            lambda: glv_mod._glv_steps(F1, k1_20, k2_20, A20, (phi_20, A20[1], A20[2]),
+                                       glv_mod.GLV_HALF_BITS), 3,
+            plain_is="the routed loop of elementwise kernels, glv._glv_steps over "
+                     "FQ_ADAPTER (128 pdbl, 256 pmadd, the selects)")
+    del k1_20, k2_20, phi_20, A20, k20
     L2, R2, nb2 = geo2["L"], geo2["R"], geo2["nb"]
 
     def scan_row_g2(name, path, R_, L_, n_launches):

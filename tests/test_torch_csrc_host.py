@@ -25,7 +25,8 @@ import pytest
 import torch
 
 from tpu_bls12_381_torch import oracle
-from tpu_bls12_381_torch.curves import cuda_g1, cuda_g2, g1, g2, points as pt, projective as pj
+from tpu_bls12_381_torch.curves import (cuda_g1, cuda_g2, g1, g2, glv, points as pt,
+                                       projective as pj)
 from tpu_bls12_381_torch.curves.field_adapters import FQ2_PLAIN, FQ_ADAPTER as F1, FQ_PLAIN
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs, limbs_to_ints
@@ -934,6 +935,71 @@ def test_jac_ladder(lib, ladder_case, mode, num_bits):
         assert ident[6] and not ident[7]
         if mode == "one column":
             assert ident == [i not in (7, 8) for i in range(N)]
+
+
+GLV_LANES = 16
+
+
+@pytest.fixture(scope="module")
+def glv_case():
+    """A on 16 lanes (multiples of G) with the GLV ladder's edge lanes: lane
+    3 A's inf; scalars k = 0, 1, r - 1, lambda (k1 = 0), 5 (k2 = 0), the
+    others random below r; k1, k2 and beta x as ``scalar_mul_glv`` makes
+    them."""
+    rng = random.Random(23)
+    G = oracle.g1_generator()
+    pts = [oracle.jac_to_affine(oracle.scalar_mul(rng.randrange(1, R_FR), G, oracle.FQ_OPS),
+                                oracle.FQ_OPS) for _ in range(GLV_LANES)]
+    pts[3] = None
+    ks = [0, 1, R_FR - 1, glv.GLV_LAMBDA, 5, 2 * glv.GLV_LAMBDA + 3]
+    ks += [rng.randrange(R_FR) for _ in range(GLV_LANES - len(ks))]
+    k = torch.from_numpy(ints_to_limbs(ks, 16).astype(np.int32)).contiguous()
+    A = g1.affine_from_ints(pts, device="cpu")
+    k1, k2 = glv.decompose(k)
+    return {"A": A, "pts": pts, "ks": ks, "k": k, "k1": k1, "k2": k2,
+            "phi_x": glv.endomorphism(F1, A)[0].contiguous()}
+
+
+@pytest.mark.parametrize("num_bits", [1, 16, 128, 160])
+def test_glv_ladder(lib, glv_case, num_bits):
+    """``g1_glv_ladder_lane`` (``scalar_mul_glv`` in one launch: the
+    accumulator in registers, both adds every bit, the selects masks) against
+    ``cuda_g1.glv_ladder_plain`` and the port's CPU ``scalar_mul_glv``
+    (``_glv_steps`` over the adapter, then ``proj_to_jac``), limb for limb,
+    on 16 lanes with the edge lanes of ``glv_case`` (at 160 bits on 4 of
+    them: k2 has 9 limbs, so its bits 144 to 159 read 0); at 128 bits also
+    against the oracle."""
+    lanes = 4 if num_bits == 160 else GLV_LANES
+    cut = lambda t: t[..., :lanes].contiguous()
+    A = tuple(cut(c) for c in glv_case["A"])
+    k, k1, k2, phi_x = (cut(glv_case[n]) for n in ("k", "k1", "k2", "phi_x"))
+    assert (k1.shape[0], k2.shape[0]) == (16, 9)
+    out = [torch.empty_like(A[0]) for _ in range(3)]
+    lib.g1_glv_ladder(_ptr(k1), _ptr(k2), ctypes.c_int(k2.shape[0]),
+                      *[_ptr(t) for t in (A[0], A[1], phi_x, A[2])],
+                      *[_ptr(t) for t in out], SZ(lanes), ctypes.c_int(num_bits))
+    assert all(torch.equal(o, w) for o, w in
+               zip(out, cuda_g1.glv_ladder_plain(k1, k2, A, phi_x, num_bits)))
+    jac = pj.proj_to_jac(FQ_PLAIN, tuple(out))
+    assert all(torch.equal(o, w) for o, w in zip(jac, glv.scalar_mul_glv(k, A, num_bits)))
+    if num_bits == 128:
+        want = [None if (p is None or v == 0) else oracle.jac_to_affine(
+            oracle.scalar_mul(v, p, oracle.FQ_OPS), oracle.FQ_OPS)
+            for v, p in zip(glv_case["ks"], glv_case["pts"])]
+        assert g1.jacobian_to_ints(jac) == want
+
+
+def test_glv_sweep_builds_change_statements_the_sources_hold():
+    """Each build not kept of ``curves/sweeps.py --builds`` changes statements
+    that stand once in ``csrc/`` (else the sweep raises on the card)."""
+    from tpu_bls12_381_torch.curves import sweeps
+
+    for build, changes in sweeps.BUILDS.items():
+        texts = {}
+        for file_, old, new in changes:
+            text = texts.get(file_) or open(os.path.join(CSRC, file_)).read()
+            assert text.count(old) == 1, (build, old)
+            texts[file_] = text.replace(old, new)
 
 
 def test_host_compiled_jacobian_kernels_match_the_jax_package(lib, jac_points):

@@ -210,3 +210,35 @@ def test_scalar_mul_glv_matches_jax_and_the_oracle(data):
         oracle.scalar_mul(v, p, oracle.FQ_OPS), oracle.FQ_OPS)
         for v, p in zip(vals, pts)]
     assert g1.jacobian_to_ints(got) == host
+
+
+def test_scalar_mul_glv_through_the_ladder_route(data, monkeypatch):
+    """With ``glv_ladder_kernel`` forced on the CPU, ``scalar_mul_glv`` makes
+    one ladder call, with k1 (16, N), k2 (9, N), x, y, beta x contiguous
+    (24, N) planes and a contiguous (N,) mask (what ``cuda_g1.glv_ladder``
+    checks; on the CPU it takes ``glv_ladder_plain``), and its result is the
+    oracle's."""
+    from tpu_bls12_381_torch.curves import cuda_g1
+
+    calls = []
+
+    def ladder(k1, k2, A, phi_x, num_bits):
+        calls.append((k1, k2, A, phi_x, num_bits))
+        return cuda_g1.glv_ladder(k1, k2, A, phi_x, num_bits)
+
+    monkeypatch.setattr(glv, "glv_ladder_kernel", lambda F, device: ladder)
+    pts = data["pts"][4:12]                      # lane 3 is the identity
+    vals = data["sets"][0][:6] + [data["sets"][1][0], 2]
+    got = glv.scalar_mul_glv(convert.scalars_from_numpy(ints_to_limbs(vals, 16), device="cpu"),
+                             g1.affine_from_ints(pts, device="cpu"))
+    assert len(calls) == 1
+    k1, k2, (x, y, inf), phi_x, num_bits = calls[0]
+    assert num_bits == glv.GLV_HALF_BITS
+    assert (tuple(k1.shape), tuple(k2.shape)) == ((16, 8), (9, 8))
+    assert all(tuple(t.shape) == (24, 8) for t in (x, y, phi_x))
+    assert tuple(inf.shape) == (8,) and inf.dtype == torch.bool
+    assert all(t.is_contiguous() for t in (k1, k2, x, y, phi_x, inf))
+    host = [None if (p is None or v == 0) else oracle.jac_to_affine(
+        oracle.scalar_mul(v, p, oracle.FQ_OPS), oracle.FQ_OPS)
+        for v, p in zip(vals, pts)]
+    assert g1.jacobian_to_ints(got) == host

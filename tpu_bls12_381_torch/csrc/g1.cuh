@@ -6,12 +6,10 @@
 // so that with canonical field results the coordinates written back equal
 // the plain PyTorch versions in curves/projective.py limb for limb.  The
 // complete addition takes the carry-chain Fq product of field_carry.cuh; the
-// mixed addition takes its product as a parameter, field.cuh's (FieldMul,
-// for pmadd) or the carry-chain one (CarryMul, for pmadd_signed); the
-// doubling takes its product and square the same way and runs on CarryMul
-// (pdbl).  Both products are canonical, so the limbs are the same either
-// way.  The policies (FieldMul, CarryMul: a product and a square) also serve
-// the Jacobian law of g1_jac.cuh and the Fq2 arithmetic of g2.cuh.
+// mixed addition and the doubling take their product (and square) as a
+// parameter, and every G1 kernel runs them on the carry-chain one
+// (CarryMul).  The policy (a product and a square) also serves the Jacobian
+// law of g1_jac.cuh and the Fq2 arithmetic of g2.cuh.
 
 #pragma once
 
@@ -23,10 +21,6 @@ struct G1Proj {
     fq X, Y, Z;
 };
 
-struct FieldMul {
-    static DEV fq mul(const fq& a, const fq& b) { return fp_mul<Fq>(a, b); }
-    static DEV fq sqr(const fq& a) { return fp_sqr<Fq>(a); }
-};
 // The square as the product a*a: a canonical product is unique.
 struct CarryMul {
     static DEV fq mul(const fq& a, const fq& b) { return fq_mul_cc(a, b); }
@@ -171,7 +165,49 @@ DEV void g1_pmadd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z
     G1Proj P = g1_load(X1, Y1, Z1, n, idx);
     fq x = fp_load<Fq>(x2, n, idx);
     fq y = fp_load<Fq>(y2, n, idx);
-    g1_store(X3, Y3, Z3, n, idx, g1_proj_madd<FieldMul>(P, x, y, inf2[idx] != 0));
+    g1_store(X3, Y3, Z3, n, idx, g1_proj_madd<CarryMul>(P, x, y, inf2[idx] != 0));
+}
+
+// The joint double-and-add of glv.scalar_mul_glv for one lane, MSB first:
+// k1 * A + k2 * phi(A), with phi(A) = (beta x, y).  A and beta x are loaded
+// once; the accumulator starts at the identity and stays in registers for
+// all num_bits steps, and is stored once.  Each step is the doubling, then
+// the mixed add of A selected where bit b of k1 is set, then the mixed add of
+// phi(A) selected where bit b of k2 is set: the formulas and their order of
+// glv.py's loop, so the limbs are too.  The select is the mixed add's own
+// pass-through mask: with `inf2` or the bit clear it returns acc, which is
+// glv.py's select of the sum where the bit is set (lanes with inf2 pass acc
+// through either way).
+// Constant time: both adds run in every lane at every step and the selects
+// are masks (fp_cmov), with no branch on a scalar bit, since the scalars are
+// per lane and may be secret.  RCB16 algorithm 8 is complete, so no lane
+// needs a doubling branch either.
+// k1 is a (16, n) plane of 16-bit limbs, k2 a (k2_limbs, n) plane: the bits
+// of k2 above 16 * k2_limbs read 0.  A limb is read once every 16 bits.
+DEV void g1_glv_ladder_lane(const uint32_t* k1, const uint32_t* k2, int k2_limbs,
+                            const uint32_t* x2, const uint32_t* y2,
+                            const uint32_t* phi_x2, const uint8_t* inf2,
+                            uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n,
+                            size_t idx, int num_bits) {
+    bool inf = inf2[idx] != 0;
+    const fq x = fp_load<Fq>(x2, n, idx), y = fp_load<Fq>(y2, n, idx);
+    const fq phi_x = fp_load<Fq>(phi_x2, n, idx);
+    G1Proj acc = g1_identity();
+    uint32_t l1 = 0u, l2 = 0u;
+    ROLLED
+    for (int b = num_bits - 1; b >= 0; --b) {
+        if (b == num_bits - 1 || (b & 15) == 15) {
+            int j = b >> 4;
+            l1 = k1[(size_t)j * n + idx];
+            l2 = j < k2_limbs ? k2[(size_t)j * n + idx] : 0u;
+        }
+        bool b1 = ((l1 >> (b & 15)) & 1u) != 0u;
+        bool b2 = ((l2 >> (b & 15)) & 1u) != 0u;
+        acc = g1_proj_dbl<CarryMul>(acc);
+        acc = g1_proj_madd<CarryMul>(acc, x, y, inf | !b1);
+        acc = g1_proj_madd<CarryMul>(acc, phi_x, y, inf | !b2);
+    }
+    g1_store(X3, Y3, Z3, n, idx, acc);
 }
 
 DEV void g1_padd_lane(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,

@@ -12,8 +12,8 @@
 //
 // The doubling and the adds take their Fq product and square as a parameter
 // (g1.cuh's policies); every kernel runs them on the carry-chain product
-// (CarryMul, its squares the products a*a).  Both products are canonical, so
-// the limbs are those of field.cuh's (FieldMul) either way.
+// (CarryMul, its squares the products a*a).  The product is canonical, so
+// the limbs are those of field.cuh's fp_mul.
 //
 // The edge cases (P == A, P == -A, an identity operand) pick between the
 // generic sum and the doubling with fp_cmov, as the JAX formulas do, in the

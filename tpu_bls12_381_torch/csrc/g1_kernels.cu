@@ -1,9 +1,12 @@
 // Fused G1 group-law kernels: signed mixed add (with a row loop), mixed add,
-// add, double, and the lane scan of adds.
+// add, double, the lane scan of adds, and the GLV ladder.
 //
 // They take the place of the JAX package's curves/pallas_g1.py kernels
-// _pmadd_signed_kernel, _pmadd_kernel, _padd_kernel and _pdbl_kernel.  One
-// thread owns one lane (one point operation); the formulas are in g1.cuh.
+// _pmadd_signed_kernel, _pmadd_kernel, _padd_kernel and _pdbl_kernel, and
+// glv_ladder that of _pdbl_kernel and _pmadd_kernel as curves/glv.py's
+// scalar_mul_glv runs them (a fori_loop whose body launches one doubling and
+// two mixed adds).  One thread owns one lane; the formulas and the lane
+// bodies are in g1.cuh.
 //
 // pmadd_signed carries a row count R.  The MSM's bucket scan is, per lane, a
 // chain of R dependent mixed adds down the rows of an (R, 24, L) tile.  The
@@ -16,10 +19,10 @@
 // (5 * 96 = 480 bytes per lane and row in the looped form) and does 11 Fq
 // products of 300 wide multiply-adds each, so the integer pipe binds (the
 // reckoning is in PERF.md).  What the design does about it:
-//  * pmadd_signed, padd, padd_scan and pdbl take the carry-chain product of
-//    field_carry.cuh: two independent mad.lo.cc / madc.hi.cc chains a row
-//    instead of one 64-bit multiply-add chain, fewer instructions a product
-//    and two streams for the scheduler.  pmadd keeps field.cuh's.
+//  * every kernel takes the carry-chain product of field_carry.cuh: two
+//    independent mad.lo.cc / madc.hi.cc chains a row instead of one 64-bit
+//    multiply-add chain, fewer instructions a product and two streams for
+//    the scheduler.
 //  * Occupancy: a thread walks R dependent adds, so the card needs enough
 //    warps in flight to hide the chain's latency.  At one 128-thread block an
 //    SM (2^14 lanes on 132 SMs) each scheduler had one warp; the MSM's G1
@@ -42,6 +45,27 @@
 //    2L + (L/run) log2(T) adds in 3 launches (2 for a total), whatever L is.
 //    On few lanes it is bound by the depth of dependent adds, not the pipe.
 //    The passes are lane_scan.cuh's, shared with G2's padd2_scan.
+//  * glv_ladder: scalar_mul_glv's loop was some 400 launches (a pdbl and two
+//    pmadd a bit) and three selects of torch ops a bit, each writing the
+//    accumulator to device memory and reading it back, so on 4096 lanes the
+//    host and the launches bound it, not the card.  glv_ladder runs all
+//    num_bits steps in one launch with the accumulator in registers: per
+//    lane 5 * 24 limbs, the mask byte and the scalars' limbs in, 3 * 24 out,
+//    for num_bits * (6M + 2S + 22M).  That is operation-bound at any width;
+//    on 4096 lanes (32 blocks for 132 SMs) one thread's chain of dependent
+//    products sets the time.  Each select is the mixed add's own
+//    pass-through mask (one fp_cmov a coordinate, not a second one after
+//    the add).  x, y and beta x are loaded once and held: every build
+//    spills at the 255-register cap, and this one least but one and
+//    fastest; the build that reads them at each add (from L1 and L2), with
+//    the selects apart or not, spills three to four times as much and ran
+//    6 to 12% slower on an H100 (curves/sweeps.py --builds; PERF.md).
+//    It is constant time: both adds run in every lane at every bit and the
+//    selects are masks, with no branch on a scalar bit.  jac_ladder skips the
+//    add in a warp where no lane has the bit, which is right for its public
+//    scalar (is_in_subgroup's r); here the scalars are per lane and may be
+//    secret, and with random per-lane bits a warp of 32 lanes would skip
+//    only with probability 2^-32 anyway.
 //
 // Plain C interface for ctypes: device pointers to int32 limb planes, masks
 // as one byte per lane, `stream` a cudaStream_t, return value
@@ -71,9 +95,11 @@ pmadd_signed_kernel(const uint32_t* __restrict__ accX, const uint32_t* __restric
                          X3, Y3, Z3, L, R, idx);
 }
 
-// The mixed add without the sign (the joint double-and-add of
-// curves/glv.py::scalar_mul_glv is its one caller): 11 Fq products against
-// 5 * 24 limbs read and 3 * 24 written, so the integer pipe binds as above.
+// The mixed add without the sign (the routed loop of
+// curves/glv.py::_glv_steps is its one caller; scalar_mul_glv on the card
+// runs glv_ladder instead): 11 Fq products against 5 * 24 limbs read and
+// 3 * 24 written, so the integer pipe binds as above.  190 registers, no
+// spill.
 __global__ void __launch_bounds__(THREADS)
 pmadd_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
              const uint32_t* __restrict__ Z1, const uint32_t* __restrict__ x2,
@@ -109,6 +135,23 @@ pdbl_kernel(const uint32_t* __restrict__ X1, const uint32_t* __restrict__ Y1,
     size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= n) return;
     g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, idx, times);
+}
+
+// The joint GLV ladder: num_bits steps of a doubling and two selected mixed
+// adds a lane, the accumulator in registers (g1_glv_ladder_lane).  ptxas: 255
+// registers and 104 / 92 bytes of spill stores / loads (the builds not kept:
+// 72 to 384).
+__global__ void __launch_bounds__(THREADS)
+glv_ladder_kernel(const uint32_t* __restrict__ k1, const uint32_t* __restrict__ k2,
+                  int k2_limbs, const uint32_t* __restrict__ x2,
+                  const uint32_t* __restrict__ y2, const uint32_t* __restrict__ phi_x2,
+                  const uint8_t* __restrict__ inf2, uint32_t* __restrict__ X3,
+                  uint32_t* __restrict__ Y3, uint32_t* __restrict__ Z3, size_t n,
+                  int num_bits) {
+    size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= n) return;
+    g1_glv_ladder_lane(k1, k2, k2_limbs, x2, y2, phi_x2, inf2, X3, Y3, Z3, n, idx,
+                       num_bits);
 }
 
 static inline unsigned blocks_for(size_t n) {
@@ -164,6 +207,24 @@ int g1_pdbl(const void* X1, const void* Y1, const void* Z1,
         pdbl_kernel<<<blocks_for((size_t)n), THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)X1, (const uint32_t*)Y1, (const uint32_t*)Z1,
             (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, (size_t)n, times);
+    }
+    return (int)cudaGetLastError();
+}
+
+// k1 * A + k2 * phi(A) lane by lane over the low num_bits bits (1 to 256):
+// k1 (16, n) and k2 (k2_limbs, n) limb planes, A = (x2, y2, inf2) and phi(A)'s
+// x phi_x2 as (24, n) planes and a mask byte a lane; X3, Y3, Z3 projective.
+int g1_glv_ladder(const void* k1, const void* k2, int k2_limbs, const void* x2,
+                  const void* y2, const void* phi_x2, const void* inf2,
+                  void* X3, void* Y3, void* Z3, long long n, int num_bits,
+                  void* stream) {
+    if (num_bits < 1 || num_bits > 256 || k2_limbs < 1 || k2_limbs > 16)
+        return (int)cudaErrorInvalidValue;
+    if (n > 0) {
+        glv_ladder_kernel<<<blocks_for((size_t)n), THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)k1, (const uint32_t*)k2, k2_limbs, (const uint32_t*)x2,
+            (const uint32_t*)y2, (const uint32_t*)phi_x2, (const uint8_t*)inf2,
+            (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, (size_t)n, num_bits);
     }
     return (int)cudaGetLastError();
 }

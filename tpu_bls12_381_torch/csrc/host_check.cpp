@@ -433,6 +433,17 @@ void g1_pdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
     for (size_t i = 0; i < n; ++i) g1_pdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i, times);
 }
 
+// The joint GLV ladder of g1_kernels.cu's glv_ladder (scalar_mul_glv in one
+// launch): k1 (16, n) and k2 (k2_limbs, n) limb planes.
+void g1_glv_ladder(const uint32_t* k1, const uint32_t* k2, int k2_limbs,
+                   const uint32_t* x2, const uint32_t* y2, const uint32_t* phi_x2,
+                   const uint8_t* inf2, uint32_t* X3, uint32_t* Y3, uint32_t* Z3,
+                   size_t n, int num_bits) {
+    for (size_t i = 0; i < n; ++i)
+        g1_glv_ladder_lane(k1, k2, k2_limbs, x2, y2, phi_x2, inf2, X3, Y3, Z3, n, i,
+                           num_bits);
+}
+
 void g1_jdbl(const uint32_t* X1, const uint32_t* Y1, const uint32_t* Z1,
              uint32_t* X3, uint32_t* Y3, uint32_t* Z3, size_t n) {
     for (size_t i = 0; i < n; ++i) g1_jdbl_lane(X1, Y1, Z1, X3, Y3, Z3, n, i);
@@ -510,8 +521,8 @@ void fq2_ops(const uint32_t* a, const uint32_t* b, uint32_t* prod,
              uint32_t* sqr, uint32_t* m12, size_t n) {
     for (size_t i = 0; i < n; ++i) {
         fq2 x = fq2_load(a, n, i), y = fq2_load(b, n, i);
-        fq2_store(prod, n, i, fq2_mul<FieldMul>(x, y));
-        fq2_store(sqr, n, i, fq2_sqr<FieldMul>(x));
+        fq2_store(prod, n, i, fq2_mul<CarryMul>(x, y));
+        fq2_store(sqr, n, i, fq2_sqr<CarryMul>(x));
         fq2_store(m12, n, i, fq2_mul12(x));
     }
 }

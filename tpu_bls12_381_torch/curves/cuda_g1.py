@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
   ``:456``): RCB16 algorithm 8, y2 negated per lane where ``sign``, P passed
   through where ``inf2``;
 * ``pmadd`` takes the place of ``_pmadd_kernel`` / ``pmadd`` (``:413``,
-  ``:495``): algorithm 8 without the sign (``glv.scalar_mul_glv`` calls it);
+  ``:495``): algorithm 8 without the sign (``glv._glv_steps``, the routed
+  loop, calls it);
 * ``padd`` takes the place of ``_padd_kernel`` / ``padd`` (``:465``, ``:507``):
   RCB16 algorithm 7; ``padd_scan`` is the same addition scanned along the
   last axis (the MSM tail's lane scans, which the JAX package runs as
@@ -28,16 +29,20 @@ Counterpart of the JAX package's ``curves/pallas_g1.py``:
   the JAX package's ``points.scalar_mul`` (``curves/points.py:242``) runs
   them, a launch of each a bit: the whole double-and-add ladder in one
   launch, the accumulator in registers (``points.scalar_mul`` routes G1 on
-  the card to it, hence ``is_in_subgroup``).
+  the card to it, hence ``is_in_subgroup``);
+* ``glv_ladder`` takes the place of ``_pdbl_kernel`` and ``_pmadd_kernel`` as
+  the JAX package's ``glv.scalar_mul_glv`` (``curves/glv.py:186``) runs them,
+  a doubling and two mixed adds a bit: the whole joint GLV ladder in one
+  launch, the accumulator in registers, constant time (both adds every bit,
+  the selects masks; ``glv.scalar_mul_glv`` routes G1 on the card to it).
 
 The kernels are CUDA C++: the projective ones in ``csrc/g1_kernels.cu``
 (formulas in ``csrc/g1.cuh``), the Jacobian ones in ``csrc/g1_jac_kernels.cu``
 (formulas in ``csrc/g1_jac.cuh``), field arithmetic in ``csrc/field.cuh``: one
 thread per lane, all intermediates in registers.  ``pmadd_signed_rows`` is the looped form: one
 launch walks the R rows of a scan tile inside each thread and writes every
-prefix row, where the JAX package launches R times.  ``pmadd_signed``, ``padd``,
-``padd_scan``, ``pdbl`` and the Jacobian kernels take the carry-chain Fq
-product of ``csrc/field_carry.cuh``.  On an H100 the integer
+prefix row, where the JAX package launches R times.  Every G1 kernel takes
+the carry-chain Fq product of ``csrc/field_carry.cuh``.  On an H100 the integer
 pipe bounds the wide launches (11 or 12 Fq products per lane against 480 to
 864 bytes); the many launches on few lanes are bound by launch latency
 (PERF.md has the numbers).
@@ -64,6 +69,7 @@ import torch
 from .. import _build
 from ..fields import FQ
 from ..fields.cuda_ops import check_launch, check_limbs, stream_ptr
+from . import glv
 from . import points as pt
 from . import projective as pj
 from .field_adapters import FQ_PLAIN
@@ -72,7 +78,8 @@ K = FQ.num_limbs
 SCALAR_LIMBS = 16      # a scalar's 16-bit limbs, standard form (256 bits)
 
 LAUNCHES = {"pmadd_signed": 0, "pmadd": 0, "padd": 0, "pdbl": 0,
-            "madd": 0, "jadd": 0, "jdbl": 0, "padd_scan": 0, "jac_ladder": 0}
+            "madd": 0, "jadd": 0, "jdbl": 0, "padd_scan": 0, "jac_ladder": 0,
+            "glv_ladder": 0}
 # padd_scan's launches by what each call scanned: (mode, shape) -> launches,
 # mode one of scan_mode's names, shape the coordinates' (24, *batch, L).
 SCAN_LAUNCHES = {}
@@ -117,8 +124,11 @@ def _lib():
         lib.g1_pmadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_padd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_pdbl.argtypes = [_PTR] * 6 + [ctypes.c_longlong, ctypes.c_int, _PTR]
+        lib.g1_glv_ladder.argtypes = (
+            [_PTR] * 2 + [ctypes.c_int] + [_PTR] * 7
+            + [ctypes.c_longlong, ctypes.c_int, _PTR])
         for fn in (lib.g1_pmadd_signed, lib.g1_pmadd, lib.g1_padd,
-                   lib.g1_pdbl, lib.g1_padd_scan):
+                   lib.g1_pdbl, lib.g1_padd_scan, lib.g1_glv_ladder):
             fn.restype = ctypes.c_int
         _CONFIGURED = True
     return lib
@@ -295,6 +305,14 @@ def jac_ladder_plain(scalars, A, num_bits: int = 255):
         acc = jdbl_plain(acc)
         acc = pt.jac_cmov(FQ_PLAIN, bit, madd_plain(acc, A), acc)
     return acc
+
+
+def glv_ladder_plain(k1, k2, A, phi_x, num_bits: int = glv.GLV_HALF_BITS):
+    """k1 * A + k2 * phi(A) by ``glv.scalar_mul_glv``'s joint loop
+    (``glv._glv_steps``) over ``FQ_PLAIN``'s projective formulas, phi(A) =
+    (``phi_x``, y, inf); the bits of ``k2`` above its limbs read 0.  Returns
+    the projective batch."""
+    return glv._glv_steps(FQ_PLAIN, k1, k2, A, (phi_x, A[1], A[2]), num_bits)
 
 
 # -----------------------------------------------------------------------------
@@ -631,4 +649,47 @@ def jac_ladder(scalars, A, num_bits: int = 255):
             *[o.data_ptr() for o in out], n, num_bits, stream_ptr(dev))
     check_launch(code, "g1_jac_ladder")
     LAUNCHES["jac_ladder"] += 1
+    return tuple(out)
+
+
+def glv_ladder(k1, k2, A, phi_x, num_bits: int = glv.GLV_HALF_BITS):
+    """``k1 * A + k2 * phi(A)`` lane by lane, phi(A) = (``phi_x``, y, inf)
+    (``glv.scalar_mul_glv``'s joint double-and-add over the low ``num_bits``
+    bits, MSB first) in one launch.  ``A``: affine (x, y, inf), contiguous
+    (24, *batch) coordinates and a (*batch) mask; ``phi_x``: contiguous
+    (24, *batch), beta x.  ``k1``: contiguous int32 (16, *batch) 16-bit limbs
+    in standard form; ``k2``: contiguous int32 (k2_limbs, *batch) with 1 to
+    16 limbs (``glv.decompose`` keeps 9), whose bits above its limbs read 0.
+    Returns the projective batch.  Constant time: both adds run at every bit
+    in every lane and the selects are masks."""
+    x2, y2, inf2 = A
+    batch = _check_coords([x2, y2, phi_x], "glv_ladder")
+    dev = x2.device
+    _check_mask(inf2, batch, dev, "glv_ladder: inf2")
+    check_limbs(k1, SCALAR_LIMBS, "glv_ladder: k1")
+    if not isinstance(k2, torch.Tensor) or k2.dim() < 1 or not 1 <= k2.shape[0] <= SCALAR_LIMBS:
+        raise ValueError(f"glv_ladder: k2 must be (1 to {SCALAR_LIMBS}, *batch) limbs, got "
+                         f"{tuple(k2.shape) if isinstance(k2, torch.Tensor) else type(k2)}")
+    check_limbs(k2, k2.shape[0], "glv_ladder: k2")
+    for k, name in ((k1, "k1"), (k2, "k2")):
+        if k.device != dev:
+            raise ValueError(f"glv_ladder: {name} on a different device")
+        if tuple(k.shape[1:]) != batch:
+            raise ValueError(f"glv_ladder: {name} of shape {tuple(k.shape)}: expected "
+                             f"({k.shape[0]}, *{batch})")
+    num_bits = int(num_bits)
+    if not 1 <= num_bits <= 16 * SCALAR_LIMBS:
+        raise ValueError(f"glv_ladder: num_bits must be 1 to {16 * SCALAR_LIMBS}, "
+                         f"got {num_bits}")
+    if not x2.is_cuda:
+        return glv_ladder_plain(k1, k2, A, phi_x, num_bits)
+    n = x2.numel() // K
+    out = [torch.empty_like(x2) for _ in range(3)]
+    with torch.cuda.device(dev):
+        code = _lib().g1_glv_ladder(
+            k1.data_ptr(), k2.data_ptr(), k2.shape[0], x2.data_ptr(), y2.data_ptr(),
+            phi_x.data_ptr(), inf2.data_ptr(), *[o.data_ptr() for o in out], n,
+            num_bits, stream_ptr(dev))
+    check_launch(code, "g1_glv_ladder")
+    LAUNCHES["glv_ladder"] += 1
     return tuple(out)

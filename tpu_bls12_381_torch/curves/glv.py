@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``curves/glv.py``: the endomorphism, the
 scalar decomposition k = k1 + k2*lambda with both halves below 2^128, and
 ``scalar_mul_glv``, the batched k*P by a joint double-and-add over the two
-halves.
+halves (on the card one ``cuda_g1.glv_ladder`` launch, elsewhere the loop of
+``_glv_steps``).
 
 Constants are derived, not transcribed: beta is the cube root of unity in Fq
 for which phi(P) = lambda*P holds (lambda = z^2 - 1 for the BLS parameter z),
@@ -171,27 +172,64 @@ def decompose(k_std):
 # -----------------------------------------------------------------------------
 
 
-def scalar_mul_glv(scalars_std, A, num_bits: int = GLV_HALF_BITS):
-    """Batched k*P over G1 via GLV: k1*P + k2*phi(P), joint double-and-add.
+def glv_ladder_kernel(F, device):
+    """The wrapper that runs ``scalar_mul_glv``'s whole joint ladder in one
+    launch for adapter ``F`` on ``device`` (``cuda_g1.glv_ladder`` for G1 on
+    the card), else None (the loop of ``_glv_steps``).  Monkeypatch it to
+    drive the kernel route on the CPU, where the wrapper takes its plain
+    version."""
+    if F is FQ_ADAPTER and torch.device(device).type == "cuda":
+        from . import cuda_g1
 
-    ``scalars_std``: (16, N) int32 standard-form Fr limbs; ``A`` an affine G1
-    batch.  ``num_bits`` doublings and 2*num_bits mixed adds, each taken or
-    dropped per lane by a select on the scalar's bit: no branch on data.  The
-    loop is a Python loop: per step one ``pdbl`` and two ``pmadd`` launches
-    on the card, the only caller of the mixed add without a sign.  Returns a
-    Jacobian batch.
-    """
-    F = FQ_ADAPTER
-    k1, k2 = decompose(scalars_std)
-    phiA = endomorphism(F, A)
+        return cuda_g1.glv_ladder
+    return None
+
+
+def _glv_steps(F, k1, k2, A, phiA, num_bits: int):
+    """k1*A + k2*phiA by the joint double-and-add over adapter ``F``, MSB
+    first, from the identity: per bit a doubling, the mixed add of A selected
+    where the bit of ``k1`` is set, then that of ``phiA`` where the bit of
+    ``k2`` is (a select on each lane's bit, every add computed: no branch on
+    data).  ``k2`` keeps only its live limbs: a bit above them is 0.
+    Returns the projective batch.
+
+    Over ``FQ_ADAPTER`` on a CUDA tensor each step is one ``pdbl`` and two
+    ``pmadd`` launches and the selects: the routed loop of elementwise
+    kernels, the only caller of the mixed add without a sign.  Over
+    ``FQ_PLAIN`` it is ``cuda_g1.glv_ladder_plain``."""
     acc = pj.proj_identity(F, F.batch_shape(A[0]), A[0].device)
     for bit_index in range(num_bits - 1, -1, -1):
         limb, shift = divmod(bit_index, LIMB_BITS)
-        # k2 keeps only its live limbs: a bit above them is 0
         b1 = ((k1[limb] >> shift) & 1).bool()
         b2 = (((k2[limb] >> shift) & 1).bool() if limb < k2.shape[0]
               else torch.zeros_like(b1))
         acc = pj.proj_double_fast(F, acc)
         acc = pj.proj_cmov(F, b1, pj.proj_add_mixed_fast(F, acc, A), acc)
         acc = pj.proj_cmov(F, b2, pj.proj_add_mixed_fast(F, acc, phiA), acc)
+    return acc
+
+
+def scalar_mul_glv(scalars_std, A, num_bits: int = GLV_HALF_BITS):
+    """Batched k*P over G1 via GLV: k1*P + k2*phi(P), joint double-and-add.
+
+    ``scalars_std``: (16, N) int32 standard-form Fr limbs; ``A`` an affine G1
+    batch.  ``num_bits`` doublings and 2*num_bits mixed adds, each taken or
+    dropped per lane by a select on the scalar's bit: no branch on data.  On
+    the card (``glv_ladder_kernel``) the whole loop is one ``glv_ladder``
+    launch, so a call is the endomorphism's product, that launch and
+    ``proj_to_jac``'s; elsewhere it is ``_glv_steps``.  Returns a Jacobian
+    batch, limb for limb the JAX package's.
+    """
+    F = FQ_ADAPTER
+    k1, k2 = decompose(scalars_std)
+    phiA = endomorphism(F, A)
+    ladder = glv_ladder_kernel(F, A[0].device)
+    if ladder is None:
+        return pj.proj_to_jac(F, _glv_steps(F, k1, k2, A, phiA, num_bits))
+    # the wrapper copies nothing: broadcast to one batch, contiguous
+    batch = torch.broadcast_shapes(
+        *(t.shape[1:] for t in (k1, k2, A[0], A[1], phiA[0])), A[2].shape)
+    lay = lambda t: t.expand((t.shape[0],) + batch).contiguous()
+    acc = ladder(lay(k1), lay(k2), (lay(A[0]), lay(A[1]), A[2].expand(batch).contiguous()),
+                 lay(phiA[0]), num_bits)
     return pj.proj_to_jac(F, acc)
