@@ -28,7 +28,12 @@ conversion (``to_affine`` lines: ``MsmContext.to_affine`` with its one
 ``field_inv`` launch, and on the launch-a-step route of the Fermat ladder,
 equal and the oracle's; likewise the batch of 4's results and ``msm_g2``'s), then the tail's lane
 scan (``padd_scan``) at its shapes and the ``tile_sweep`` (the scan kernel
-over three tiles of one window's adds, ``padd`` at two widths); the cached-bases path a prover calls (``g1_context()``:
+over three tiles of one window's adds, ``padd`` at two widths); then
+``msm_traceable`` (G1 on the same 2^20 points with GLV off, G2 on 2^16 tiled
+points: the eager call against ``msm_g1`` / ``msm_g2`` limb for limb, the host
+and the plan's launches, one call captured in a ``torch.cuda.CUDAGraph`` and
+replayed, also on new scalars copied into the captured input, the golden
+vectors eager and replayed, eager against replay in turns); the cached-bases path a prover calls (``g1_context()``:
 ``upload_bases`` with precompute factor 2, ``msm_with_bases``, ``msm_batch``,
 an MSM forced into 4 pieces) on the same 2^20 points, and ``msm_g2`` and
 ``g2_context()`` (factor 2) on 2^20 G2 points, each checked against the host,
@@ -166,7 +171,7 @@ LIMB_BYTES_STORED = 4  # the int32 slot it is stored in
 SEED = 20
 LOG_N = 20             # the MSM path's point count, 2^20: never cut
 NTT_LOG_N = 22         # the NTT path's size, 2^22 Fr elements: never cut
-PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_ctx_small",
+PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_traceable", "msm_ctx_small",
           "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
           "parallel", "points_2e20", "entry"]
 G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
@@ -1335,33 +1340,44 @@ def main() -> int:
     # ---------------------------------------------------------------- msm_2e20
     n = 1 << LOG_N
     A = tiled_affine(n)
-    # scalars below 2^254 < r from the seed, standard form, four 64-bit words
-    words = rng.integers(0, np.iinfo(np.uint64).max, size=(4, n),
-                         dtype=np.uint64, endpoint=True)
-    words[3] &= np.uint64((1 << 62) - 1)
-    limbs = np.empty((16, n), dtype=np.int32)
-    for wi in range(4):
-        for li in range(4):
-            limbs[4 * wi + li] = ((words[wi] >> np.uint64(16 * li))
-                                  & np.uint64(0xFFFF)).astype(np.int32)
-    s_std = torch.from_numpy(limbs).to(dev)
-    s_mont = cuda_ops.mont_mul(
-        FR, s_std, ops.broadcast_constant(FR, FR.r2_limbs, (n,), dev))
+
+    def draw_scalars(count):
+        """``count`` scalars below 2^254 < r from the seed: their four 64-bit
+        words (4, count), and their (16, count) limbs in standard and in
+        Montgomery form on the card."""
+        words_ = rng.integers(0, np.iinfo(np.uint64).max, size=(4, count),
+                              dtype=np.uint64, endpoint=True)
+        words_[3] &= np.uint64((1 << 62) - 1)
+        limbs_ = np.empty((16, count), dtype=np.int32)
+        for wi in range(4):
+            for li in range(4):
+                limbs_[4 * wi + li] = ((words_[wi] >> np.uint64(16 * li))
+                                       & np.uint64(0xFFFF)).astype(np.int32)
+        std = torch.from_numpy(limbs_).to(dev)
+        mont = cuda_ops.mont_mul(
+            FR, std, ops.broadcast_constant(FR, FR.r2_limbs, (count,), dev))
+        return words_, std, mont
+
+    words, s_std, s_mont = draw_scalars(n)
+    limbs = s_std.cpu().numpy()                  # the parallel phase makes them again
     if not torch.equal(fast.from_mont(FR, s_mont), s_std):
         raise AssertionError("msm_2e20: scalars do not round-trip through Montgomery form")
 
-    def host_scalar_total(mults):
-        """sum_i s_i * mults[i mod m] mod r for the scalars above.  Per
-        residue j the scalars are summed in 32-bit halves (no overflow: at
-        most 2^20 / m terms below 2^32 each, m >= 1024)."""
+    def host_scalar_total(mults, words_=None):
+        """sum_i s_i * mults[i mod m] mod r for the scalars of ``words_``
+        (default: those above).  Per residue j the scalars are summed in
+        32-bit halves (no overflow: at most 2^20 / m terms below 2^32 each,
+        m >= 1024)."""
+        words_ = words if words_ is None else words_
+        count = words_.shape[1]
         m = len(mults)
-        pad = (-n) % m
+        pad = (-count) % m
         total = 0
         for wi in range(4):
-            w_ = np.concatenate([words[wi], np.zeros(pad, np.uint64)]).reshape(-1, m)
+            w_ = np.concatenate([words_[wi], np.zeros(pad, np.uint64)]).reshape(-1, m)
             lo = (w_ & np.uint64(0xFFFFFFFF)).sum(axis=0)
             hi = (w_ >> np.uint64(32)).sum(axis=0)
-            for j in range(min(m, n)):
+            for j in range(min(m, count)):
                 total += ((int(lo[j]) + (int(hi[j]) << 32)) << (64 * wi)) * int(mults[j])
         return total % constants.FR_MODULUS
 
@@ -1732,6 +1748,23 @@ def main() -> int:
                    path=path, **extra)
 
     scan_row_g1("pmadd_signed", "msm_2e20: msm_g1", R, L, launches["pmadd_signed"])
+    G2_SRC = "tpu_bls12_381_torch/csrc/"
+
+    def scan_row_g2(name, path, R_, L_, n_launches):
+        At_ = tiled_affine_g2(R_ * L_)
+        tile_ = torch.cat([At_[0].reshape(48, -1), At_[1].reshape(48, -1)], dim=0
+                          ).reshape(96, R_, L_).permute(1, 0, 2).contiguous()
+        del At_
+        xr_ = tile_[:, :48].unflatten(1, (24, 2))
+        yr_ = tile_[:, 48:].unflatten(1, (24, 2))
+        sr_ = torch.from_numpy(rng.integers(0, 2, size=(R_, L_)).astype(bool)).to(dev)
+        ir_ = torch.from_numpy(rng.integers(0, 16, size=(R_, L_)) == 0).to(dev)
+        kernel_row(name, "pmadd2_kernel", G2_SRC + "g2_pmadd.cu",
+                   "tpu_bls12_381/curves/pallas_g2.py:179", [R_, 24, 2, L_],
+                   lambda: cuda_g2.pmadd2_rows(xr_, yr_, sr_, ir_),
+                   lambda: cuda_g2.pmadd2_rows_plain(xr_, yr_, sr_, ir_),
+                   R_ * L_ * 5 * 48, R_ * L_ * 2, R_ * L_ * 33 * mul_mads(W_FQ), 3,
+                   n_launches=n_launches, path=path)
 
     def proj_points(shape, curve="g1"):
         """Projective points with Z != 1 on the lanes of ``shape`` (G1, or G2
@@ -1893,20 +1926,13 @@ def main() -> int:
           lambda: cuda_g2.LAUNCHES["padd2_scan"], reps=3)
     del Ps2, Po2, pair2
 
-    # ----------------------------------------------------------- msm_ctx_small
-    # The cached-bases path at small sizes, every variant against the golden
-    # vectors or against its one-shot result.
     def g1_ints(P):
         return g1.jacobian_to_ints(P)[0]
 
     def g2_ints(P):
         return g2.jacobian_to_ints(tuple(c[..., None] for c in P))[0]
 
-    def ctx_case(what, ok, **extra):
-        emit({"phase": "msm_ctx_small", "what": what, "equal": bool(ok), **extra})
-        if not ok:
-            raise AssertionError(f"msm_ctx_small: {what}: wrong result")
-
+    # The golden G2 vector (n = 1024), for this phase and msm_ctx_small.
     with open(ROOT / "tests" / "vectors" / "msm_g2_vectors.json") as f:
         case2 = json.load(f)["cases"][0]
     hx = lambda v: int(v, 16)
@@ -1918,6 +1944,227 @@ def main() -> int:
     sv2 = torch.from_numpy(ints_to_limbs(
         [FR.to_mont(hx(v)) for v in case2["scalars"]], FR.num_limbs
     ).astype(np.int32)).to(dev)
+
+    # ----------------------------------------------------------- msm_traceable
+    # msm_traceable: the MSM as one call whose shapes all follow from the
+    # inputs' (no GLV, no budget, no pieces), captured in a CUDA graph.  G1 on
+    # msm_2e20's 2^20 points and scalars, G2 on 2^16 of msm_g2_2e20's tiled
+    # points: the eager call against the host's point and, limb for limb,
+    # against msm_g1 with GLV off (msm_g2); its launches against the plan;
+    # one call captured after a warm call on a side stream, replayed
+    # (torch.equal to the eager call), then replayed on a second draw of
+    # scalars copied into the captured input (the eager call's limbs and the
+    # host's point for them); the golden vectors (G1 n = 4096, G2 n = 1024)
+    # eager and replayed.  Then eager against replay in turns, medians of 3
+    # by CUDA events each (G1 beside msm_g1 with GLV off and on).  A capture
+    # or a launch that fails fails the run: there is no eager fallback.
+    from tpu_bls12_381_torch.msm import msm_traceable
+    from tpu_bls12_381_torch.msm.pippenger import window_bits_for
+
+    def capture(fn):
+        """``fn()`` captured in a CUDA graph after one warm call on a side
+        stream: (graph, its output, seconds of the capture, the peak bytes
+        its pool held during it, the bytes the pool reserved)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        graph = torch.cuda.CUDAGraph()
+        t0_ = time.perf_counter()
+        with torch.cuda.graph(graph):
+            out_ = fn()
+        torch.cuda.synchronize()
+        return (graph, out_, time.perf_counter() - t0_,
+                torch.cuda.max_memory_allocated() - base,
+                torch.cuda.memory_reserved() - reserved)
+
+    def replayed(graph, out_):
+        graph.replay()
+        torch.cuda.synchronize()
+        return tuple(c.clone() for c in out_)
+
+    def in_turns(order, calls):
+        """Each name of ``order`` in turn, a median of 3 calls by CUDA events:
+        name -> the medians in the order taken."""
+        got = {}
+        for name_ in order:
+            got.setdefault(name_, []).append(
+                statistics.median(time_ms(calls[name_], 1, warm=False) for _ in range(3)))
+        return got
+
+    def traceable_case(what, F_, s_, A_, want, ints, plan, kernel, on_path_, same_as):
+        """The eager call counted, held to the host's point (``want``) and
+        limb for limb to ``same_as()`` (the same MSM through msm_g1 / msm_g2
+        with GLV off); its launches against ``plan``; then captured and
+        replayed, torch.equal to the eager call.  Returns the eager result,
+        its launches, the graph, the captured input and output, and the
+        capture's figures."""
+        reset_counts()
+        with guarded("msm_traceable"):
+            P_ = msm_traceable(F_, s_, A_)
+            torch.cuda.synchronize()
+        launches_ = counts()
+        chains_ = chain_counts(cuda_g2 if kernel == "pdbl2" else cuda_g1)
+        scans_ = scan_counts(cuda_g2 if kernel == "pdbl2" else cuda_g1)
+        columns_ = dict(cuda_ops.COLUMN_LAUNCHES)
+        with guarded("msm_traceable"):
+            same_ = trees_equal(P_, same_as())
+        ok_ = ints(P_) == want
+        scan_k = "pmadd2" if kernel == "pdbl2" else "pmadd_signed"
+        if not (ok_ and same_):
+            raise AssertionError(f"msm_traceable {what}: the host's point {ok_}, limbs "
+                                 f"equal to the GLV-off MSM {same_}")
+        missing_ = [k for k in on_path_ if launches_[k] < 1]
+        if missing_:
+            raise AssertionError(f"msm_traceable {what}: kernels never launched: {missing_}")
+        if launches_[scan_k] != plan["T"] or plan["pieces"] != 1 or plan["glv"]:
+            raise AssertionError(f"msm_traceable {what}: {launches_[scan_k]} scan launches, "
+                                 f"the plan has {plan['T']} windows in one piece")
+        check_tail(f"msm_traceable {what}", launches_, plan, chains_, kernel=kernel)
+        s_in = s_.clone()
+        with guarded("msm_traceable"):
+            graph, out_, cap_s, pool_peak, pool_reserved = capture(
+                lambda: msm_traceable(F_, s_in, A_))
+        rep_ = replayed(graph, out_)
+        if not trees_equal(rep_, P_):
+            raise AssertionError(f"msm_traceable {what}: the replay differs from the eager call")
+        return dict(P=P_, launches={k: v for k, v in launches_.items() if v},
+                    scans=scans_, columns=columns_, graph=graph, s_in=s_in, out=out_,
+                    capture_seconds=cap_s, pool_peak_bytes=pool_peak,
+                    pool_reserved_bytes=pool_reserved)
+
+    # G1: msm_2e20's points and scalars
+    w_t = window_bits_for(n, FQ_ADAPTER, dev)
+    plan_t = msm_geometry(n, False, FQ_ADAPTER, dev, w_t)   # the counts to hold it to
+    t1 = traceable_case("G1 2^20", FQ_ADAPTER, s_mont, A, expected, g1_ints,
+                        plan_t, "pdbl", ["mont_mul_fr", "mont_mul_fq", "mont_sqr_fq",
+                                         "pmadd_signed", "padd", "pdbl", "padd_scan",
+                                         "neg_fq"],
+                        lambda: msm_g1(s_mont, A, glv=False))
+    # a second draw of scalars copied into the captured input
+    words_b, _, s_mont_b = draw_scalars(n)
+    expected_b = oracle.jac_to_affine(
+        oracle.scalar_mul(host_scalar_total(ks, words_b), G, oracle.FQ_OPS), oracle.FQ_OPS)
+    t1["s_in"].copy_(s_mont_b)
+    rep_b = replayed(t1["graph"], t1["out"])
+    with guarded("msm_traceable"):
+        eager_b = msm_traceable(FQ_ADAPTER, s_mont_b, A)
+    new_ok = trees_equal(rep_b, eager_b) and g1_ints(rep_b) == expected_b
+    if not new_ok:
+        raise AssertionError("msm_traceable G1 2^20: the replay on new scalars differs from "
+                             "the eager call or from the host's point")
+    del rep_b, eager_b, s_mont_b
+    # msm_geometry alone: the host work of msm_g1 that msm_traceable skips
+    g1_calls = {"eager": lambda: msm_traceable(FQ_ADAPTER, t1["s_in"], A),
+                "replay": t1["graph"].replay,
+                "msm_g1 glv=False": lambda: msm_g1(t1["s_in"], A, glv=False),
+                "msm_g1 glv=True": lambda: msm_g1(t1["s_in"], A, glv=True),
+                "msm_geometry": lambda: msm_geometry(n, False, FQ_ADAPTER, dev, w_t)}
+    with guarded("msm_traceable"):
+        turns1 = in_turns(["eager", "replay", "msm_geometry", "msm_g1 glv=False",
+                           "msm_g1 glv=True", "msm_g1 glv=True", "msm_g1 glv=False",
+                           "msm_geometry", "replay", "eager"], g1_calls)
+    # the golden G1 vector, n = 4096 (msm_small's), eager and replayed
+    expected_v = (int(case["expected"]["x"], 16), int(case["expected"]["y"], 16))
+    with guarded("msm_traceable"):
+        golden1 = msm_traceable(FQ_ADAPTER, sv, Av)
+        gg, gout, _, _, _ = capture(lambda: msm_traceable(FQ_ADAPTER, sv, Av))
+    golden1_ok = {"eager": g1_ints(golden1) == expected_v,
+                  "replay": g1_ints(replayed(gg, gout)) == expected_v}
+    del gg, gout, golden1
+
+    # G2: 2^16 of the tiled G2 points, the first 2^16 scalars
+    n_t2 = 1 << 16
+    A_t2 = tiled_affine_g2(n_t2)
+    s_t2 = s_mont[:, :n_t2].contiguous()
+    expected_t2 = oracle.jac_to_affine(
+        oracle.scalar_mul(host_scalar_total(ks2, words[:, :n_t2]), G2gen, oracle.FQ2_OPS),
+        oracle.FQ2_OPS)
+    plan_t2 = msm_geometry(n_t2, False, FQ2_ADAPTER, dev, window_bits_for(n_t2, FQ2_ADAPTER, dev))
+    t2 = traceable_case("G2 2^16", FQ2_ADAPTER, s_t2, A_t2, expected_t2, g2_ints, plan_t2,
+                        "pdbl2", ["mont_mul_fr", "pmadd2", "padd2", "padd2_scan", "pdbl2"],
+                        lambda: msm_g2(s_t2, A_t2))
+    with guarded("msm_traceable"):
+        turns2 = in_turns(["eager", "replay", "replay", "eager"],
+                          {"eager": lambda: msm_traceable(FQ2_ADAPTER, t2["s_in"], A_t2),
+                           "replay": t2["graph"].replay})
+        golden2 = msm_traceable(FQ2_ADAPTER, sv2, Av2)
+        gg, gout, _, _, _ = capture(lambda: msm_traceable(FQ2_ADAPTER, sv2, Av2))
+    golden2_ok = {"eager": g2_ints(golden2) == expected2,
+                  "replay": g2_ints(replayed(gg, gout)) == expected2}
+    del gg, gout, golden2
+    med = lambda v: statistics.median(v)
+    figures = {}
+    for tag, t_, plan_, turns_ in (("g1_2e20", t1, plan_t, turns1),
+                                   ("g2_2e16", t2, plan_t2, turns2)):
+        figures[tag] = {
+            **{k: plan_[k] for k in ("w", "T", "R", "L", "nb", "tail_launches",
+                                     "doubling_chains")},
+            "ms_in_turns": turns_, "ms_median": {k: med(v) for k, v in turns_.items()},
+            "replay_over_eager": med(turns_["replay"]) / med(turns_["eager"]),
+            "launches_per_eager_call": t_["launches"],
+            "kernel_launches_per_eager_call": sum(
+                v for k, v in t_["launches"].items()
+                if not k.startswith(("mont_mul_col", "pdbl_doublings", "pdbl2_doublings"))),
+            "capture_seconds": t_["capture_seconds"],
+            "graph_pool_peak_bytes": t_["pool_peak_bytes"],
+            "graph_pool_reserved_bytes": t_["pool_reserved_bytes"]}
+    figures["g1_2e20"]["replay_on_new_scalars_equal"] = new_ok
+    emit({"phase": "msm_traceable", **figures,
+          "golden_g1_4096": golden1_ok, "golden_g2_1024": golden2_ok, "card": smi})
+    if not all(golden1_ok.values()) or not all(golden2_ok.values()):
+        raise AssertionError(f"msm_traceable: the golden vectors, G1 {golden1_ok}, "
+                             f"G2 {golden2_ok}")
+
+    # Rows for the kernel shapes this path gives that no row has: the GLV-off
+    # scan tiles and, for G2 at 2^16, the stitch and from_mont's width.  The
+    # tails' other shapes follow from L, nb, lb_bits and w, which are those of
+    # msm_2e20's and msm_g2_2e20's plans (but G2's L; checked here), so those
+    # paths' rows hold them.
+    plan_g2_full = msm_geometry(n, F=FQ2_ADAPTER, device=dev)
+    for tag, plan_, full, keys_ in (("G1", plan_t, geo, ("L", "nb", "lb_bits", "w")),
+                                    ("G2", plan_t2, plan_g2_full, ("nb", "lb_bits", "w"))):
+        differ = {k: (plan_[k], full[k]) for k in keys_ if plan_[k] != full[k]}
+        if differ:
+            raise AssertionError(f"msm_traceable {tag}: the tail's shapes are not the 2^20 "
+                                 f"path's ({differ}): they need rows of their own")
+    path_t1 = "msm_traceable: msm_traceable(FQ_ADAPTER) on 2^20 points, GLV off"
+    path_t2 = "msm_traceable: msm_traceable(FQ2_ADAPTER) on 2^16 points"
+    scan_row_g1("pmadd_signed[traceable]", path_t1, plan_t["R"], plan_t["L"],
+                t1["launches"]["pmadd_signed"])
+    scan_row_g2("pmadd2[traceable]", path_t2, plan_t2["R"], plan_t2["L"],
+                t2["launches"]["pmadd2"])
+    stitch_t2 = {k: v for k, v in t2["scans"].items() if k[1][-1] == plan_t2["L"]}
+    scan_rows("traceable", path_t2, stitch_t2, sum(stitch_t2.values()), "g2")
+    a_t2 = rand_field(FR, n_t2)
+    one_t2 = ops.constant_column(FR, int_to_limbs(1, 16), dev)
+    kernel_row("mont_mul_fr[from_mont traceable g2]", "mont_mul_kernel", FIELD_SRC, MUL_TPU,
+               [16, n_t2], lambda: cuda_ops.mont_mul(FR, a_t2, one_t2),
+               lambda: cuda_ops.mont_mul_plain(FR, a_t2, one_t2),
+               2 * 16 * n_t2 + 16, 0, n_t2 * mul_mads(W_FR), 10,
+               n_launches=t2["columns"].get(("mont_mul_fr", n_t2), 0),
+               path=path_t2 + " (fast.from_mont)", column=[16, 1])
+    emit({"phase": "msm_traceable", "what": "rows", "covered": (
+        "the G1 tail's shapes are msm_2e20's rows' (L, nb, lb_bits, w equal), the G2 tail's "
+        "but the stitch msm_g2_2e20's (nb, lb_bits, w equal)")})
+    del t1, t2, A_t2, s_t2, a_t2
+    torch.cuda.empty_cache()
+    if args.upto == "msm_traceable":
+        return stop_early()
+
+    # ----------------------------------------------------------- msm_ctx_small
+    # The cached-bases path at small sizes, every variant against the golden
+    # vectors or against its one-shot result.
+    def ctx_case(what, ok, **extra):
+        emit({"phase": "msm_ctx_small", "what": what, "equal": bool(ok), **extra})
+        if not ok:
+            raise AssertionError(f"msm_ctx_small: {what}: wrong result")
+
     ctx1, ctx2 = g1_context(), g2_context()
     reset_counts()
     ctx_case("msm_g2 golden n=1024", g2_ints(msm_g2(sv2, Av2)) == expected2)
@@ -1927,7 +2174,6 @@ def main() -> int:
              glv=bases2.glv, w=bases2.window_bits, launches=dict(cuda_g2.LAUNCHES))
     del bases2, Av2, sv2
 
-    expected_v = (int(case["expected"]["x"], 16), int(case["expected"]["y"], 16))
     for factor in (1, 2):
         for use_glv in (False, True):
             bases = ctx1.upload_bases(Av, precompute_factor=factor, glv=use_glv)
@@ -2300,7 +2546,6 @@ def main() -> int:
     del Pg2c, bases2, s_mont
 
     # ----------------------- the new kernels at the shapes their paths give them
-    G2_SRC = "tpu_bls12_381_torch/csrc/"
     Ak = tiled_affine(n_v)
     Pk = contig(pj.proj_double(FQ_PLAIN, pj.affine_to_proj(FQ_PLAIN, roll(Ak, 1))))
     # pmadd and pdbl at scalar_mul_glv's shape: no driven path launches them
@@ -2413,22 +2658,6 @@ def main() -> int:
                      "FQ_ADAPTER (128 pdbl, 256 pmadd, the selects)")
     del k1_20, k2_20, phi_20, A20, k20
     L2, R2, nb2 = geo2["L"], geo2["R"], geo2["nb"]
-
-    def scan_row_g2(name, path, R_, L_, n_launches):
-        At_ = tiled_affine_g2(R_ * L_)
-        tile_ = torch.cat([At_[0].reshape(48, -1), At_[1].reshape(48, -1)], dim=0
-                          ).reshape(96, R_, L_).permute(1, 0, 2).contiguous()
-        del At_
-        xr_ = tile_[:, :48].unflatten(1, (24, 2))
-        yr_ = tile_[:, 48:].unflatten(1, (24, 2))
-        sr_ = torch.from_numpy(rng.integers(0, 2, size=(R_, L_)).astype(bool)).to(dev)
-        ir_ = torch.from_numpy(rng.integers(0, 16, size=(R_, L_)) == 0).to(dev)
-        kernel_row(name, "pmadd2_kernel", G2_SRC + "g2_pmadd.cu",
-                   "tpu_bls12_381/curves/pallas_g2.py:179", [R_, 24, 2, L_],
-                   lambda: cuda_g2.pmadd2_rows(xr_, yr_, sr_, ir_),
-                   lambda: cuda_g2.pmadd2_rows_plain(xr_, yr_, sr_, ir_),
-                   R_ * L_ * 5 * 48, R_ * L_ * 2, R_ * L_ * 33 * mul_mads(W_FQ), 3,
-                   n_launches=n_launches, path=path)
 
     scan_row_g2("pmadd2", "msm_g2_2e20: msm_g2", R2, L2, launches_g2["pmadd2"])
     scan_row_g2("pmadd2[cached]", "msm_g2_2e20: g2_context msm_with_bases",

@@ -49,8 +49,9 @@ span) is, on the card, one launch (``projective.proj_double_n_fast``:
 ``pdbl`` for G1, ``pdbl2`` for G2).
 
 ``msm_chunked`` runs the same pipeline over a leading chunk axis, one partial
-MSM a chunk (the scale-out layer's local step, ``parallel/msm.py``).  Not
-ported: ``msm_traceable`` (the JAX package's one-trace form).
+MSM a chunk (the scale-out layer's local step, ``parallel/msm.py``).
+``msm_traceable`` is the JAX package's one-trace form: one call with every
+shape from the inputs' shapes, which a CUDA graph can capture.
 """
 
 from __future__ import annotations
@@ -709,6 +710,19 @@ def _horner_to_jac(F, Ws, w: int):
         return _stage_to_jac(F, _stage_horner(F, Ws, w))
 
 
+def _msm_prelude(F, scalars, A, scalars_montgomery: bool):
+    """The inputs checked, the size limit, the scalars in standard form:
+    (n, scalars)."""
+    _check_inputs(F, scalars, A)
+    n = A[2].shape[-1]
+    if n > (1 << constants.MAX_MSM_LOG_SIZE):
+        raise ValueError(f"MSM size {n} exceeds 2^{constants.MAX_MSM_LOG_SIZE}")
+    if scalars_montgomery:
+        with stage("from_mont"):
+            scalars = fast.from_mont(FR, scalars)
+    return n, scalars
+
+
 def msm(F, scalars, A, *, window_bits: int | None = None,
         scalars_montgomery: bool = True, glv: bool | None = None):
     """MSM: sum_i scalars[i] * A[i] over the curve with field adapter F.
@@ -727,15 +741,8 @@ def msm(F, scalars, A, *, window_bits: int | None = None,
     each chunk's per-window bucket sums fold into a running total and the
     Horner ladder and the Jacobian conversion run once.
     """
-    _check_inputs(F, scalars, A)
-    inf = A[2]
-    n = inf.shape[-1]
-    if n > (1 << constants.MAX_MSM_LOG_SIZE):
-        raise ValueError(f"MSM size {n} exceeds 2^{constants.MAX_MSM_LOG_SIZE}")
-    if scalars_montgomery:
-        with stage("from_mont"):
-            scalars = fast.from_mont(FR, scalars)
-    geo = msm_geometry(n, glv, F, inf.device, window_bits)
+    n, scalars = _msm_prelude(F, scalars, A, scalars_montgomery)
+    geo = msm_geometry(n, glv, F, A[2].device, window_bits)
     w = geo["w"]
     return _horner_to_jac(F, _pieces_window_sums(F, scalars, A, w, geo["glv"], geo["per"]), w)
 
@@ -793,6 +800,40 @@ def _msm_window_sums(F, scalars_std, A, w: int, glv: bool):
     with stage("keys"):
         keys = decompose_window_keys(scalars_std, w, num_bits)  # (T, N)
     return _window_sums_from_keys(F, keys, A, w)
+
+
+def msm_traceable(F, scalars, A, *, window_bits: int | None = None,
+                  scalars_montgomery: bool = True):
+    """Same contract as :func:`msm`, as one call whose every shape follows
+    from the inputs' shapes (the JAX package's one-trace MSM).
+
+    The window is ``window_bits`` or the heuristic for n, the scan tile
+    ``_tile_plan``'s; there is no GLV, no memory budget and no point pieces,
+    and neither MIDNIGHT_MSM_GLV nor MIDNIGHT_MSM_HBM_BUDGET_MB is read.  At
+    the same w it runs the kernels and torch ops of ``msm(F, ..., glv=False)``
+    in one piece, in the same order, and returns the same limbs.
+
+    Capture: after one eager call on the same shapes and device (it builds
+    the kernels and makes the cached device constants), a call can be
+    captured in a ``torch.cuda.CUDAGraph`` and replayed.  Nothing on the path
+    reads a device value on the host, and every launch goes to the current
+    stream, so the replay recomputes the result from whatever the input
+    tensors hold at replay time::
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            msm_traceable(F, scalars, A)          # the warm call
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = msm_traceable(F, scalars, A)
+        scalars.copy_(other_scalars)
+        graph.replay()                            # out: the MSM of other_scalars
+    """
+    n, scalars = _msm_prelude(F, scalars, A, scalars_montgomery)
+    w = window_bits or window_bits_for(n, F, A[2].device)
+    return _horner_to_jac(F, _msm_window_sums(F, scalars, A, w, False), w)
 
 
 def msm_g1(scalars, A, **kw):
