@@ -64,9 +64,12 @@ group of one on a TCP store at 127.0.0.1, destroyed at the phase's end;
 ``msm_g1_sharded`` over 4 chunks of msm_2e20's points with GLV, the factor-2
 form as ``precompute`` lays it out (GLV-extended, expanded, 4 segments a
 chunk) and the points as one chunk, each held by value to ``msm_g1`` and to
-the host's point, the launches to 4 times a chunk's plan, the ``all_gather``
-and ``jadd`` counts; ``msm_g2_sharded`` over 4 chunks of 2^16 G2 points
-against ``msm_g2``; ``ntt_sharded`` at 2^22 natural and
+the host's point, each chunk of ``msm_chunked`` (the 4 chunks as one batch)
+with ``torch.equal`` to the one-device call on it, the launches and the
+tail to the batched plan (``msm_geometry(..., chunks=4)``), the ``all_gather``
+and ``jadd`` counts; ``msm_g2_sharded`` over msm_g2_2e20's 2^20 points in 4
+chunks, alike; each also timed against its chunks through the one-device
+MSM one after another, rebuilt from public calls; ``ntt_sharded`` at 2^22 natural and
 transposed, both inverses, the coset forms and ``ntt_batch_sharded`` on
 (16, 4, 2^20), each held with ``torch.equal`` to ``ntt``, ``coset_ntt`` or
 the input, with 3 (transposed: 2) ``all_to_all_single`` calls; each timed in
@@ -3288,7 +3291,7 @@ def main() -> int:
     import torch.distributed as dist
 
     from tpu_bls12_381_torch import parallel
-    from tpu_bls12_381_torch.msm import expand_bases, pippenger
+    from tpu_bls12_381_torch.msm import expand_bases, msm_precomputed, pippenger
     from tpu_bls12_381_torch.parallel import mesh as mesh_mod
     from tpu_bls12_381_torch.parallel.msm import chunk_msm_inputs
     from tpu_bls12_381_torch.parallel.ntt import release_sharded_caches, split_sizes
@@ -3355,11 +3358,17 @@ def main() -> int:
         D = 4
         sc4, A4 = chunk_msm_inputs(s_mont, A, D)
         nloc = n // D
-        geo_c = msm_geometry(nloc, True, F=FQ_ADAPTER, device=dev)   # a chunk's plan
+        # the plan of msm_chunked over the D chunks as one batch
+        geo_c = msm_geometry(nloc, True, F=FQ_ADAPTER, device=dev, chunks=D)
         w_c = geo_c["w"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         P1 = msm_g1(s_mont, A)
+        peak_1 = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         Ps, launches_s, coll_s = counted_par(
             lambda: parallel.msm_g1_sharded(sc4, A4, mesh, glv=True), shapes_par["g1"])
+        peak_s = torch.cuda.max_memory_allocated()
         scans_s, chains_s = scan_counts(), chain_counts()
         # factor 2 as precompute lays it out: GLV-extend, expand, 4 segments a chunk
         w_f = pippenger.window_bits_for(2 * nloc, FQ_ADAPTER, dev)
@@ -3373,43 +3382,66 @@ def main() -> int:
             shapes_par["g1"])
         scans_f, chains_f = scan_counts(), chain_counts()
         geo_f = msm_geometry(nloc, True, F=FQ_ADAPTER, device=dev, window_bits=w_f,
-                             factor=2, cached=True)
+                             factor=2, chunks=D)
         sc1, A1 = chunk_msm_inputs(s_mont, A, 1)
         Pp, launches_p, coll_p = counted_par(
             lambda: parallel.msm_g1_sharded(sc1, A1, mesh, glv=True), shapes_par["g1"])
-        # the chunk points that the combine's jadd rows take
+        # The parent's form of the same calls, rebuilt from public calls: each
+        # chunk through the one-device MSM in turn, then the combine.
+        A4d = [tuple(c[d] for c in A4) for d in range(D)]
+        Afd = [tuple(c[d] for c in Af) for d in range(D)]
+        stack = lambda Ps_: tuple(torch.stack([P[c] for P in Ps_], dim=-1) for c in range(3))
+        each_g1 = lambda: [msm_g1(sc4[d], A4d[d], window_bits=w_c, glv=True) for d in range(D)]
+        each_f = lambda: [msm_precomputed(FQ_ADAPTER, scf[d], Afd[d], window_bits=w_f, factor=2,
+                                          glv=True) for d in range(D)]
+        # each chunk of the batch against the one-device call on it: limb for
+        # limb (every kernel on the path computes a member as one alone) and
+        # by value
         with guarded("parallel"):
             P_chunks = tuple(c.movedim(0, -1).contiguous() for c in pippenger.msm_chunked(
                 FQ_ADAPTER, sc4, A4, glv=True))                          # (24, D) leaves
+            Pf_chunks = tuple(c.movedim(0, -1).contiguous() for c in pippenger.msm_chunked(
+                FQ_ADAPTER, scf, Af, window_bits=w_f, glv=True, factor=2))
+            P_each, Pf_each = stack(each_g1()), stack(each_f())
+            one_by_one = pt.sum_reduce(FQ_ADAPTER, P_each)
+        chunks_equal = {
+            "limbs": trees_equal(P_chunks, P_each), "factor2_limbs": trees_equal(Pf_chunks, Pf_each),
+            "values": g1.jacobian_to_ints(P_chunks) == g1.jacobian_to_ints(P_each),
+            "factor2_values": g1.jacobian_to_ints(Pf_chunks) == g1.jacobian_to_ints(Pf_each)}
         got = {"msm_g1": ints1(P1), "sharded_4": ints1(Ps), "factor2_4": ints1(Pf),
-               "one_chunk": ints1(Pp)}
-        g1_ok = all(v == expected for v in got.values())
+               "one_chunk": ints1(Pp), "one_by_one_4": ints1(one_by_one)}
+        g1_ok = all(v == expected for v in got.values()) and all(chunks_equal.values())
         with guarded("parallel"):
-            ms_g1, each_g1 = in_turns({
+            ms_g1, each_ms_g1 = in_turns({
                 "msm_g1": lambda: msm_g1(s_mont, A),
                 "msm_g1_sharded_4": lambda: parallel.msm_g1_sharded(sc4, A4, mesh, glv=True),
+                "msm_g1_one_by_one_4": lambda: pt.sum_reduce(FQ_ADAPTER, stack(each_g1())),
                 "msm_g1_sharded_factor2_4": lambda: parallel.msm_g1_sharded(
                     scf, Af, mesh, window_bits=w_f, glv=True, factor=2),
+                "msm_precomputed_one_by_one_factor2_4": lambda: pt.sum_reduce(
+                    FQ_ADAPTER, stack(each_f())),
                 "msm_g1_sharded_1": lambda: parallel.msm_g1_sharded(sc1, A1, mesh,
                                                                     glv=True)}, 3)
-        del P1, Ps, Pf, Pp, A, sc1, A1
-        # the launches against a chunk's plan: D times its scans and tail
-        tail_c = geo_c["tail_launches"]
-        plan_ok = (launches_s.get("pmadd_signed") == D * geo_c["scan_launches"]
-                   and launches_s.get("padd_scan") == D * tail_c["padd_scan"]
-                   and launches_f.get("pmadd_signed") == D * geo_f["scan_launches"]
+        del P1, Ps, Pf, Pp, A, sc1, A1, A4d, Afd, Pf_chunks, P_each, Pf_each, one_by_one
+        # the launches against the batched plan: T x groups x pieces scans and
+        # the tail of one batched run (not D times a chunk's)
+        plan_ok = (launches_s.get("pmadd_signed") == geo_c["scan_launches"]
+                   and launches_s.get("padd_scan") == geo_c["tail_launches"]["padd_scan"]
+                   and launches_f.get("pmadd_signed") == geo_f["scan_launches"]
+                   and launches_f.get("padd_scan") == geo_f["tail_launches"]["padd_scan"]
                    and launches_s.get("jadd") == 2 and launches_f.get("jadd") == 2
                    and coll_s["all_gather"] == 3
                    and launches_p.get("jadd", 0) == 0 and coll_p["all_gather"] == 3)
+        plan_keys = ("glv", "w", "T", "L", "R", "nb", "groups", "per_group", "pieces",
+                     "scan_launches", "tail_launches")
         emit({"phase": "parallel", "what": "G1 MSM, 2^20 points", "equal": g1_ok,
               "launches_as_planned": plan_ok, "mesh": [mesh.rank, mesh.size, str(mesh.device)],
-              "chunks": D, "chunk_plan": {k: geo_c[k] for k in ("glv", "w", "T", "L", "R",
-                                                                 "scan_launches",
-                                                                 "tail_launches")},
+              "chunks": D, "chunks_as_one_batch_plan": {k: geo_c[k] for k in plan_keys},
               "factor2_window": w_f,
-              "factor2_chunk_plan": {k: geo_f[k] for k in ("w", "T", "L", "R", "nb",
-                                                            "scan_launches")},
-              "ms_median_of_3_in_turns": ms_g1, "ms_each": each_g1,
+              "factor2_plan": {k: geo_f[k] for k in plan_keys if k != "glv"},
+              "chunks_equal_the_one_device_calls": chunks_equal,
+              "ms_median_of_3_in_turns": ms_g1, "ms_each": each_ms_g1,
+              "peak_bytes_allocated": {"msm_g1": peak_1, "msm_g1_sharded_4": peak_s},
               "launches_sharded_4": launches_s, "launches_factor2_4": launches_f,
               "launches_one_chunk": launches_p,
               "collectives": {"sharded_4": coll_s, "factor2_4": coll_f, "one_chunk": coll_p},
@@ -3418,35 +3450,61 @@ def main() -> int:
                        "one_chunk": launches_p.get("jadd", 0)}, "card": smi})
         if not (g1_ok and plan_ok):
             raise AssertionError(f"parallel: the sharded G1 MSM differs or did not follow "
-                                 f"the chunks' plan: {got} (host {expected}), {plan_ok}")
-        # G2: 2^16 points at D = 4
-        n16 = 1 << 16
-        A2s, s16 = tiled_affine_g2(n16), s_mont[:, :n16].contiguous()
-        sc2, A24 = chunk_msm_inputs(s16, A2s, D)
-        geo_c2 = msm_geometry(n16 // D, F=FQ2_ADAPTER, device=dev)
+                                 f"the batched plan: {got} (host {expected}), chunks "
+                                 f"{chunks_equal}, {plan_ok}")
+        check_tail("parallel: msm_g1_sharded", launches_s, geo_c, chains_s)
+        check_tail("parallel: msm_g1_sharded factor 2", launches_f, geo_f, chains_f)
+        # G2: msm_g2_2e20's 2^20 points in 4 chunks of 2^18
+        A2s = tiled_affine_g2(n)
+        sc2, A24 = chunk_msm_inputs(s_mont, A2s, D)
+        geo_c2 = msm_geometry(nloc, F=FQ2_ADAPTER, device=dev, chunks=D)
+        w_c2 = geo_c2["w"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with guarded("parallel"):
-            P2 = msm_g2(s16, A2s)
+            P2 = msm_g2(s_mont, A2s)
+        peak_2 = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         P2s, launches_2s, coll_2s = counted_par(lambda: parallel.msm_g2_sharded(sc2, A24, mesh),
                                                 shapes_par["g2"])
+        peak_2s = torch.cuda.max_memory_allocated()
         scans_2s, chains_2s = scan_counts(cuda_g2), chain_counts(cuda_g2)
-        g2_ok = g2_ints(P2s) == g2_ints(P2)
-        plan2_ok = (launches_2s.get("pmadd2") == D * geo_c2["scan_launches"]
-                    and launches_2s.get("padd2_scan") == D * geo_c2["tail_launches"]["padd2_scan"]
+        sc21, A21 = chunk_msm_inputs(s_mont, A2s, 1)
+        A24d = [tuple(c[d] for c in A24) for d in range(D)]
+        each_g2 = lambda: [msm_g2(sc2[d], A24d[d], window_bits=w_c2) for d in range(D)]
+        with guarded("parallel"):
+            P2p = parallel.msm_g2_sharded(sc21, A21, mesh)
+            P2_chunks = tuple(c.movedim(0, -1).contiguous()
+                              for c in pippenger.msm_chunked(FQ2_ADAPTER, sc2, A24))
+            P2_each = stack(each_g2())
+            one_by_one2 = pt.sum_reduce(FQ2_ADAPTER, P2_each)
+        chunks2_equal = {"limbs": trees_equal(P2_chunks, P2_each),
+                         "values": g2.jacobian_to_ints(P2_chunks) == g2.jacobian_to_ints(P2_each)}
+        got2 = {"msm_g2": g2_ints(P2), "sharded_4": g2_ints(P2s), "one_chunk": g2_ints(P2p),
+                "one_by_one_4": g2_ints(one_by_one2)}
+        g2_ok = all(v == expected_g2 for v in got2.values()) and all(chunks2_equal.values())
+        plan2_ok = (launches_2s.get("pmadd2") == geo_c2["scan_launches"]
+                    and launches_2s.get("padd2_scan") == geo_c2["tail_launches"]["padd2_scan"]
                     and coll_2s["all_gather"] == 3)
         with guarded("parallel"):
-            ms_g2, each_g2 = in_turns({
-                "msm_g2": lambda: msm_g2(s16, A2s),
-                "msm_g2_sharded_4": lambda: parallel.msm_g2_sharded(sc2, A24, mesh)}, 3)
-        emit({"phase": "parallel", "what": "G2 MSM, 2^16 points", "equal": g2_ok,
+            ms_g2, each_ms_g2 = in_turns({
+                "msm_g2": lambda: msm_g2(s_mont, A2s),
+                "msm_g2_sharded_4": lambda: parallel.msm_g2_sharded(sc2, A24, mesh),
+                "msm_g2_one_by_one_4": lambda: pt.sum_reduce(FQ2_ADAPTER, stack(each_g2())),
+                "msm_g2_sharded_1": lambda: parallel.msm_g2_sharded(sc21, A21, mesh)}, 3)
+        emit({"phase": "parallel", "what": "G2 MSM, 2^20 points", "equal": g2_ok,
               "launches_as_planned": plan2_ok, "chunks": D,
-              "chunk_plan": {k: geo_c2[k] for k in ("w", "T", "L", "R", "scan_launches",
-                                                     "tail_launches")},
-              "ms_median_of_3_in_turns": ms_g2, "ms_each": each_g2,
+              "chunks_as_one_batch_plan": {k: geo_c2[k] for k in plan_keys if k != "glv"},
+              "chunks_equal_the_one_device_calls": chunks2_equal,
+              "ms_median_of_3_in_turns": ms_g2, "ms_each": each_ms_g2,
+              "peak_bytes_allocated": {"msm_g2": peak_2, "msm_g2_sharded_4": peak_2s},
               "launches_sharded_4": launches_2s, "collectives": coll_2s, "card": smi})
         if not (g2_ok and plan2_ok):
-            raise AssertionError("parallel: the sharded G2 MSM differs from msm_g2 or did not "
-                                 "follow the chunks' plan")
-        del P2, P2s, A2s, s16, sc2, A24, s_mont
+            raise AssertionError(f"parallel: the sharded G2 MSM differs from the host's point "
+                                 f"or did not follow the batched plan: {got2}, chunks "
+                                 f"{chunks2_equal}, {plan2_ok}")
+        check_tail("parallel: msm_g2_sharded", launches_2s, geo_c2, chains_2s, kernel="pdbl2")
+        del P2, P2s, P2p, A2s, sc2, A24, sc21, A21, A24d, P2_chunks, P2_each, one_by_one2, s_mont
         # NTT at 2^22
         x22 = rand_field(FR, n22)
         nA22, nB22 = split_sizes(NTT_LOG_N, mesh.size)
@@ -3528,18 +3586,19 @@ def main() -> int:
                 covered[f"{kernel} {mode_name} {list(shape_)}"] = "a padd_scan row"
         return out
 
-    def tail_add_row(curve, tag, path, nb_, n_launches):
-        """``padd`` (G2: ``padd2``) at a chunk tail's widest call, 2 nb lanes."""
+    def tail_add_row(curve, tag, path, nb_, n_launches, batch=D):
+        """``padd`` (G2: ``padd2``) at the batched tail's widest call, 2 nb
+        lanes for each of the ``batch`` chunks."""
         kernel_, F_, tiled_, elem_ = (("padd2", FQ2_PLAIN, tiled_affine_g2, 48) if curve == "g2"
                                       else ("padd", FQ_PLAIN, tiled_affine, 24))
-        shape_ = [24, 2, 2 * nb_] if curve == "g2" else [24, 2 * nb_]
+        shape_ = ([24, 2] if curve == "g2" else [24]) + [batch, 2 * nb_]
         have_ = row_at(kernel_, shape_)
         if have_:
             covered[f"{kernel_} {shape_} ({tag})"] = have_
             return
-        A_ = tiled_(2 * nb_)
-        P_ = contig(pj.proj_double(F_, pj.affine_to_proj(F_, A_)))
-        Q_ = contig(pj.affine_to_proj(F_, roll(A_, 1)))
+        A_ = tiled_(batch * 2 * nb_)
+        P_ = tuple(c.reshape(shape_) for c in contig(pj.proj_double(F_, pj.affine_to_proj(F_, A_))))
+        Q_ = tuple(c.reshape(shape_) for c in contig(pj.affine_to_proj(F_, roll(A_, 1))))
         kern_, plain_ = ((cuda_g2.padd2, cuda_g2.padd2_plain) if curve == "g2"
                          else (cuda_g1.padd, cuda_g1.padd_plain))
         kernel_row(f"{kernel_}[{tag}]", f"{kernel_}_kernel",
@@ -3547,16 +3606,17 @@ def main() -> int:
                    "tpu_bls12_381/curves/pallas_g2.py:201" if curve == "g2"
                    else "tpu_bls12_381/curves/pallas_g1.py:465", shape_,
                    lambda: kern_(P_, Q_), lambda: plain_(P_, Q_),
-                   9 * elem_ * 2 * nb_, 0,
-                   2 * nb_ * (36 if curve == "g2" else 12) * mul_mads(W_FQ), 20,
+                   9 * elem_ * batch * 2 * nb_, 0,
+                   batch * 2 * nb_ * (36 if curve == "g2" else 12) * mul_mads(W_FQ), 20,
                    n_launches=n_launches, path=path)
 
-    def chain_rows(curve, tag, path, by_times):
-        """``pdbl`` (G2: ``pdbl2``) on one lane at each chain length the path
-        ran that no row has, with the path's launches of that length."""
+    def chain_rows(curve, tag, path, by_times, batch=D):
+        """``pdbl`` (G2: ``pdbl2``) on the ``batch`` lanes of the chunks'
+        points at each chain length the path ran that no row has, with the
+        path's launches of that length."""
         kernel_ = "pdbl2" if curve == "g2" else "pdbl"
-        shape_ = [24, 2, 1] if curve == "g2" else [24, 1]
-        P_ = proj_points((1,), curve)
+        shape_ = [24, 2, batch] if curve == "g2" else [24, batch]
+        P_ = proj_points((batch,), curve)
         kern_, plain_ = ((cuda_g2.pdbl2, cuda_g2.pdbl2_plain) if curve == "g2"
                          else (cuda_g1.pdbl, cuda_g1.pdbl_plain))
         for times, k_ in sorted(by_times.items()):
@@ -3569,23 +3629,24 @@ def main() -> int:
                        "tpu_bls12_381/curves/pallas_g2.py:219" if curve == "g2"
                        else "tpu_bls12_381/curves/pallas_g1.py:478", shape_,
                        lambda: kern_(P_, times), lambda: plain_(P_, times),
-                       6 * (48 if curve == "g2" else 24), 0,
-                       times * (dbl2_mads if curve == "g2" else dbl_mads), 50,
+                       6 * (48 if curve == "g2" else 24) * batch, 0,
+                       batch * times * (dbl2_mads if curve == "g2" else dbl_mads), 50,
                        n_launches=k_, path=path, times=times,
                        equal_at_2e16=chain_equal(times, curve))
 
-    path_s = "parallel: msm_g1_sharded, 4 chunks of 2^18"
-    path_f = "parallel: msm_g1_sharded factor 2, 4 chunks of 2^18"
-    path_2 = "parallel: msm_g2_sharded, 4 chunks of 2^14"
-    scan_row_g1("pmadd_signed[parallel]", path_s, geo_c["R"], geo_c["L"],
+    path_s = "parallel: msm_g1_sharded, 4 chunks of 2^18 as one batch"
+    path_f = "parallel: msm_g1_sharded factor 2, 4 chunks of 2^18 as one batch"
+    path_2 = "parallel: msm_g2_sharded, 4 chunks of 2^18 as one batch"
+    # the scan folds the D chunks into its lanes: one launch over D x L columns
+    scan_row_g1("pmadd_signed[parallel]", path_s, geo_c["R"], D * geo_c["L"],
                 launches_s.get("pmadd_signed", 0))
     fresh = new_scan_shapes("padd_scan", scans_s)
     scan_rows("parallel", path_s, fresh, sum(fresh.values()))
-    if row_at("pmadd_signed", [geo_f["R"], 24, geo_f["L"]]):
-        covered[f"pmadd_signed {[geo_f['R'], 24, geo_f['L']]} (factor 2)"] = row_at(
-            "pmadd_signed", [geo_f["R"], 24, geo_f["L"]])
+    if row_at("pmadd_signed", [geo_f["R"], 24, D * geo_f["L"]]):
+        covered[f"pmadd_signed {[geo_f['R'], 24, D * geo_f['L']]} (factor 2)"] = row_at(
+            "pmadd_signed", [geo_f["R"], 24, D * geo_f["L"]])
     else:
-        scan_row_g1("pmadd_signed[parallel factor2]", path_f, geo_f["R"], geo_f["L"],
+        scan_row_g1("pmadd_signed[parallel factor2]", path_f, geo_f["R"], D * geo_f["L"],
                     launches_f.get("pmadd_signed", 0))
     fresh_f = new_scan_shapes("padd_scan", scans_f)
     scan_rows("parallel factor2", path_f, fresh_f, sum(fresh_f.values()))
@@ -3608,7 +3669,7 @@ def main() -> int:
                    bound_ms_with_doubling=bound(9 * 24 * lanes_ * LIMB_BYTES,
                                                 lanes_ * jadd_mads)[0])
     del P_chunks
-    scan_row_g2("pmadd2[parallel]", path_2, geo_c2["R"], geo_c2["L"],
+    scan_row_g2("pmadd2[parallel]", path_2, geo_c2["R"], D * geo_c2["L"],
                 launches_2s.get("pmadd2", 0))
     fresh2 = new_scan_shapes("padd2_scan", scans_2s)
     scan_rows("parallel", path_2, fresh2, sum(fresh2.values()), curve="g2")

@@ -13,6 +13,8 @@ checked against the host oracle when it is first used.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from .. import constants
@@ -134,9 +136,19 @@ def _limb_inc_where(a, flag):
     return out
 
 
+@lru_cache(maxsize=None)
+def _const_col_cached(value: int, k: int, device: torch.device):
+    """The k limbs of ``value`` as one int64 (k,) tensor on ``device``, made
+    once: a call after the first copies nothing from the host and waits for
+    nothing, so a CUDA graph can capture it."""
+    return torch.tensor([int(x) for x in int_to_limbs(value, k)],
+                        dtype=torch.int64, device=device)
+
+
 def _const_col(value: int, k: int, like):
-    col = torch.tensor([int(x) for x in int_to_limbs(value, k)],
-                       dtype=torch.int64, device=like.device)
+    """``value``'s k limbs broadcast over the batch axes of ``like`` (a view
+    of the cached column: read it, never write it)."""
+    col = _const_col_cached(value, k, like.device)
     return col.reshape((k,) + (1,) * (like.dim() - 1)).expand(
         (k,) + tuple(like.shape[1:]))
 

@@ -49,7 +49,9 @@ span) is, on the card, one launch (``projective.proj_double_n_fast``:
 ``pdbl`` for G1, ``pdbl2`` for G2).
 
 ``msm_chunked`` runs the same pipeline over a leading chunk axis, one partial
-MSM a chunk (the scale-out layer's local step, ``parallel/msm.py``).
+MSM a chunk (the scale-out layer's local step, ``parallel/msm.py``): the D
+chunks are one batch, folded between the element axes and the lanes as the
+shared-bases batch folds its B, each chunk with its own point table.
 ``msm_traceable`` is the JAX package's one-trace form: one call with every
 shape from the inputs' shapes, which a CUDA graph can capture.
 """
@@ -213,13 +215,18 @@ def _coord_planes(F) -> int:
 
 def _stage_pack_rows(F, x, y):
     """Affine coordinates (limbs-first) -> (n, 2C) element-major rows, C the
-    planes of one coordinate (G1: 48 columns, G2: 96).
+    planes of one coordinate (G1: 48 columns, G2: 96).  Coordinates
+    (*elem, B, n) of B point sets give their B tables member after member:
+    (B*n, 2C), row b*n + i the point i of member b.  The coordinates may be
+    views of a (B, *elem, n) layout (the chunk axis moved behind the element
+    axes): the table is the only copy made.
 
     Runs once per MSM; the per-window gather then moves whole point rows
     (192 or 384 contiguous bytes) instead of 2C separate limb planes.
     """
-    n = x.shape[-1]
-    return torch.cat([x.reshape(-1, n), y.reshape(-1, n)], dim=0).T.contiguous()
+    C, k = _coord_planes(F), len(F.elem_shape)
+    planes_last = lambda c: c.reshape((C,) + tuple(c.shape[k:])).movedim(0, -1)
+    return torch.cat([planes_last(x), planes_last(y)], dim=-1).reshape(-1, 2 * C)
 
 
 def _coord_rows(F, t, off: int):
@@ -262,8 +269,10 @@ def _stage_sort_tile(F, key2, R: int, L: int, em_rows, inf):
     """Sort by bucket key, row-gather the element-major point table, and tile
     column-major into scan rows.  No field arithmetic.
 
-    ``key2`` is (n,) for one scalar set or (B, n) for a batch of B sets
-    against the one shared table.
+    ``key2`` is (n,) for one scalar set or (B, n) for a batch of B sets.
+    With ``inf`` (n,) the batch gathers from one shared (n, 2C) table; with
+    ``inf`` (B, n) each member has its own, the B tables packed member after
+    member in ``em_rows`` (B*n, 2C) (the chunk axis of :func:`msm_chunked`).
 
     * points are gathered as element-major rows from the (n, 2C) table built
       once per MSM by _stage_pack_rows;
@@ -290,6 +299,8 @@ def _stage_sort_tile(F, key2, R: int, L: int, em_rows, inf):
                               device=dev)], dim=-1)
     key_sorted, order = torch.sort(key2, dim=-1, stable=True)
     perm = order % n  # the gathered value of iota % n under the sort
+    if inf.dim() > 1:  # member b's own table starts at row b*n
+        perm = perm + torch.arange(0, lead[0] * n, n, device=dev)[:, None]
     # tile[r, l] = sorted[l*R + r]; compose into the gather
     tile = lambda a: a.reshape(lead + (L, R)).transpose(-1, -2)
     gidx = tile(perm).reshape(-1)      # (R*L,) or (B*R*L,)
@@ -536,6 +547,14 @@ def _point_pieces(unit: int, n_eff: int, budget: int, bpp: int):
     return -(-unit // per), per
 
 
+def _balance_groups(total: int, fit: int):
+    """``total`` batch members (or chunks) in the fewest sequential groups of
+    at most ``fit`` (at least 1), of equal size: (groups, members a group)."""
+    groups = -(-total // max(1, min(total, fit)))
+    per_group = -(-total // groups)
+    return -(-total // per_group), per_group
+
+
 def _resolve_glv(glv, n: int, budget: int, bpp: int, F=FQ_ADAPTER) -> bool:
     """The GLV decision (G1 only): as asked, else MIDNIGHT_MSM_GLV, where
     ``auto`` takes GLV only while the doubled point set still fits in one
@@ -563,7 +582,8 @@ def _tile_plan(F, n_eff: int, w: int, device) -> dict:
 
 def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
                  window_bits: int | None = None, *, factor: int = 1,
-                 batch: int = 1, cached: bool = False) -> dict:
+                 batch: int = 1, cached: bool = False,
+                 chunks: int | None = None) -> dict:
     """The plan an MSM over n input points follows on ``device`` now, and the
     only place where it is made.
 
@@ -579,12 +599,20 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     expanded set fits the budget in one shot, and the window for the whole
     expanded set (MIDNIGHT_MSM_WINDOW, else the heuristic).
 
+    ``chunks=D``: the plan of :func:`msm_chunked` over D chunks of n input
+    points each, with ``glv`` as asked and ``factor`` (bases the caller
+    expanded, and GLV-extended before, for factor > 1).  Every chunk has the
+    geometry of one chunk alone (w from the chunk's points after the GLV
+    extension, over the factor).  Each chunk brings its own point table, so
+    a group holds as many chunks as their working sets fit the budget;
+    where one chunk alone does not fit, groups of one chunk run in pieces.
+
     Returns the GLV decision, the points of one pipeline run ``n`` (after the
     GLV split, the expansion and the cut into pieces), window bits w, the
     window count T of a run, buckets nb, the triangle tile's log2 lane width
     lb_bits, the scan tile (R, L), ``pieces`` sequential point-chunks of
     ``per`` points each (counted along the axis that is sliced), ``groups``
-    sequential batch groups of ``per_group`` scalar sets, and
+    sequential batch groups of ``per_group`` scalar sets (or chunks), and
     ``scan_launches``, the scan launches of the whole call (one a window, a
     piece and a group), and ``tail_launches``: where the lane scans take the
     scan kernel (``projective.lane_scan_kernel``: on the card), the scan's
@@ -604,7 +632,22 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     bpp = _msm_bytes_per_point(F)
     factor = max(int(factor), 1)
     groups, per_group = 1, batch
-    if not cached:
+    if chunks is not None:
+        if cached or batch != 1:
+            raise ValueError("msm_geometry: chunks plan msm_chunked, which has no "
+                             "batch and no cached flag")
+        glv = bool(glv) and F is FQ_ADAPTER
+        m = n * (2 if glv else 1)             # points of one factor block
+        n_eff = m * factor                    # pipeline points of one chunk
+        w = window_bits or window_bits_for(m, F, device)
+        # factor 1 slices the input points (a piece GLV-extends its own),
+        # factor > 1 the points of a factor block
+        unit = m if factor > 1 else n
+        pieces, per = _point_pieces(unit, n_eff, budget, bpp)
+        groups, per_group = _balance_groups(
+            chunks, 1 if pieces > 1 else budget // (n_eff * bpp))
+        n_run = per * (n_eff // unit)
+    elif not cached:
         if factor != 1 or batch != 1:
             raise ValueError("msm_geometry: factor and batch belong to cached "
                              "bases (cached=True)")
@@ -613,7 +656,6 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
         pieces, per = _point_pieces(n, n * mult, budget, bpp)
         n_run = per * mult
         w = window_bits or window_bits_for(n_run, F, device)
-        T = num_windows(w, GLV_HALF_BITS_STATIC if glv else FR_BITS)
     else:
         if glv is None:
             glv = _resolve_glv(None, n * factor, budget, bpp, F)
@@ -625,9 +667,6 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
 
             window_bits = config().msm_window or window_bits_for(n_eff, F, device)
         w = window_bits
-        num_bits = GLV_HALF_BITS_STATIC if glv else FR_BITS
-        T = (precompute_window_span(w, factor, num_bits) if factor > 1
-             else num_windows(w, num_bits))
         if batch == 1:
             pieces, per = _point_pieces(m, n_eff, budget, bpp)
         else:
@@ -648,11 +687,10 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
                 pieces = -(-m // per)
             shared, per_b = 4 * W * per * factor, 4 * (W + 5 * C) * per * factor
             room = max(budget - shared, per_b)
-            bg = max(1, min(batch, room // per_b))
-            groups = -(-batch // bg)
-            per_group = -(-batch // groups)
-            groups = -(-batch // per_group)
+            groups, per_group = _balance_groups(batch, room // per_b)
         n_run = per * factor
+    # a factor-1 call's span is its window count
+    T = precompute_window_span(w, factor, GLV_HALF_BITS_STATIC if glv else FR_BITS)
     runs = T * pieces * groups
     tail = None
     if pj.lane_scan_kernel(F, device) is not None:
@@ -664,7 +702,8 @@ def msm_geometry(n: int, glv: bool | None = None, F=FQ_ADAPTER, device=None,
     return {"glv": glv, "T": T, **plan,
             "doubling_chains": sum(k for k, d in chains if d > 0),
             "doublings": sum(k * d for k, d in chains),
-            "factor": factor, "batch": batch, "pieces": pieces, "per": per,
+            "factor": factor, "batch": batch, "chunks": chunks,
+            "pieces": pieces, "per": per,
             "groups": groups, "per_group": per_group,
             "scan_launches": runs, "tail_launches": tail,
             "budget_bytes": budget, "bytes_per_point": bpp}
@@ -749,13 +788,15 @@ def msm(F, scalars, A, *, window_bits: int | None = None,
 
 def _pieces_window_sums(F, scalars_std, A, w: int, glv: bool, per: int):
     """Window sums over sequential point-chunks of ``per`` points (the
-    budget's pieces): each piece's sums fold into a running total."""
+    budget's pieces): each piece's sums fold into a running total.  Scalars
+    (16, [B,] n) against coordinates (*elem, [B,] n): with B, the chunks of
+    :func:`msm_chunked`, each member against its own points."""
     x, y, inf = A
     n = inf.shape[-1]
     Ws = None
     for s in range(0, n, per):
         e = min(s + per, n)
-        Ai = (x[..., s:e], y[..., s:e], inf[s:e])
+        Ai = (x[..., s:e], y[..., s:e], inf[..., s:e])
         Wi = _msm_window_sums(F, scalars_std[..., s:e], Ai, w, glv)
         Ws = Wi if Ws is None else _r_ws_add(F, Ws, Wi)
     return Ws
@@ -1039,29 +1080,10 @@ def msm_batch_shared(F, scalars_b, A, *, window_bits: int | None = None,
 # -----------------------------------------------------------------------------
 # Chunked MSM: the same pipeline over a leading chunk axis, one partial MSM a
 # chunk.  The scale-out layer's local step (parallel/msm.py): a rank runs its
-# chunks here, and the chunk points are gathered and summed there.
+# chunks here, and the chunk points are gathered and summed there.  The D
+# chunks are one batch, folded between the element axes and the lanes as the
+# shared-bases batch folds its B; each chunk brings its own point table.
 # -----------------------------------------------------------------------------
-
-
-def _chunk_msm(F, scalars, A, w: int, scalars_montgomery: bool, glv: bool,
-               factor: int):
-    """One chunk's partial MSM at window bits w, in pieces where the chunk
-    does not fit the memory budget: :func:`msm`'s pipeline for factor 1
-    (GLV-extending the chunk's bases here), :func:`msm_precomputed`'s against
-    bases the caller expanded (and GLV-extended) for factor > 1."""
-    inf = A[2]
-    if factor > 1:
-        n = inf.shape[-1] // (factor * (2 if glv else 1))
-        geo = msm_geometry(n, glv, F, inf.device, w, factor=factor, cached=True)
-        scalars, num_bits = _cached_scalars(scalars, scalars_montgomery, glv)
-        Ws = _sliced_window_sums(F, scalars, A, w, factor, num_bits, geo["per"])
-    else:
-        if scalars_montgomery:
-            with stage("from_mont"):
-                scalars = fast.from_mont(FR, scalars)
-        geo = msm_geometry(inf.shape[-1], glv, F, inf.device, w)
-        Ws = _pieces_window_sums(F, scalars, A, w, glv, geo["per"])
-    return _horner_to_jac(F, Ws, w)
 
 
 def msm_chunked(F, scalars_c, A_c, *, window_bits: int | None = None,
@@ -1081,13 +1103,20 @@ def msm_chunked(F, scalars_c, A_c, *, window_bits: int | None = None,
     endomorphism image in the chunk.  ``factor`` > 1: ``A_c`` holds bases
     already expanded by :func:`expand_bases` (with this ``window_bits`` and
     ``factor`` and, when ``glv``, GLV-extended before the expansion), chunked
-    with ``segments = factor * (2 if glv else 1)``.  A chunk that does not fit
-    the device's memory budget runs in sequential pieces, as :func:`msm` does.
+    with ``segments = factor * (2 if glv else 1)``.
 
-    The D chunks run on the inputs' device, one after another (the JAX
-    package's ``mapper="vmap"``).  There is no ``mapper``: several devices
-    are several processes, one a device, each passing its own chunks
-    (``parallel/msm.py``).
+    The D chunks are one batch on the inputs' device, as the JAX package's
+    ``mapper="vmap"`` maps every stage over them: one ``from_mont``, GLV split
+    and key decomposition over all of them, and a window loop whose sort, scan
+    (one launch over D*L columns) and tail run once a window for all D, each
+    chunk gathering from its own point table; then one Horner ladder and one
+    ``proj_to_jac``.  Each chunk's limbs are those of the one-device
+    :func:`msm` (factor 1) or :func:`msm_precomputed` on that chunk at the
+    same window bits.  ``msm_geometry(..., chunks=D)`` plans the memory
+    budget: groups of chunks one after another where all D do not fit, and a
+    chunk that does not fit alone in point pieces, as :func:`msm` runs them.
+    There is no ``mapper``: several devices are several processes, one a
+    device, each passing its own chunks (``parallel/msm.py``).
     """
     x, y, inf = A_c
     D, nloc = inf.shape[0], inf.shape[-1]
@@ -1095,10 +1124,25 @@ def msm_chunked(F, scalars_c, A_c, *, window_bits: int | None = None,
         raise ValueError("msm_chunked: scalars, x, y and inf disagree on the chunk count")
     glv = glv and F is FQ_ADAPTER
     factor = max(int(factor), 1)
-    # points per chunk after the in-chunk GLV extension (factor > 1 bases
-    # arrive extended)
-    n_eff = nloc * (2 if glv and factor == 1 else 1)
-    w = window_bits or window_bits_for(n_eff // factor, F, inf.device)
-    out = [_chunk_msm(F, scalars_c[d], (x[d], y[d], inf[d]), w, scalars_montgomery,
-                      glv, factor) for d in range(D)]
-    return tuple(torch.stack([P[c] for P in out]) for c in range(3))
+    # input points a chunk (factor > 1 bases arrive extended and expanded)
+    n = nloc // (factor * (2 if glv and factor > 1 else 1))
+    geo = msm_geometry(n, glv, F, inf.device, window_bits, factor=factor, chunks=D)
+    w, per, G = geo["w"], geo["per"], geo["per_group"]
+
+    def window_sums(s):
+        """The group of chunks [s, s+G) as the batch: views with the chunk
+        axis behind the element axes, scalars (16, G, m), coordinates
+        (*elem, G, nloc); the stages copy only the group's own operands."""
+        sc = scalars_c[s:s + G].movedim(0, 1)
+        A = (x[s:s + G].movedim(0, -2), y[s:s + G].movedim(0, -2), inf[s:s + G])
+        if factor > 1:
+            sc, num_bits = _cached_scalars(sc, scalars_montgomery, glv)
+            return _sliced_window_sums(F, sc, A, w, factor, num_bits, per)
+        if scalars_montgomery:
+            with stage("from_mont"):
+                sc = fast.from_mont(FR, sc)
+        return _pieces_window_sums(F, sc, A, w, glv, per)
+
+    parts = [window_sums(s) for s in range(0, D, G)]
+    Ws = tuple(torch.cat([p[c] for p in parts], dim=-1) for c in range(3))
+    return tuple(c.movedim(-1, 0).contiguous() for c in _horner_to_jac(F, Ws, w))
