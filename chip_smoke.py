@@ -3,7 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``tpu_bls12_381_torch/csrc``, holds every kernel
+First times a fresh process's first calls (``cold_start``): the script runs
+itself twice with ``--cold-child``, one process after the other and nothing
+beside them, each timing its imports and CUDA's initialisation, its first
+and second ``msm_g1`` on msm_2e20's 2^20 inputs and its first and second
+factor-2 ``upload_bases``, each result held to the host's point.  The first
+is cold: where the kernels' cache holds none of the G1 path's libraries (a
+fresh checkout) it builds them into the cache, else it builds into a private
+directory (``MIDNIGHT_AOT_CACHE=0``).  The second starts from the cache and
+must build nothing; each must load exactly the libraries that
+``Accelerator.warmup`` starts for G1 (``warmup_libraries()``).
+Then builds the CUDA kernels from ``tpu_bls12_381_torch/csrc`` (every
+library the cache does not hold, side by side), holds every kernel
 against its plain PyTorch version on the card (integer arithmetic, canonical
 results: the tolerance is zero, ``torch.equal``; the NTT tile in each load
 mode at rows of 2^1, 2^5, 2^11 and 2^12 with the table ``w`` and the scalar,
@@ -174,8 +185,8 @@ LIMB_BYTES_STORED = 4  # the int32 slot it is stored in
 SEED = 20
 LOG_N = 20             # the MSM path's point count, 2^20: never cut
 NTT_LOG_N = 22         # the NTT path's size, 2^22 Fr elements: never cut
-PHASES = ["build", "kernels", "msm_small", "msm_2e20", "msm_traceable", "msm_ctx_small",
-          "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
+PHASES = ["cold_start", "build", "kernels", "msm_small", "msm_2e20", "msm_traceable",
+          "msm_ctx_small", "msm_ctx_2e20", "msm_g2_2e20", "ntt_small", "ntt_2e22", "vecops",
           "parallel", "points_2e20", "entry"]
 G2_HOST_POINTS = 1024  # distinct host multiples of the G2 generator, tiled
 PLAIN_ONCE_MS = 5_000   # a plain call this long is timed once (kernel_row)
@@ -327,6 +338,139 @@ def max_abs_err(a, b) -> int:
     return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
 
 
+def host_points_g1(rng, count):
+    """``count`` multiples k_j * G of the G1 generator on the host (Python
+    integers, 16-bit k_j drawn from ``rng``), as the headline benchmark of the
+    JAX package makes its points: (k, affine int pairs)."""
+    from tpu_bls12_381_torch import oracle
+
+    ks = rng.integers(1, 1 << 16, size=count, dtype="int64")
+    G = oracle.g1_generator()
+    return ks, [oracle.jac_to_affine(oracle.scalar_mul(int(k), G, oracle.FQ_OPS),
+                                     oracle.FQ_OPS) for k in ks]
+
+
+def scalar_words(rng, count):
+    """``count`` scalars below 2^254 < r drawn from ``rng``: their four 64-bit
+    words (4, count) and their (16, count) int32 limbs in standard form, on
+    the host."""
+    import numpy as np
+
+    words = rng.integers(0, np.iinfo(np.uint64).max, size=(4, count),
+                         dtype=np.uint64, endpoint=True)
+    words[3] &= np.uint64((1 << 62) - 1)
+    limbs = np.empty((16, count), dtype=np.int32)
+    for wi in range(4):
+        for li in range(4):
+            limbs[4 * wi + li] = ((words[wi] >> np.uint64(16 * li))
+                                  & np.uint64(0xFFFF)).astype(np.int32)
+    return words, limbs
+
+
+def scalar_total(words, mults) -> int:
+    """sum_i s_i * mults[i mod m] mod r for the scalars of ``words`` (4,
+    count).  Per residue j the scalars are summed in 32-bit halves (no
+    overflow: at most 2^20 / m terms below 2^32 each, m >= 1024)."""
+    import numpy as np
+
+    from tpu_bls12_381_torch import constants
+
+    count = words.shape[1]
+    m = len(mults)
+    pad = (-count) % m
+    total = 0
+    for wi in range(4):
+        w_ = np.concatenate([words[wi], np.zeros(pad, np.uint64)]).reshape(-1, m)
+        lo = (w_ & np.uint64(0xFFFFFFFF)).sum(axis=0)
+        hi = (w_ >> np.uint64(32)).sum(axis=0)
+        for j in range(min(m, count)):
+            total += ((int(lo[j]) + (int(hi[j]) << 32)) << (64 * wi)) * int(mults[j])
+    return total % constants.FR_MODULUS
+
+
+def tile_points(A, n: int):
+    """The affine batch ``A`` repeated to ``n`` points."""
+    reps = -(-n // A[2].shape[-1])
+    return (A[0].repeat(1, reps)[:, :n].contiguous(),
+            A[1].repeat(1, reps)[:, :n].contiguous(),
+            A[2].repeat(reps)[:n].contiguous())
+
+
+def cold_child(mode: str) -> int:
+    """One fresh process's first calls on the card (``--cold-child cold`` or
+    ``warm``; the cold_start phase runs one of each): the import of torch and
+    the port and CUDA's initialisation (``setup_s``, from the script's
+    start), the first ``msm_g1`` on msm_2e20's 2^20 inputs (``first_call_s``:
+    any build it waits for included) and a second one (``warm_call_s``), a
+    first and a second factor-2 ``upload_bases`` and ``msm_with_bases`` on
+    them; which libraries the process built and which it reused; its peak
+    bytes.  Each result is held to the host's point.  One JSON line."""
+    import numpy as np
+    import torch
+
+    from tpu_bls12_381_torch import _build, oracle
+    from tpu_bls12_381_torch.curves import g1
+    from tpu_bls12_381_torch.msm import msm_g1
+    from tpu_bls12_381_torch.runtime import g1_context, tracing
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - T_START
+
+    # msm_2e20's points (the seed's first draw, tiled) and scalars drawn as
+    # it draws them, in standard form: no kernel runs before the first call.
+    n = 1 << LOG_N
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    ks, pts = host_points_g1(rng, 4096)
+    words, limbs = scalar_words(rng, n)
+    expected = oracle.jac_to_affine(
+        oracle.scalar_mul(scalar_total(words, ks), oracle.g1_generator(), oracle.FQ_OPS),
+        oracle.FQ_OPS)
+    A = tile_points(g1.affine_from_ints(pts, device=dev), n)
+    s = torch.from_numpy(limbs).to(dev)
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+
+    def timed(fn):
+        t_ = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t_
+
+    torch.cuda.reset_peak_memory_stats()
+    # The first call's stages by CUDA events: a build or a load waited for
+    # shows in the stage that first needs the library.
+    with tracing.collect_stages() as first_stages:
+        P1, first_s = timed(lambda: msm_g1(s, A, scalars_montgomery=False))
+    P2, warm_s = timed(lambda: msm_g1(s, A, scalars_montgomery=False))
+    ctx = g1_context()
+    bases, upload1_s = timed(lambda: ctx.upload_bases(A, precompute_factor=2))
+    del bases
+    bases, upload2_s = timed(lambda: ctx.upload_bases(A, precompute_factor=2))
+    P3, bases_call_s = timed(lambda: ctx.msm_with_bases(s, bases, scalars_montgomery=False))
+    peak = torch.cuda.max_memory_allocated()
+    got = [g1.jacobian_to_ints(tuple(c[:, None] for c in P))[0] for P in (P1, P2, P3)]
+    emit({"phase": "cold_start", "log_n": LOG_N, "cold": mode == "cold",
+          "cache": ("private, removed at exit (MIDNIGHT_AOT_CACHE=0)"
+                    if os.environ.get("MIDNIGHT_AOT_CACHE") == "0"
+                    else str(_build.cache_dir())),
+          "equal": [g == expected for g in got],
+          "setup_s": setup_s, "first_call_s": first_s, "warm_call_s": warm_s,
+          "first_upload_factor2_s": upload1_s, "second_upload_factor2_s": upload2_s,
+          "msm_with_bases_factor2_s": bases_call_s, "inputs_s": inputs_s,
+          "libraries_built": sorted(k for k, v in _build.STATUS.items() if v == "built"),
+          "libraries_reused": sorted(k for k, v in _build.STATUS.items() if v == "reused"),
+          "build_seconds": {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()},
+          "load_seconds": _build.LOAD_SECONDS,
+          "first_call_stages_ms": first_stages, "peak_bytes_allocated": peak})
+    if got != [expected] * 3:
+        raise AssertionError(f"cold_start ({mode}): a result differs from the host's point")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--upto", default=PHASES[-1], choices=PHASES,
@@ -335,6 +479,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one main-path call with torch.profiler "
                          "and print the card's busy share and its top kernels")
+    ap.add_argument("--cold-child", choices=["cold", "warm"],
+                    help="run as one of the cold_start phase's fresh processes")
     args = ap.parse_args()
 
     import torch
@@ -343,6 +489,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "needs one CUDA device", file=sys.stderr)
         return 2
+    if args.cold_child:
+        return cold_child(args.cold_child)
 
     import numpy as np
 
@@ -362,9 +510,9 @@ def main() -> int:
                                          release_domain)
     from tpu_bls12_381_torch.ntt.ntt import _butterflies, release_coset_cache
     ntt_mod = importlib.import_module("tpu_bls12_381_torch.ntt.ntt")
-    from tpu_bls12_381_torch.runtime import (NttContext, backend_info, dispatch_msm,
-                                             dispatch_ntt, dispatch_vecop, g1_context,
-                                             g2_context, global_accelerator,
+    from tpu_bls12_381_torch.runtime import (NttContext, accelerator, backend_info,
+                                             dispatch_msm, dispatch_ntt, dispatch_vecop,
+                                             g1_context, g2_context, global_accelerator,
                                              reset_config_cache, total_live_bytes,
                                              tracing)
     from tpu_bls12_381_torch.runtime import types as wire
@@ -434,6 +582,46 @@ def main() -> int:
           "python": sys.version.split()[0],
           "profile": dataclasses.asdict(chip_profile(dev))})
 
+    # -------------------------------------------------------------- cold_start
+    # A fresh process's first calls, cold and warm: two children of this
+    # script (--cold-child), one after the other, nothing beside them.  Where
+    # the cache holds none of G1's libraries (a fresh checkout) the cold child
+    # builds them into it, and the build phase reuses them; else the cache is
+    # completed first and the cold child builds into a private directory
+    # (MIDNIGHT_AOT_CACHE=0).  The warm child starts from the cache.
+    g1_libs = set(accelerator.warmup_libraries())
+    held = sorted(name for name in g1_libs if _build.library_paths()[name].exists())
+    if held:
+        _build.build(sorted(g1_libs))
+    cold_runs = {}
+    for mode, extra in (("cold", {"MIDNIGHT_AOT_CACHE": "0"} if held else {}),
+                        ("warm", {})):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--cold-child",
+                              mode], env={**os.environ, **extra}, cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        process_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"cold_start: the {mode} child failed (exit code "
+                                 f"{run.returncode}):\n{run.stdout[-2000:]}\n"
+                                 f"{run.stderr[-6000:]}")
+        line = json.loads(run.stdout.strip().splitlines()[-1])
+        cold_runs[mode] = line
+        emit({**line, "process_s": process_s, "g1_libraries_held_before": held,
+              "card": smi})
+    for mode, line in cold_runs.items():
+        loaded = set(line["libraries_built"]) | set(line["libraries_reused"])
+        if not all(line["equal"]):
+            raise AssertionError(f"cold_start ({mode}): a result differs from the host")
+        if loaded != g1_libs:
+            raise AssertionError(f"cold_start ({mode}): the G1 path loaded {sorted(loaded)}, "
+                                 f"warmup_libraries() names {sorted(g1_libs)}")
+    if cold_runs["cold"]["libraries_reused"] or cold_runs["warm"]["libraries_built"]:
+        raise AssertionError("cold_start: the cold process reused a library or the warm "
+                             "one built one")
+    if args.upto == "cold_start":
+        return stop_early()
+
     # ------------------------------------------------------------------- build
     # The host library of the CPU route (g++ of native/), built beside the
     # CUDA sources so that the entry phase's CPU route times the MSM only.
@@ -444,13 +632,15 @@ def main() -> int:
         native_build["available"] = native.available()
         native_build["seconds"] = time.perf_counter() - t_
 
-    # The build's longest compile (the G2 lane scan's, LATE) goes on while the
-    # G1 phases run; the phase waits for every other source, and the G2 lane
-    # scan's checks wait for it before msm_ctx_small.
+    # Every source the cache does not hold starts at once.  The longest
+    # compile (the G2 lane scan's, LATE) goes on while the G1 phases run; the
+    # phase waits for every other source, and the G2 lane scan's checks wait
+    # for it before msm_ctx_small.
     t0 = time.perf_counter()
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
-    paths = _build.build([name for name in _build.source_names() if name != LATE])
+    paths = _build.start()
+    _build.build([name for name in paths if name != LATE])
     build_s = time.perf_counter() - t0
     native_thread.join()
     registers = {}
@@ -461,6 +651,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(build_s, 2),
           "launch_overhead_ms": LAUNCH_OVERHEAD_MS[0],
           "seconds_by_source": {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()},
+          "libraries_reused": sorted(k for k, v in _build.STATUS.items() if v == "reused"),
+          "cache": str(_build.cache_dir()),
           "native_host_library": native_build["available"],
           "seconds_native_build_beside": round(native_build["seconds"], 2),
           "libraries": sorted(p.name for p in paths.values()),
@@ -477,7 +669,7 @@ def main() -> int:
     def alt_build(name, source, changes):
         """``changes``: (file in csrc/, statement, replacement), each statement
         found once."""
-        dir_ = _build.BUILD_DIR / name
+        dir_ = _build.cache_dir() / name
         dir_.mkdir(parents=True, exist_ok=True)
         texts = {f"{source}.cu": (_build.CSRC_DIR / f"{source}.cu").read_text()}
         for file_, old, new in changes:
@@ -526,18 +718,13 @@ def main() -> int:
     # benchmark of the JAX package makes its points; tiled to the size wanted.
     M = 4096
     t0 = time.perf_counter()
-    ks = rng.integers(1, 1 << 16, size=M, dtype=np.int64)
+    ks, base_pts = host_points_g1(rng, M)
     G = oracle.g1_generator()
-    base_pts = [oracle.jac_to_affine(oracle.scalar_mul(int(k), G, oracle.FQ_OPS),
-                                     oracle.FQ_OPS) for k in ks]
     Ab = g1.affine_from_ints(base_pts, device=dev)
     host_points_s = time.perf_counter() - t0
 
     def tiled_affine(n):
-        reps = -(-n // M)
-        return (Ab[0].repeat(1, reps)[:, :n].contiguous(),
-                Ab[1].repeat(1, reps)[:, :n].contiguous(),
-                Ab[2].repeat(reps)[:n].contiguous())
+        return tile_points(Ab, n)
 
     # The same for G2: 1024 multiples k_j * G2 on the host, as the JAX
     # package's bench makes its G2 points.
@@ -1348,14 +1535,7 @@ def main() -> int:
         """``count`` scalars below 2^254 < r from the seed: their four 64-bit
         words (4, count), and their (16, count) limbs in standard and in
         Montgomery form on the card."""
-        words_ = rng.integers(0, np.iinfo(np.uint64).max, size=(4, count),
-                              dtype=np.uint64, endpoint=True)
-        words_[3] &= np.uint64((1 << 62) - 1)
-        limbs_ = np.empty((16, count), dtype=np.int32)
-        for wi in range(4):
-            for li in range(4):
-                limbs_[4 * wi + li] = ((words_[wi] >> np.uint64(16 * li))
-                                       & np.uint64(0xFFFF)).astype(np.int32)
+        words_, limbs_ = scalar_words(rng, count)
         std = torch.from_numpy(limbs_).to(dev)
         mont = cuda_ops.mont_mul(
             FR, std, ops.broadcast_constant(FR, FR.r2_limbs, (count,), dev))
@@ -1368,21 +1548,8 @@ def main() -> int:
 
     def host_scalar_total(mults, words_=None):
         """sum_i s_i * mults[i mod m] mod r for the scalars of ``words_``
-        (default: those above).  Per residue j the scalars are summed in
-        32-bit halves (no overflow: at most 2^20 / m terms below 2^32 each,
-        m >= 1024)."""
-        words_ = words if words_ is None else words_
-        count = words_.shape[1]
-        m = len(mults)
-        pad = (-count) % m
-        total = 0
-        for wi in range(4):
-            w_ = np.concatenate([words_[wi], np.zeros(pad, np.uint64)]).reshape(-1, m)
-            lo = (w_ & np.uint64(0xFFFFFFFF)).sum(axis=0)
-            hi = (w_ >> np.uint64(32)).sum(axis=0)
-            for j in range(min(m, count)):
-                total += ((int(lo[j]) + (int(hi[j]) << 32)) << (64 * wi)) * int(mults[j])
-        return total % constants.FR_MODULUS
+        (default: those above)."""
+        return scalar_total(words if words_ is None else words_, mults)
 
     # Expected: (sum_i s_i * k_{i mod 4096} mod r) * G, one host scalar mul.
     expected = oracle.jac_to_affine(

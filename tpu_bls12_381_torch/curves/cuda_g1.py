@@ -93,6 +93,9 @@ SCAN_RUN = 4
 SCAN_MAX_THREADS = 128
 
 _PTR = ctypes.c_void_p
+# The libraries this module loads (``_build.library``): the MSM's and the
+# Jacobian kernels'.
+LIBRARY, JAC_LIBRARY = "g1_kernels", "g1_jac_kernels"
 _CONFIGURED = False
 _JAC_CONFIGURED = False
 
@@ -114,7 +117,7 @@ def scan_mode(reverse=False, exclusive=False, total=False) -> str:
 
 def _lib():
     global _CONFIGURED
-    lib = _build.library("g1_kernels")
+    lib = _build.library(LIBRARY)
     if not _CONFIGURED:
         lib.g1_pmadd_signed.argtypes = (
             [_PTR] * 5 + [ctypes.c_longlong] + [_PTR] * 5
@@ -136,7 +139,7 @@ def _lib():
 
 def _jac_lib():
     global _JAC_CONFIGURED
-    lib = _build.library("g1_jac_kernels")
+    lib = _build.library(JAC_LIBRARY)
     if not _JAC_CONFIGURED:
         lib.g1_madd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]
         lib.g1_jadd.argtypes = [_PTR] * 9 + [ctypes.c_longlong, _PTR]

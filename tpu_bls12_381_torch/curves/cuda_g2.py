@@ -84,6 +84,8 @@ _ARGTYPES = {
     "g2_pdbl": [_PTR] * 6 + [ctypes.c_longlong, ctypes.c_int, _PTR],
     "g2_padd_scan": [_PTR] * 15 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [_PTR],
 }
+# The libraries this module loads (``_build.library``): one a kernel.
+LIBRARIES = tuple(_ARGTYPES)
 _ENTRIES: dict = {}
 
 

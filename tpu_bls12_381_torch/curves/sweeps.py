@@ -194,9 +194,11 @@ def _one(tree: str) -> dict:
 
     if Path(port.__file__).resolve().parents[1] != Path(tree).resolve():
         raise RuntimeError(f"imported {port.__file__}, not the checkout at {tree}")
-    # build only the sources a GLV call runs (the G1 kernels, the field ones)
+    # build only the sources a GLV call runs (the G1 kernels, the field ones);
+    # the names are given both ways, since an older checkout's build() starts
+    # every source of source_names()
     _build.source_names = lambda: ["field_kernels", "g1_kernels"]
-    _build.build()
+    _build.build(["field_kernels", "g1_kernels"])
     dev = torch.device("cuda", 0)
     out = {}
     for log_n in LOG_NS:
@@ -225,7 +227,6 @@ def _builds() -> dict:
     from tpu_bls12_381_torch.ntt.sweeps import _finish, _ptxas, _start_build
 
     started = {b: _start_build(f"g1 {b}", "g1_kernels", c) for b, c in BUILDS.items()}
-    _build.source_names = lambda: ["field_kernels", "g1_kernels"]
     kept = cuda_g1._lib()
     libs = {"kept": kept}
     ptxas = {"kept": _ptxas(_build.build_log("g1_kernels"))}

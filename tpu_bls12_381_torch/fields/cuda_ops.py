@@ -94,6 +94,9 @@ COLUMN_LAUNCHES: dict = {}
 MAX_STAGES = 6
 
 _PTR = ctypes.c_void_p
+# The libraries this module loads (``_build.library``): the field kernels,
+# the batch inversion and the NTT's butterfly stages.
+FIELD_LIBRARY, INVERSE_LIBRARY, STAGES_LIBRARY = "field_kernels", "batch_inverse", "ntt_stages"
 _CONFIGURED = False
 _BINV_CONFIGURED = False
 _STAGES_CONFIGURED = False
@@ -108,7 +111,7 @@ def reset_launches() -> None:
 
 def _lib():
     global _CONFIGURED
-    lib = _build.library("field_kernels")
+    lib = _build.library(FIELD_LIBRARY)
     if not _CONFIGURED:
         for name in ("mont_mul", "mont_mul_col", "field_add", "field_add_col",
                      "field_sub", "field_sub_col", "field_sub_col_left"):
@@ -137,7 +140,7 @@ def _lib():
 
 def _binv_lib():
     global _BINV_CONFIGURED
-    lib = _build.library("batch_inverse")
+    lib = _build.library(INVERSE_LIBRARY)
     if not _BINV_CONFIGURED:
         for name in ("fr_batch_inverse", "fq_batch_inverse"):
             fn = getattr(lib, name)
@@ -149,7 +152,7 @@ def _binv_lib():
 
 def _stages_lib():
     global _STAGES_CONFIGURED
-    lib = _build.library("ntt_stages")
+    lib = _build.library(STAGES_LIBRARY)
     if not _STAGES_CONFIGURED:
         lib.fr_butterfly_stages.argtypes = (
             [_PTR] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_PTR])

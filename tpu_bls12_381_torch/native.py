@@ -3,8 +3,10 @@ and ``native/msm_host.cpp``).
 
 Counterpart of the JAX package's ``native.py``: the same C ABI and the same
 numpy entry points, with the port's own build.  On first use the two sources
-are compiled with ``g++`` into ``tpu_bls12_381_torch/_build/`` (keyed by a hash
-of the sources and flags, so an edit rebuilds); nothing is written into
+are compiled with ``g++`` into the CUDA kernels' cache directory
+(``_build.cache_dir()``: ``tpu_bls12_381_torch/_build/`` unless
+``MIDNIGHT_AOT_CACHE_DIR`` or ``MIDNIGHT_AOT_CACHE=0`` say otherwise), keyed by
+a hash of the sources and flags, so an edit rebuilds; nothing is written into
 ``native/``.  Where no compiler is present, or the build or the load fails,
 :func:`available` is False and the callers take their host fallbacks (numpy
 and Python integers in ``runtime/types.py``, the big-int oracle in
@@ -40,7 +42,7 @@ FIELD_FR = 1
 
 
 def _so_path() -> Path | None:
-    from ._build import BUILD_DIR
+    from ._build import cache_dir
 
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
@@ -50,7 +52,7 @@ def _so_path() -> Path | None:
         h.update(name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libnative_host_{h.hexdigest()[:16]}.so"
+    return cache_dir() / f"libnative_host_{h.hexdigest()[:16]}.so"
 
 
 def _build(so: Path) -> bool:
@@ -58,7 +60,6 @@ def _build(so: Path) -> bool:
     if cxx is None:
         logger.info("no host C++ compiler; using the numpy/oracle fallbacks")
         return False
-    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}.so")
     cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *[str(SRC_DIR / s) for s in SOURCES]]
     try:

@@ -64,6 +64,7 @@ MODE_LAUNCHES: dict = {}
 MAX_TILE_LOG = 12
 
 _PTR = ctypes.c_void_p
+LIBRARY = "ntt_kernels"   # the library this module loads (``_build.library``)
 _CONFIGURED = False
 
 
@@ -75,7 +76,7 @@ def reset_launches() -> None:
 
 def _lib():
     global _CONFIGURED
-    lib = _build.library("ntt_kernels")
+    lib = _build.library(LIBRARY)
     if not _CONFIGURED:
         lib.fr_ntt_tile.argtypes = (
             [_PTR] * 5 + [ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 3

@@ -16,7 +16,7 @@ card's name and power limit as ``nvidia-smi`` gives them:
   the copy after it; the ladder's tile reading bit-reversed columns (kept)
   against the bit-reverse gather and the tile on bit-reversed rows.
 - ``ntt_builds``: builds not kept, each compiled from a copy of ``csrc/`` with
-  statements changed, against the kept build in turns (kept, other, other,
+  statements changed (under ``sweeps/`` in the kernels' cache directory), against the kept build in turns (kept, other, other,
   kept), the outputs held equal: eight values a thread, field.cuh's add and
   subtract, and the stages kernel at one block an SM.
 - ``butterfly_sass``: the SASS instructions of one butterfly, of its product
@@ -58,7 +58,12 @@ ntt_mod = importlib.import_module("tpu_bls12_381_torch.ntt.ntt")
 
 LOG_N = 22
 SEED = 20
-SWEEP_DIR = _build.BUILD_DIR / "sweeps"
+
+
+def _sweep_dir() -> Path:
+    """Where the builds not kept go: ``sweeps/`` in the kernels' cache."""
+    return _build.cache_dir() / "sweeps"
+
 
 # Builds not kept: (name, source, [(file in csrc/, statement, replacement)]).
 _PLAIN_ADD = [("ntt.cuh", "ntt_bf1<EB == 2>(", "ntt_bf1<false>("),
@@ -144,7 +149,7 @@ def _start_build(name: str, source: str, changes) -> tuple[subprocess.Popen, Pat
     """Compile ``csrc/<source>.cu`` with each statement replaced once; the
     changed files sit beside the copy of the source, so they are included
     before those of ``csrc/``."""
-    dir_ = SWEEP_DIR / re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
+    dir_ = _sweep_dir() / re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
     dir_.mkdir(parents=True, exist_ok=True)
     texts = {f"{source}.cu": (_build.CSRC_DIR / f"{source}.cu").read_text()}
     for file_, old, new in changes:
@@ -236,14 +241,15 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     stream = lambda: cuda_ops.stream_ptr(dev)
-    _build.build()
-    SWEEP_DIR.mkdir(parents=True, exist_ok=True)
-    probe_src = SWEEP_DIR / "bf_probe.cu"
+    _build.build(["field_kernels", "ntt_kernels", "ntt_stages"])
+    sweep_dir = _sweep_dir()
+    sweep_dir.mkdir(parents=True, exist_ok=True)
+    probe_src = sweep_dir / "bf_probe.cu"
     probe_src.write_text(PROBE)
     started = {name: _start_build(name, src, ch) for name, (src, ch) in BUILDS.items()}
-    probe_so = _nvcc(probe_src, SWEEP_DIR / "libbf_probe.so", cubin=False)
-    probe_cubin = _nvcc(probe_src, SWEEP_DIR / "bf_probe.cubin", cubin=True)
-    stages_cubin = _nvcc(_build.CSRC_DIR / "ntt_stages.cu", SWEEP_DIR / "ntt_stages.cubin",
+    probe_so = _nvcc(probe_src, sweep_dir / "libbf_probe.so", cubin=False)
+    probe_cubin = _nvcc(probe_src, sweep_dir / "bf_probe.cubin", cubin=True)
+    stages_cubin = _nvcc(_build.CSRC_DIR / "ntt_stages.cu", sweep_dir / "ntt_stages.cubin",
                          cubin=True)
 
     n = 1 << LOG_N
@@ -350,7 +356,7 @@ def main() -> int:
     for what, proc in (("probe", probe_so), ("probe cubin", probe_cubin),
                        ("ntt_stages cubin", stages_cubin)):
         _finish(what, proc)
-    funcs = _sass(SWEEP_DIR / "bf_probe.cubin")
+    funcs = _sass(sweep_dir / "bf_probe.cubin")
 
     def one(kind: int) -> Counter:
         # probe<KIND, 2> less probe<KIND, 1>, by mangled name
@@ -361,9 +367,9 @@ def main() -> int:
         return Counter({k: v for k, v in diff.items() if v})
 
     per = {"butterfly": one(0), "product": one(1), "sum_and_difference": one(2)}
-    stages_sass = next(v for k, v in _sass(SWEEP_DIR / "ntt_stages.cubin").items()
+    stages_sass = next(v for k, v in _sass(sweep_dir / "ntt_stages.cubin").items()
                        if "butterfly_stages_kernel" in k)
-    probe = ctypes.CDLL(str(SWEEP_DIR / "libbf_probe.so"))
+    probe = ctypes.CDLL(str(sweep_dir / "libbf_probe.so"))
     probe.fr_bf_loop.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                                          ctypes.c_void_p]
     probe.fr_bf_loop.restype = ctypes.c_int

@@ -18,7 +18,11 @@ import threading
 
 import torch
 
+from .. import _build
+from ..curves import cuda_g1, cuda_g2
 from ..device import resolve_device
+from ..fields import cuda_ops
+from ..ntt import cuda_ntt
 from .config import config
 from .msm_context import MsmContext, g1_context, g2_context
 from .ntt_context import NttContext
@@ -26,6 +30,18 @@ from .ntt_context import NttContext
 
 class AcceleratorError(RuntimeError):
     """Accelerator-layer failure."""
+
+
+def warmup_libraries(*, g2: bool = False, ntt: bool = False) -> list[str]:
+    """The CUDA libraries ``warmup``'s paths load, by the names their
+    wrappers load them with: the field kernels, the batch inversion and G1's
+    MSM always, G2's kernels with ``g2``, the NTT's with ``ntt``."""
+    names = {cuda_ops.FIELD_LIBRARY, cuda_ops.INVERSE_LIBRARY, cuda_g1.LIBRARY}
+    if g2:
+        names.update(cuda_g2.LIBRARIES)
+    if ntt:
+        names.update((cuda_ntt.LIBRARY, cuda_ops.STAGES_LIBRARY))
+    return sorted(names)
 
 
 class Accelerator:
@@ -47,7 +63,11 @@ class Accelerator:
         real calls do not pay the build of the kernels, the first
         allocations and the tables: pass the production MSM size ``n`` (and
         precompute ``factor``) and NTT ``ntt_log_n``, e.g.
-        ``warmup(n=1 << 20, factor=4, ntt_log_n=22)``."""
+        ``warmup(n=1 << 20, factor=4, ntt_log_n=22)``.  On the card the
+        libraries of the paths asked for start compiling together first (those
+        the cache does not hold), so that they compile side by side."""
+        if self.device.type == "cuda":
+            _build.start(warmup_libraries(g2=g2, ntt=ntt_log_n is not None))
         self.g1.warmup(n, factor=factor, device=self.device)
         if g2:
             self.g2.warmup(max(n // 4, 16), factor=factor, device=self.device)
