@@ -20,10 +20,7 @@ results: every comparison is exact.
 
 import ctypes
 import functools
-import os
 import random
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -45,10 +42,10 @@ from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
 from tpu_bls12_381_torch.msm import msm_geometry, pippenger as pip
 
+from torch_shared import host_check_library
+
 torch.set_num_threads(1)
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "tpu_bls12_381_torch", "csrc")
 N = 96
 N2 = 32                # G2 lanes
 SZ = ctypes.c_size_t
@@ -57,14 +54,7 @@ SPECS = {"fr": (FR, JFR), "fq": (FQ, JFQ)}
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler (g++ / c++) on this machine")
-    out = tmp_path_factory.mktemp("host_check") / "libhost_check.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
-                    "-o", str(out), os.path.join(CSRC, "host_check.cpp")],
-                   check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
+    return host_check_library(tmp_path_factory)
 
 
 def _ptr(t):

@@ -27,6 +27,11 @@ from tpu_bls12_381_torch.curves import cuda_g1, g1, glv, projective as pj
 from tpu_bls12_381_torch.curves.field_adapters import FQ_ADAPTER as F, FQ_PLAIN
 from tpu_bls12_381_torch.fields import FQ, FR
 
+# The port's CPU path is thousands of tiny tensor ops; PyTorch's intra-op
+# threads only spin between them, and with several test workers on one
+# machine they starve each other.  One thread is the fastest setting here.
+torch.set_num_threads(1)
+
 N = 64
 
 

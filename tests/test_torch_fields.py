@@ -24,6 +24,11 @@ from tpu_bls12_381_torch import convert
 from tpu_bls12_381_torch.fields import FQ, FR, cuda_ops, fast, ops
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs, limbs_to_ints
 
+# The port's CPU path is thousands of tiny tensor ops; PyTorch's intra-op
+# threads only spin between them, and with several test workers on one
+# machine they starve each other.  One thread is the fastest setting here.
+torch.set_num_threads(1)
+
 N = 256
 SPECS = {"fr": (FR, JFR), "fq": (FQ, JFQ)}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -6,7 +6,8 @@ arguments) and through ``tpu_bls12_381_torch.msm.msm_g1`` on CPU tensors,
 where every kernel wrapper takes its plain version.  MSM results are compared
 as affine integers: the sort's tie order may differ, which moves points
 between slots and changes Z, never the point.  The window keys and the tuning
-heuristics are compared exactly.
+heuristics are compared exactly.  The port's edge cases against the oracle
+are in ``tests/test_torch_msm_cases.py``, which runs beside this file.
 """
 
 import json
@@ -20,7 +21,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tpu_bls12_381 import oracle
 from tpu_bls12_381.curves import g1 as jg1
 from tpu_bls12_381.msm import msm_g1 as jax_msm_g1, pippenger as jpip
 
@@ -32,49 +32,22 @@ from tpu_bls12_381_torch.fields import FR
 from tpu_bls12_381_torch.fields.limbs import ints_to_limbs
 from tpu_bls12_381_torch.msm import msm_g1, msm_geometry, pippenger as pip
 
+from torch_shared import fr_mont_limbs, host_g1_points, oracle_msm_g1, port_msm_g1
+
 N = 64
 R_MOD = constants.FR_MODULUS
 VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    # tiny tensors: intra-op threads only add overhead next to other workers
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
-def _host_points(n, seed=0xB15):
-    rng = random.Random(seed)
-    G = oracle.g1_generator()
-    return [oracle.jac_to_affine(
-        oracle.scalar_mul(rng.randrange(1, 1 << 48), G, oracle.FQ_OPS),
-        oracle.FQ_OPS) for _ in range(n)]
+# The port's CPU path is thousands of tiny tensor ops; PyTorch's intra-op
+# threads only spin between them, and with several test workers on one
+# machine they starve each other.  One thread is the fastest setting here.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
 def points():
-    return _host_points(N)
-
-
-def _scalars_np(vals):
-    """Montgomery-form (16, n) uint32 limbs, as the JAX package takes them."""
-    return ints_to_limbs([FR.to_mont(v % R_MOD) for v in vals], FR.num_limbs)
-
-
-def _port_msm(vals, pts, **kw):
-    A = g1.affine_from_ints(pts, device="cpu")
-    sc = convert.scalars_from_numpy(_scalars_np(vals), device="cpu")
-    P = msm_g1(sc, A, **kw)
-    assert all(tuple(c.shape) == (24,) and c.dtype == torch.int32 for c in P)
-    return g1.jacobian_to_ints(tuple(c[:, None] for c in P))[0]
-
-
-def _oracle_msm(vals, pts):
-    return oracle.jac_to_affine(oracle.msm(vals, pts, oracle.FQ_OPS),
-                                oracle.FQ_OPS)
+    return host_g1_points(N)
 
 
 # -----------------------------------------------------------------------------
@@ -169,7 +142,7 @@ def test_msm_matches_jax_msm_and_oracle(points):
     same numpy inputs, both against the big-int oracle, as affine ints."""
     rng = random.Random(0xB15)
     vals = [rng.randrange(R_MOD) for _ in range(N)]
-    sc_np = _scalars_np(vals)
+    sc_np = fr_mont_limbs(vals)
     jA = jg1.affine_from_ints(points)
     A_np = tuple(np.asarray(c) for c in jA)
     jP = jax_msm_g1(jnp.asarray(sc_np), jA)
@@ -180,51 +153,7 @@ def test_msm_matches_jax_msm_and_oracle(points):
                convert.affine_from_numpy(*A_np, device="cpu"))
     got = g1.jacobian_to_ints(tuple(c[:, None] for c in P))[0]
     assert got == want
-    assert got == _oracle_msm(vals, points)
-
-
-CASES = {
-    "glv_on_window_6": dict(kw=dict(glv=True, window_bits=6)),
-    # 255-bit windows: the r-1 edge scalar takes the signed-digit top carry
-    "glv_off_window_9": dict(kw=dict(glv=False, window_bits=9)),
-    "all_zero_scalars": dict(kw=dict(glv=True, window_bits=9), zeros=True),
-    "identity_points": dict(kw=dict(glv=True, window_bits=9), holes=True),
-    "scalar_r_minus_1": dict(kw=dict(glv=True, window_bits=9), rm1=True),
-    "standard_form_window_9": dict(
-        kw=dict(glv=True, window_bits=9, scalars_montgomery=False)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_msm_matches_oracle(points, case):
-    cfg = CASES[case]
-    kw = cfg["kw"]
-    rng = random.Random(len(case))
-    pts = list(points)
-    vals = [rng.randrange(R_MOD) for _ in range(N - 6)]
-    # GLV decomposition edge scalars ride along in every case
-    vals += [0, 1, GLV_LAMBDA - 1, GLV_LAMBDA + 1, R_MOD - 1, GLV_LAMBDA]
-    if cfg.get("zeros"):
-        vals = [0] * N
-    if cfg.get("holes"):
-        pts = [None if i % 5 == 0 else p for i, p in enumerate(pts)]
-        vals = [0 if i % 3 == 0 else v for i, v in enumerate(vals)]
-    if cfg.get("rm1"):
-        vals = [R_MOD - 1] + [0] * (N - 1)
-    if kw.get("scalars_montgomery", True):
-        got = _port_msm(vals, pts, **kw)
-    else:
-        A = g1.affine_from_ints(pts, device="cpu")
-        sc = convert.scalars_from_numpy(ints_to_limbs(vals, 16), device="cpu")
-        got = g1.jacobian_to_ints(
-            tuple(c[:, None] for c in msm_g1(sc, A, **kw)))[0]
-    if cfg.get("zeros"):
-        assert got is None
-    elif cfg.get("rm1"):
-        x, y = pts[0]
-        assert got == (x, (-y) % constants.FQ_MODULUS)
-    else:
-        assert got == _oracle_msm(vals, pts)
+    assert got == oracle_msm_g1(vals, points)
 
 
 def test_golden_vector_1024():
@@ -232,7 +161,7 @@ def test_golden_vector_1024():
         case = next(c for c in json.load(f)["cases"] if c["n"] == 1024)
     vals = [int(s, 16) for s in case["scalars"]]
     pts = [(int(p["x"], 16), int(p["y"], 16)) for p in case["points"]]
-    got = _port_msm(vals, pts)
+    got = port_msm_g1(vals, pts)
     assert got == (int(case["expected"]["x"], 16), int(case["expected"]["y"], 16))
 
 
@@ -256,37 +185,9 @@ def test_env_flag_routes_glv(flag, mode, monkeypatch):
         reset_config_cache()
 
 
-def test_msm_chunks_when_the_budget_needs_more_than_one_piece(points, monkeypatch):
-    A = g1.affine_from_ints(points, device="cpu")
-    sc = convert.scalars_from_numpy(_scalars_np([1] * N), device="cpu")
-    bpp = pip._msm_bytes_per_point(FQ_ADAPTER)
-    assert pip._split_points(N, N * bpp, bpp) == 1
-    assert pip._split_points(N, (N // 4) * bpp, bpp) == 4
-    # room for a quarter of the points: the port chunks as the JAX package
-    # does (it used to refuse), folds the pieces' window sums and runs the
-    # Horner ladder once; nothing is truncated
-    monkeypatch.setattr(pip, "_available_budget", lambda device: (N // 4) * bpp)
-    geo = msm_geometry(N, glv=False, device="cpu")
-    assert (geo["pieces"], geo["per"], geo["n"]) == (4, N // 4, N // 4)
-    # with GLV forced on, the doubled set of a budget for N points runs in
-    # two pieces of N/2 input points, N pipeline points each
-    monkeypatch.setattr(pip, "_available_budget", lambda device: N * bpp)
-    geo = msm_geometry(N, glv=True, device="cpu", window_bits=9)
-    assert (geo["pieces"], geo["per"], geo["n"], geo["T"]) == (2, N // 2, N, 15)
-    vals = [3 + 5 * i for i in range(N)]
-    sc = convert.scalars_from_numpy(_scalars_np(vals), device="cpu")
-    got = g1.jacobian_to_ints(msm_g1(sc, A, glv=True, window_bits=9))[0]
-    assert got == _oracle_msm(vals, points)
-    monkeypatch.setattr(pip, "_available_budget", lambda device: (N // 4) * bpp)
-    # GLV "auto" follows the same budget: on only while 2n points fit
-    assert not msm_geometry(N, device="cpu")["glv"]
-    monkeypatch.setattr(pip, "_available_budget", lambda device: 2 * N * bpp)
-    assert msm_geometry(N, device="cpu")["glv"]
-
-
 def test_msm_refuses_bad_inputs(points):
     A = g1.affine_from_ints(points[:8], device="cpu")
-    sc = convert.scalars_from_numpy(_scalars_np([1] * 8), device="cpu")
+    sc = convert.scalars_from_numpy(fr_mont_limbs([1] * 8), device="cpu")
     with pytest.raises(TypeError):
         msm_g1(sc.to(torch.int64), A)
     with pytest.raises(ValueError):

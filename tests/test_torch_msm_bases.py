@@ -3,9 +3,11 @@ cached-bases MSM path of the PyTorch/CUDA port, on the CPU: ``expand_bases``
 and the digit regrouping limb for limb (canonical field results; tolerance 0),
 the JAX package's cached bases in the port's ``msm_with_bases`` and the port's
 in the JAX package's, ``msm_batch`` of 2 against the JAX context's, and
-``scalar_mul_glv``.  The JAX context runs one MSM and one batch, at N = 64 (an
-XLA:CPU compile of its staged MSM costs tens of seconds a shape).  The port's own variants against the host oracle are in
-``tests/test_torch_msm_context.py``; the two files run side by side.
+``scalar_mul_glv``.  The JAX context runs one MSM and one batch, at N = 64
+(an XLA:CPU compile of its staged MSM costs tens of seconds a shape); the
+port's cached bases of the same points are made once for both.  The port's
+own variants against the host oracle are in ``tests/test_torch_msm_context.py``;
+the two files run side by side.
 """
 
 import random
@@ -40,6 +42,7 @@ N = 64
 torch.set_num_threads(1)
 R_MOD = constants.FR_MODULUS
 W = 9           # window bits of the digit cases
+FACTOR = 2      # the cached bases both packages carry across: GLV, factor 2
 
 
 def _scalars_mont(vals):
@@ -81,9 +84,16 @@ def _jaffine(pts):
     return jg1.affine_from_ints(pts)
 
 
+# Each case's JAX expansion has the shapes of a JAX expansion the file runs
+# anyway, so each XLA:CPU compile serves two calls: 16 plain points are one
+# of the sliced case's slices, and the N points with GLV are what the JAX
+# context caches below (its default window is 7 bits at factor 2).
+EXPAND_POINTS = {"plain": 16, "glv": N, "sliced": 32}
+
+
 @pytest.mark.parametrize("case", ["plain", "glv", "sliced"])
 def test_expand_bases_matches_jax_limb_for_limb(data, case, monkeypatch):
-    pts = data["pts"][:32]
+    pts = data["pts"][:EXPAND_POINTS[case]]
     jA, tA = _jaffine(pts), g1.affine_from_ints(pts, device="cpu")
     w, bits = 7, 255
     if case == "glv":
@@ -140,20 +150,25 @@ def jax_side(data):
     """The JAX package's context and its cached bases of the N points
     (factor 2, GLV, its default window)."""
     jctx = jax_g1_context()
-    return jctx, jctx.upload_bases(_jaffine(data["pts"]), precompute_factor=2,
+    return jctx, jctx.upload_bases(_jaffine(data["pts"]), precompute_factor=FACTOR,
                                    glv=True)
 
 
-def test_jax_bases_run_in_the_port_and_the_ports_in_jax(data, jax_side):
+@pytest.fixture(scope="module")
+def port_bases(data):
+    """The port's cached bases of the same points, as the JAX side's."""
+    return data["ctx"].upload_bases(data["A"], precompute_factor=FACTOR, glv=True)
+
+
+def test_jax_bases_run_in_the_port_and_the_ports_in_jax(data, jax_side, port_bases):
     """One JAX context call at N = 64 (factor 2, GLV, its default window):
     the expanded bases equal limb for limb, the JAX package's bases serve the
     port's ``msm_with_bases``, and both packages return the oracle's point."""
     pts, vals, want = data["pts"], data["sets"][0], data["want"][0]
     jctx, jb = jax_side
-    assert (jb.n, jb.factor, jb.glv) == (N, 2, True)
-    ctx = data["ctx"]
-    tb = ctx.upload_bases(data["A"], precompute_factor=2, glv=True)
-    assert (tb.n, tb.factor, tb.glv, tb.window_bits) == (N, 2, True, jb.window_bits)
+    assert (jb.n, jb.factor, jb.glv) == (N, FACTOR, True)
+    ctx, tb = data["ctx"], port_bases
+    assert (tb.n, tb.factor, tb.glv, tb.window_bits) == (N, FACTOR, True, jb.window_bits)
     assert tb.is_precomputed
     A_np, n, factor, w, use_glv = convert.precomputed_bases_to_numpy(tb)
     for g, w_ in zip(A_np, jb.A):
@@ -176,7 +191,7 @@ def test_jax_bases_run_in_the_port_and_the_ports_in_jax(data, jax_side):
             device="cpu")
 
 
-def test_msm_batch_of_2_matches_the_jax_context(data, jax_side):
+def test_msm_batch_of_2_matches_the_jax_context(data, jax_side, port_bases):
     """One JAX ``ctx.msm_batch`` call, B = 2 at N = 64, against the port's on
     the same numpy scalars and the same bases, as affine integers; the first
     member also against the oracle."""
@@ -185,9 +200,7 @@ def test_msm_batch_of_2_matches_the_jax_context(data, jax_side):
     jout = jctx.msm_batch([jnp.asarray(_scalars_mont(v)) for v in sets], jb)
     want = [jg1.jacobian_to_ints(
         jax.tree_util.tree_map(lambda v: v[..., None], P))[0] for P in jout]
-    ctx = data["ctx"]
-    tb = ctx.upload_bases(data["A"], precompute_factor=2, glv=True)
-    got = [_g1(P) for P in ctx.msm_batch([_sc(v) for v in sets], tb)]
+    got = [_g1(P) for P in data["ctx"].msm_batch([_sc(v) for v in sets], port_bases)]
     assert got == want
     assert got[0] == data["want"][0]
 

@@ -138,7 +138,7 @@ def test_msm_g2_golden_vector_1024():
     """The one full-width G2 MSM of this file (a port MSM costs seconds per
     window on the CPU, three times G1's over Fq2).  The identity among the
     points and the scalars 0 and r - 1 are held against the host oracle
-    through the G2 context, at 8 windows an MSM, and the fold of a chunked
+    through the G2 context, at 13 windows an MSM, and the fold of a chunked
     MSM's pieces over Fq2 on its own, in ``tests/test_torch_msm_context.py``;
     the JAX package's whole ``msm_g2`` is not called (its first call costs
     over 200 s of XLA:CPU compile): its stages are held above."""

@@ -10,16 +10,18 @@ against those of ``msm(..., glv=False)``).  The JAX package's own
 ``msm_traceable`` is never called: XLA compiles its one graph for a very long
 time on the CPU.
 
-A port MSM on the CPU costs some 0.4 to 1 s a window, whatever N is, so the
-full calls here are five (w = 8: 33 windows, 14 to 30 s each on one core):
-the edge case through both entries and in standard form, all-zero scalars,
-and the golden vector.  Every case (r - 1 alone too) in both scalar forms
-also compares what the two entries hand the shared window loop, which is
-cheap.  The G2 form is held
-by that comparison here and by value on the card (``chip_smoke.py``'s
-``msm_traceable`` phase: 2^16 tiled points against the host, the golden
-n = 1024 vector, eager and replayed from a CUDA graph); a G2 MSM of even 8
-points costs some 90 s on one core.
+A port MSM on the CPU costs some 0.4 to 1 s a window, whatever N is;
+without GLV at N = 64, w = 5 (52 windows of 16 buckets) costs less than
+w = 8 (33 windows of 128), and at w = 5 the signed digit of r - 1 carries
+into the extra top window.  The full calls here are five: the edge case
+through both entries and in standard form, all-zero scalars, and the golden
+vector (at the window the JAX package's heuristic picks).  Every case (r - 1
+alone too) in both scalar forms also compares what the two entries hand the
+shared window loop, which is cheap.  The G2 form is held by that comparison
+here and by value on the card (``chip_smoke.py``'s ``msm_traceable`` phase:
+2^16 tiled points against the host, the golden n = 1024 vector, eager and
+replayed from a CUDA graph); a G2 MSM of even 8 points costs some 90 s on
+one core.
 """
 
 import json
@@ -48,7 +50,7 @@ from tpu_bls12_381_torch.msm import msm, msm_traceable, pippenger as pip
 torch.set_num_threads(1)
 
 N = 64
-W = 8
+W = 5
 R_MOD = constants.FR_MODULUS
 VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
 
@@ -96,7 +98,7 @@ def A():
 
 @pytest.fixture(scope="module")
 def msm_no_glv(A):
-    """The port's msm with GLV off at w = 8 on the edge case: the limbs that
+    """The port's msm with GLV off at w = 5 on the edge case: the limbs that
     msm_traceable must give."""
     return msm(FQ_ADAPTER, _scalars(VALS), A, window_bits=W, glv=False)
 

@@ -37,6 +37,11 @@ from tpu_bls12_381_torch.ntt import sweeps
 from tpu_bls12_381_torch.runtime import (AsyncHandle, ImmediateHandle, NttContext,
                                          config, reset_config_cache)
 
+# The port's CPU path is thousands of tiny tensor ops; PyTorch's intra-op
+# threads only spin between them, and with several test workers on one
+# machine they starve each other.  One thread is the fastest setting here.
+torch.set_num_threads(1)
+
 K = FR.num_limbs
 VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
 
@@ -134,9 +139,16 @@ def test_inverse_matches_jax_and_round_trips(log_n):
     assert torch.equal(ntt(intt(_t(x))), _t(x))
 
 
+# The card split's cases below, one log_n an ordering.  The orderings test
+# takes the same sizes: the JAX ladder is compiled once a shape and ordering,
+# so both tests share each compile.
+CARD_SPLIT_CASES = [(7, "NN", 4), (8, "NR", 5), (9, "RN", 4), (10, "RR", 5)]
+ORDERING_LOG_N = {name: log_n for log_n, name, _ in CARD_SPLIT_CASES}
+
+
 @pytest.mark.parametrize("name", ["NN", "NR", "RN", "RR"])
 def test_orderings_match_jax(name):
-    x = _rand((32,), 30)
+    x = _rand((1 << ORDERING_LOG_N[name],), 30)
     _same(ntt(_t(x), Ordering(name)), j_ntt(x, JOrdering(name)))
     _same(intt(_t(x), Ordering(name)), j_intt(x, JOrdering(name)))
 
@@ -442,8 +454,7 @@ def test_ladder_split():
     assert NTT_MOD.ladder_tile_log(_t(_rand((16,), 80))) is None   # the CPU: per stage
 
 
-@pytest.mark.parametrize("log_n,name,cap", [(7, "NN", 4), (8, "NR", 5), (9, "RN", 4),
-                                            (10, "RR", 5)])
+@pytest.mark.parametrize("log_n,name,cap", CARD_SPLIT_CASES)
 def test_card_ladder_split_matches_jax(log_n, name, cap, card_split):
     """ntt and intt through one tile of 2^cap rows (natural input: its
     columns, bit-reversed) and butterfly_stages launches (the inverse's 1/n

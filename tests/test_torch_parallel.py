@@ -7,16 +7,12 @@ the step twiddles (the port's mesh at rank r of p, the JAX package's on p of
 conftest's CPU devices), and ``ntt_sharded`` on a one-rank mesh against the
 JAX package's on two devices, natural and transposed (the global layout does
 not depend on p).  The inverse, coset and batch forms are held to the JAX
-package's single-device NTTs.  The sharded MSMs are held by value (affine
-integers: the chunks' association changes Z) to the port's one-device MSM and
-the oracle; the JAX package's sharded MSM is not compiled (minutes on
-XLA:CPU).  A port MSM on the CPU costs some 0.3 s a window and chunk, so the
-cases pick windows, GLV and factors that keep the window count low.  The
-multi-rank runs are in ``test_torch_parallel_dist.py``.
+package's single-device NTTs.  The sharded MSMs are ``test_torch_parallel_msm.py``,
+which runs beside this file; the multi-rank runs are in
+``test_torch_parallel_dist.py``.
 """
 
 import importlib
-import random
 
 import numpy as np
 import pytest
@@ -24,8 +20,6 @@ import torch
 
 import jax.numpy as jnp
 
-from tpu_bls12_381 import oracle as joracle
-from tpu_bls12_381.fields.limbs import ints_to_limbs as jints_to_limbs
 from tpu_bls12_381.ntt import coset_intt as j_coset_intt, coset_ntt as j_coset_ntt
 from tpu_bls12_381.ntt import intt as j_intt, ntt as j_ntt
 from tpu_bls12_381.parallel import build_step_twiddles as j_step_twiddles
@@ -36,19 +30,15 @@ from tpu_bls12_381.parallel.ntt import split_sizes as j_split_sizes
 
 import tpu_bls12_381_torch.parallel as parallel
 from tpu_bls12_381_torch import constants
-from tpu_bls12_381_torch.curves import g1, g2
-from tpu_bls12_381_torch.curves.field_adapters import FQ2_ADAPTER, FQ_ADAPTER
-from tpu_bls12_381_torch.fields import FR
-from tpu_bls12_381_torch.msm import expand_bases, msm_chunked, msm_g1, msm_precomputed
-from tpu_bls12_381_torch.msm.pippenger import glv_extend_bases
 from tpu_bls12_381_torch.parallel import (build_step_twiddles, coset_intt_sharded,
                                           coset_ntt_sharded, default_mesh, init_distributed,
-                                          intt_sharded, msm_g1_sharded, msm_g2_sharded,
-                                          ntt_batch_sharded, ntt_sharded)
+                                          intt_sharded, ntt_batch_sharded, ntt_sharded)
 from tpu_bls12_381_torch.parallel.mesh import Mesh, local_block
 from tpu_bls12_381_torch.parallel.msm import chunk_msm_inputs, shard_msm_inputs
 from tpu_bls12_381_torch.parallel.ntt import coset_powers_sharded, split_sizes
 from tpu_bls12_381_torch.runtime import Accelerator, Config, config, reset_config_cache
+
+from torch_shared import fr_mont_limbs, limbs_to_tensor as T
 
 torch.set_num_threads(1)
 
@@ -58,16 +48,6 @@ LOG_N = 8
 CPU = torch.device("cpu")
 
 
-def _fr_mont(vals):
-    """Montgomery limbs (16, n) uint32, as the JAX package takes them."""
-    return jints_to_limbs([FR.to_mont(v % R_MOD) for v in vals], 16)
-
-
-def T(a):
-    """numpy limbs -> the port's int32 tensor on the CPU."""
-    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
-
-
 def U(t):
     """The port's limbs -> numpy uint32, the JAX package's dtype."""
     return t.numpy().astype(np.uint32)
@@ -75,7 +55,7 @@ def U(t):
 
 def _fr_vector(seed, n):
     rng = np.random.default_rng(seed)
-    return _fr_mont([int.from_bytes(rng.bytes(32), "little") for _ in range(n)])
+    return fr_mont_limbs([int.from_bytes(rng.bytes(32), "little") for _ in range(n)])
 
 
 def _one_rank():
@@ -156,7 +136,7 @@ def test_step_twiddles_rows_match_jax(p, inverse):
 
 def test_coset_powers_sharded_are_the_ranks_columns():
     n, p = 1 << LOG_N, 4
-    want = _fr_mont([pow(SHIFT, i, R_MOD) for i in range(n)])
+    want = fr_mont_limbs([pow(SHIFT, i, R_MOD) for i in range(n)])
     for rank in range(p):
         mesh = Mesh(None, rank, p, CPU)
         got = coset_powers_sharded(SHIFT, n, mesh)
@@ -217,92 +197,6 @@ def test_ntt_sharded_refuses_sizes_as_jax():
         ntt_sharded(torch.zeros(16, 12, dtype=torch.int32), mesh)
     with pytest.raises(ValueError, match="too small to split over 8 devices"):
         ntt_sharded(torch.zeros(16, 2, dtype=torch.int32), Mesh(None, 0, 8, CPU))
-
-
-# -----------------------------------------------------------------------------
-# The sharded MSM, by value
-# -----------------------------------------------------------------------------
-
-N_G1 = 32
-
-
-def _g1_ints(P):
-    return g1.jacobian_to_ints(tuple(c[:, None] for c in P))[0]
-
-
-@pytest.fixture(scope="module")
-def g1_case():
-    """32 points and scalars, the oracle's MSM and the port's one-device
-    ``msm_g1`` (GLV, window 5: 26 windows)."""
-    rng = random.Random(0x5A4D)
-    G = joracle.g1_generator()
-    pts = [joracle.jac_to_affine(joracle.scalar_mul(rng.randrange(1, 1 << 48), G,
-                                                    joracle.FQ_OPS), joracle.FQ_OPS)
-           for _ in range(N_G1)]
-    vals = [rng.randrange(R_MOD) for _ in range(N_G1)]
-    A = g1.affine_from_ints(pts, device="cpu")
-    sc = T(_fr_mont(vals))
-    want = joracle.jac_to_affine(joracle.msm(vals, pts, joracle.FQ_OPS), joracle.FQ_OPS)
-    single = _g1_ints(msm_g1(sc, A, window_bits=5, glv=True))
-    assert single == want
-    return sc, A, want
-
-
-def test_msm_g1_sharded_over_two_chunks(g1_case):
-    """D = 2, GLV off, factor 4 (13 windows a chunk at w = 5, where factor 1
-    takes 51).  GLV at factor 1, where a chunk extends its own bases, is the
-    multi-rank file's case."""
-    sc, A, want = g1_case
-    w, factor = 5, 4
-    sc_c, A_c = chunk_msm_inputs(sc, expand_bases(FQ_ADAPTER, A, w, factor), 2,
-                                 segments=factor)
-    assert _g1_ints(msm_g1_sharded(sc_c, A_c, window_bits=w, glv=False,
-                                   factor=factor)) == want
-
-
-def test_msm_g1_sharded_factor2_over_four_chunks(g1_case):
-    """D = 4, factor 2 with GLV, laid out as ``precompute`` does: GLV-extend,
-    expand, then 4 segments a chunk (11 windows a chunk at w = 6)."""
-    sc, A, want = g1_case
-    w, factor = 6, 2
-    Ae = expand_bases(FQ_ADAPTER, glv_extend_bases(FQ_ADAPTER, A), w, factor, 128)
-    sc_c, A_c = chunk_msm_inputs(sc, Ae, 4, segments=2 * factor)
-    got = msm_g1_sharded(sc_c, A_c, window_bits=w, glv=True, factor=factor)
-    assert _g1_ints(got) == want
-
-
-def test_msm_g2_sharded_matches_one_device_and_oracle():
-    """G2 over 2 chunks at factor 8 and w = 8 (4 windows a chunk where
-    factor 1 takes 32): held to the oracle and to the one-device precomputed
-    MSM on the same expanded bases."""
-    n, w, factor = 16, 8, 8
-    rng = random.Random(0x6232)
-    G2 = joracle.g2_generator()
-    pts = [joracle.jac_to_affine(joracle.scalar_mul(rng.randrange(1, 1 << 48), G2,
-                                                    joracle.FQ2_OPS), joracle.FQ2_OPS)
-           for _ in range(n)]
-    vals = [rng.randrange(R_MOD) for _ in range(n)]
-    A = g2.affine_from_ints(pts, device="cpu")
-    sc = T(_fr_mont(vals))
-    want = joracle.jac_to_affine(joracle.msm(vals, pts, joracle.FQ2_OPS), joracle.FQ2_OPS)
-    Ae = expand_bases(FQ2_ADAPTER, A, w, factor)
-    sc_c, A_c = chunk_msm_inputs(sc, Ae, 2, segments=factor)
-    got = msm_g2_sharded(sc_c, A_c, window_bits=w, factor=factor)
-    ints = lambda P: g2.jacobian_to_ints(tuple(c[..., None] for c in P))[0]
-    assert ints(got) == want
-    assert ints(msm_precomputed(FQ2_ADAPTER, sc, Ae, window_bits=w, factor=factor)) == want
-
-
-def test_msm_sharded_refuses_inputs_it_cannot_run():
-    sc = torch.zeros(2, 16, 4, dtype=torch.int32)
-    A = (torch.zeros(2, 24, 4, dtype=torch.int32), torch.zeros(2, 24, 4, dtype=torch.int32),
-         torch.ones(2, 4, dtype=torch.bool))
-    with pytest.raises(ValueError, match="disagree on the chunk count"):
-        msm_chunked(FQ_ADAPTER, sc[:1], A)
-    with pytest.raises(ValueError, match="not on the mesh's device"):
-        msm_g1_sharded(sc, A, Mesh(None, 0, 1, torch.device("meta")))
-    with pytest.raises(ValueError, match="msm_sharded: a mesh of 2 ranks has no process"):
-        msm_g1_sharded(sc[:1], tuple(c[:1] for c in A), Mesh(None, 1, 2, CPU))
 
 
 # -----------------------------------------------------------------------------

@@ -21,6 +21,11 @@ import subprocess
 import sys
 
 import numpy as np
+import torch
+
+# One intra-op thread, in the test process and in each rank's worker (which
+# runs this file): the port's CPU path is thousands of tiny tensor ops.
+torch.set_num_threads(1)
 
 LOG_N = 8
 MSM_N = 64
@@ -31,10 +36,8 @@ SHIFT = 7          # the coset shift: Fr's multiplicative generator
 
 
 def _worker(data_dir: str) -> int:
-    import torch
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
     from tpu_bls12_381_torch import convert
     from tpu_bls12_381_torch.curves import g1
     from tpu_bls12_381_torch.parallel import (coset_intt_sharded, coset_ntt_sharded,

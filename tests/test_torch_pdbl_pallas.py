@@ -11,10 +11,7 @@ plain versions and the JAX package's ``proj_double``.
 """
 
 import ctypes
-import os
 import random
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -28,24 +25,17 @@ from tpu_bls12_381_torch import oracle
 from tpu_bls12_381_torch.curves import cuda_g1, g1, projective as pj
 from tpu_bls12_381_torch.curves.field_adapters import FQ_PLAIN
 
+from torch_shared import host_check_library
+
 torch.set_num_threads(1)
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "tpu_bls12_381_torch", "csrc")
 N = 8
 TIMES = (1, 2, 15)
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler (g++ / c++) on this machine")
-    out = tmp_path_factory.mktemp("host_check") / "libhost_check.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
-                    "-o", str(out), os.path.join(CSRC, "host_check.cpp")],
-                   check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
+    return host_check_library(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

@@ -296,9 +296,12 @@ def _non_members(count=2):
     return out
 
 
-def test_g1_is_in_subgroup_members_non_members_identity():
-    """The mask of the JAX package's ``test_subgroup_membership``; the G2
-    case is in ``tests/test_torch_points_g2.py``."""
+@pytest.fixture(scope="module")
+def subgroup_case():
+    """Two members, two non-members and the identity; ``is_in_subgroup``'s
+    mask on the CPU, and the [r]P limbs its generic loop (``scalar_mul``)
+    computed on the way, recorded so that the ladder route's test holds its
+    limbs to them without a second 255-bit loop."""
     rng = random.Random(13)
     G = oracle.g1_generator()
     members = [oracle.jac_to_affine(oracle.scalar_mul(rng.randrange(1, R_MOD), G,
@@ -306,25 +309,37 @@ def test_g1_is_in_subgroup_members_non_members_identity():
                for _ in range(2)]
     pts = members + _non_members() + [None]
     A = g1.affine_from_ints(pts, device="cpu")
+    generic, seen = pt.scalar_mul, []
+
+    def recorded(*args, **kw):
+        seen.append(generic(*args, **kw))
+        return seen[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pt, "scalar_mul", recorded)
+        mask = pt.is_in_subgroup(F1, A)
+    (rP,) = seen
+    return {"pts": pts, "A": A, "mask": mask, "rP": rP}
+
+
+def test_g1_is_in_subgroup_members_non_members_identity(subgroup_case):
+    """The mask of the JAX package's ``test_subgroup_membership``; the G2
+    case is in ``tests/test_torch_points_g2.py``."""
+    pts, A, got = (subgroup_case[k] for k in ("pts", "A", "mask"))
     assert pt.is_on_curve_affine(F1, A, g1.b_mont((5,), "cpu")).all()
-    got = pt.is_in_subgroup(F1, A)
     assert got.tolist() == [True, True, False, False, True]
     _assert_limbs_equal((got,), (jpt.is_in_subgroup(JF, jg1.affine_from_ints(pts)),), F1)
 
 
-def test_g1_is_in_subgroup_through_the_ladder_route(monkeypatch):
+def test_g1_is_in_subgroup_through_the_ladder_route(subgroup_case, monkeypatch):
     """``ladder_kernel`` forced to ``cuda_g1.jac_ladder`` on CPU tensors, where
     the wrapper takes ``jac_ladder_plain``: ``scalar_mul`` lays A out and hands
     r over as one (16, 1) column (a lane stride of 0, never copied out to the
     batch), one ladder call for the whole check, and ``is_in_subgroup`` gives
     the masks of ``test_g1_is_in_subgroup_members_non_members_identity``; the
-    ladder's limbs equal the generic loop's (``scalar_mul`` on the CPU)."""
-    rng = random.Random(13)
-    G = oracle.g1_generator()
-    members = [oracle.jac_to_affine(oracle.scalar_mul(rng.randrange(1, R_MOD), G,
-                                                      oracle.FQ_OPS), oracle.FQ_OPS)
-               for _ in range(2)]
-    A = g1.affine_from_ints(members + _non_members() + [None], device="cpu")
+    ladder's limbs equal the generic loop's (``scalar_mul`` on the CPU, as
+    ``is_in_subgroup`` ran it there)."""
+    A = subgroup_case["A"]
     calls = []
 
     def ladder(k, A_, num_bits):
@@ -336,10 +351,7 @@ def test_g1_is_in_subgroup_through_the_ladder_route(monkeypatch):
     got = pt.is_in_subgroup(F1, A)
     assert got.tolist() == [True, True, False, False, True]
     assert calls[0] == ((16, 1), 255) and len(calls) == 2
-    monkeypatch.undo()
-    r = _scalar_limbs([R_MOD])
-    generic = pt.scalar_mul(F1, r, A)
-    assert all(torch.equal(a, b) for a, b in zip(calls[1], generic))
+    assert all(torch.equal(a, b) for a, b in zip(calls[1], subgroup_case["rP"]))
 
 
 @pytest.mark.parametrize("bad", ["expanded", "shape", "bits"])
